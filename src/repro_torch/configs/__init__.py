@@ -1,0 +1,53 @@
+"""Config registry: ``--arch <id>`` lookup for every assigned architecture."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ArchConfig, reduced
+from repro_torch.configs import (
+    whisper_large_v3,
+    yi_6b,
+    qwen15_4b,
+    minitron_4b,
+    rwkv6_1b6,
+    qwen2_vl_7b,
+    zamba2_2b7,
+    qwen3_4b,
+    mixtral_8x22b,
+    dbrx_132b,
+)
+
+REGISTRY: dict[str, ArchConfig] = {
+    "whisper-large-v3": whisper_large_v3.CONFIG,
+    "yi-6b": yi_6b.CONFIG,
+    "qwen1.5-4b": qwen15_4b.CONFIG,
+    "minitron-4b": minitron_4b.CONFIG,
+    "rwkv6-1.6b": rwkv6_1b6.CONFIG,
+    "qwen2-vl-7b": qwen2_vl_7b.CONFIG,
+    "zamba2-2.7b": zamba2_2b7.CONFIG,
+    "qwen3-4b": qwen3_4b.CONFIG,
+    "qwen3-4b-swa": qwen3_4b.CONFIG_SWA,   # beyond-paper long-context variant
+    "mixtral-8x22b": mixtral_8x22b.CONFIG,
+    "dbrx-132b": dbrx_132b.CONFIG,
+}
+
+# The 10 assigned architectures (qwen3-4b-swa is a variant, not an assignment).
+ASSIGNED = [
+    "whisper-large-v3",
+    "yi-6b",
+    "qwen1.5-4b",
+    "minitron-4b",
+    "rwkv6-1.6b",
+    "qwen2-vl-7b",
+    "zamba2-2.7b",
+    "qwen3-4b",
+    "mixtral-8x22b",
+    "dbrx-132b",
+]
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+__all__ = ["ArchConfig", "REGISTRY", "ASSIGNED", "get_config", "reduced"]

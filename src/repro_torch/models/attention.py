@@ -1,0 +1,188 @@
+"""GQA self-attention with a KV cache: prompt (prefill) and one-token
+decode.
+
+Counterpart of the JAX package's ``models/attention.py`` for dense
+decoder blocks: GQA, optional QKV bias, qk_norm (per-head RMSNorm on q/k
+as in Qwen3), RoPE, sliding windows, and a heads-major KV cache with
+linear or rolling writes.  Attention itself goes through the kernels:
+``flash_attention`` for the prompt and ``decode_attention`` for each
+generated token (CUDA kernels on the card, their plain versions on the
+CPU).  Cross-attention arrives with the whisper slice and M-RoPE with the
+vision slice.
+
+Unlike the JAX functions, the cache is updated in place: the functions
+write into ``cache.k`` / ``cache.v`` / ``cache.pos`` and return the same
+object.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import rope as rope_lib
+from repro_torch.models.layers import _dense_init, rms_norm
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def init_attention(generator, cfg, device):
+    d, hd = cfg.d_model, cfg.hd
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    p = {
+        "wq": _dense_init((d, H * hd), generator, device),
+        "wk": _dense_init((d, KV * hd), generator, device),
+        "wv": _dense_init((d, KV * hd), generator, device),
+        "wo": _dense_init((H * hd, d), generator, device),
+    }
+    zeros = lambda n: torch.zeros((n,), dtype=torch.float32, device=device)
+    if cfg.qkv_bias:
+        p["bq"], p["bk"], p["bv"] = zeros(H * hd), zeros(KV * hd), zeros(KV * hd)
+    if cfg.qk_norm:
+        p["q_norm"], p["k_norm"] = zeros(hd), zeros(hd)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Projections
+# ---------------------------------------------------------------------------
+
+def _project_qkv(p, x, cfg):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _apply_positions(q, k, positions, cfg):
+    if cfg.rope_theta <= 0:
+        return q, k
+    if cfg.m_rope:
+        raise NotImplementedError("M-RoPE arrives with the qwen2-vl (vision) slice")
+    return (rope_lib.apply_rope(q, positions, cfg.rope_theta),
+            rope_lib.apply_rope(k, positions, cfg.rope_theta))
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KVCache:
+    """Decode KV cache, stored heads-major: (B, KV, S_buf, hd), as in the
+    JAX package.  The decode kernel reads it through the strided view
+    ``k.transpose(1, 2)``."""
+    k: torch.Tensor       # (B, KV, S_buf, hd)
+    v: torch.Tensor       # (B, KV, S_buf, hd)
+    pos: torch.Tensor     # (B,) int32, next absolute position to write
+    window: int = 0       # 0 = linear buffer; >0 = rolling SWA buffer
+
+    @property
+    def rolling(self) -> bool:
+        return self.window > 0
+
+
+def init_kv_cache(batch, max_len, cfg, *, window: Optional[int] = None,
+                  dtype=torch.bfloat16, device=None):
+    """window: cap the buffer at the sliding window (rolling writes)."""
+    buf = max_len if window is None else min(max_len, window)
+    shape = (batch, cfg.n_kv_heads, buf, cfg.hd)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.zeros((batch,), dtype=torch.int32, device=device),
+        window=0 if window is None else buf,
+    )
+
+
+def update_kv_cache(cache: KVCache, k_new, v_new):
+    """Append one token in place. k_new: (B, 1, KV, hd).
+
+    All sequences decode in lockstep, so the write index is one scalar:
+    ``pos % buf`` for a rolling buffer, else ``min(max(pos), buf - 1)``.
+    It stays on the device (no host sync)."""
+    buf = cache.k.shape[2]
+    pos0 = cache.pos.max()
+    idx = pos0 % buf if cache.rolling else torch.clamp(pos0, max=buf - 1)
+    idx = idx.reshape(1).long()
+    cache.k.index_copy_(2, idx, k_new.transpose(1, 2).to(cache.k.dtype))
+    cache.v.index_copy_(2, idx, v_new.transpose(1, 2).to(cache.v.dtype))
+    cache.pos += 1
+    return cache
+
+
+def cache_kv_positions(cache: KVCache):
+    """Absolute position of every buffer slot (rolling-aware). (B, S_buf)
+    int32, -1 for slots never written."""
+    B, buf = cache.k.shape[0], cache.k.shape[2]
+    slots = torch.arange(buf, dtype=torch.int32, device=cache.k.device)[None, :]
+    if not cache.rolling:
+        return slots.expand(B, buf)
+    # slot s holds absolute position: the largest p < pos with p % buf == s
+    pos = cache.pos[:, None]
+    cand = pos - 1 - torch.remainder(pos - 1 - slots, buf)
+    return torch.where(cand >= 0, cand, -1).to(torch.int32)
+
+
+def _store_prefix_kv(cache: KVCache, k, v, S: int) -> KVCache:
+    """Write a full prompt's (rotated) K/V into the cache buffer in place;
+    slots past the prompt are zeroed, as in the JAX package."""
+    buf = cache.k.shape[2]
+    take = min(S, buf)
+    kw = k[:, -take:].transpose(1, 2)      # (B, KV, take, hd)
+    vw = v[:, -take:].transpose(1, 2)
+    if cache.rolling and S > buf:
+        kw = torch.roll(kw, shifts=S % buf, dims=2)
+        vw = torch.roll(vw, shifts=S % buf, dims=2)
+    cache.k[:, :, :take] = kw
+    cache.v[:, :, :take] = vw
+    cache.k[:, :, take:] = 0
+    cache.v[:, :, take:] = 0
+    cache.pos.fill_(S)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+def attention_decode(p, x, cfg, cache: KVCache):
+    """One-token decode. x: (B, 1, d). Returns (y, cache)."""
+    B = x.shape[0]
+    positions = cache.pos[:, None].clone()                           # (B, 1)
+    q, k_new, v_new = _project_qkv(p, x, cfg)
+    q, k_new = _apply_positions(q, k_new, positions, cfg)
+    cache = update_kv_cache(cache, k_new, v_new)
+    kv_pos = cache_kv_positions(cache)
+    if not cache.rolling:
+        # the JAX path's kv_valid_len = pos: slots at or past it are unwritten
+        kv_pos = torch.where(kv_pos < cache.pos[:, None], kv_pos, -1)
+    o = ops.decode_attention(q, cache.k.transpose(1, 2), cache.v.transpose(1, 2),
+                             positions[:, 0], kv_pos, window=cfg.sliding_window)
+    return o.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"], cache
+
+
+def attention_prefill(p, x, cfg, cache: KVCache):
+    """Prompt pass: one set of QKV projections feeds both the attention
+    output and the decode cache.  Returns (out, cache)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    q, k, v = _project_qkv(p, x, cfg)
+    q, k = _apply_positions(q, k, positions, cfg)
+    o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    out = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+    return out, _store_prefix_kv(cache, k, v, S)

@@ -1,0 +1,103 @@
+"""PyTorch serving engine (Triton-process analogue) on one GPU.
+
+Counterpart of the JAX package's ``serving/engine.py`` with the same
+batching and padding: requests queue up; each serving pass takes up to
+``batch_size`` of them, zero-pads every prompt to ``prompt_len``, runs one
+prefill (flash-attention kernel) and ``decode_tokens - 1`` greedy decode
+steps (flash-decode kernel), and returns ``decode_tokens`` tokens per
+request.  Latency runs from a request's arrival to the moment its output
+tokens reach the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.zoo import Model, build_model
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    tokens: np.ndarray            # (prompt_len,)
+    arrival_s: float
+    extras: Optional[Dict] = None
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    tokens: np.ndarray
+    latency_ms: float
+
+
+class ServingEngine:
+    """``device=None`` serves on cuda:0 and raises without CUDA; pass
+    ``device="cpu"`` for the plain path.  ``params`` (e.g. from
+    ``convert.params_from_jax``) replaces the seeded random weights."""
+
+    def __init__(self, cfg: ArchConfig, *, batch_size: int, prompt_len: int,
+                 decode_tokens: int = 4, seed: int = 0, params=None,
+                 device=None):
+        self.cfg = cfg
+        self.model: Model = build_model(cfg, device)
+        self.device = self.model.device
+        self.batch_size = batch_size
+        self.prompt_len = prompt_len
+        self.decode_tokens = decode_tokens
+        self.params = params if params is not None else self.model.init(seed)
+        self.queue: Deque[Request] = deque()
+        self.latencies: List[float] = []
+        # One cache per engine, in float32 as in the JAX engine.  Each pass
+        # resets it: prefill overwrites every slot and the write position.
+        self._cache = self.model.init_cache(
+            batch_size, prompt_len + decode_tokens + 8, dtype=torch.float32)
+        # warm-up (and first-use kernel build) so latencies are steady-state
+        self._serve(np.zeros((batch_size, prompt_len), np.int32))
+
+    @torch.inference_mode()
+    def _serve(self, tokens: np.ndarray) -> np.ndarray:
+        toks = torch.from_numpy(tokens).to(self.device)
+        logits, cache = self.model.prefill(self.params, {"tokens": toks},
+                                           self._cache)
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        outs = [tok]
+        for _ in range(self.decode_tokens - 1):
+            lg, cache = self.model.decode_step(self.params, tok, cache)
+            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            outs.append(tok)
+        return torch.cat(outs, dim=1).cpu().numpy()
+
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def pump(self) -> List[Completion]:
+        """Serve one batch if any requests are queued."""
+        if not self.queue:
+            return []
+        take = [self.queue.popleft()
+                for _ in range(min(self.batch_size, len(self.queue)))]
+        B, S = self.batch_size, self.prompt_len
+        toks = np.zeros((B, S), np.int32)
+        for i, r in enumerate(take):
+            t = r.tokens[:S]
+            toks[i, :len(t)] = t
+        out = self._serve(toks)          # returns after the copy to the host
+        done = time.time()
+        comps = []
+        for i, r in enumerate(take):
+            lat = (done - r.arrival_s) * 1000.0
+            self.latencies.append(lat)
+            comps.append(Completion(rid=r.rid, tokens=out[i], latency_ms=lat))
+        return comps
+
+    def p99_ms(self, window: int = 200) -> float:
+        if not self.latencies:
+            return 0.0
+        return float(np.percentile(self.latencies[-window:], 99))
