@@ -9,14 +9,17 @@ Phases (any failure raises and exits non-zero):
   3. kernels  -- each CUDA kernel against its plain PyTorch version on the
                  card: the shape grid of tests/test_kernels.py in f32 and
                  bf16 (tolerance 2e-5 / 2e-2), a ragged S, rolling slots with
-                 a row that has no valid slot, and the slice's own shapes
+                 a row that has no valid slot, caches cut into one chunk and
+                 into chunks of two tiles, and the slice's own shapes; inputs
+                 no kernel is built for raise
   4. slice    -- ServingEngine over qwen3-4b at full width and depth (f32,
                  random weights from a torch.Generator on the card) answers
                  16 requests in 4 pumps; the kernels' launch counters are read
                  over those pumps alone; the first decode step's logits must
                  equal a prefill over prompt + that token (rel. err <= 1e-3);
                  a reduced qwen3-4b on the card must match the same model's
-                 plain CPU path (rel. err <= 1e-4)
+                 plain CPU path (rel. err <= 1e-4); one prefill and one
+                 decode step alone, on the host clock and under torch.profiler
   5. timing   -- device time (torch.profiler) of each kernel, its plain
                  version and one PyTorch library call (scaled_dot_product_
                  attention, a yardstick the port never calls) at the slice's
@@ -117,7 +120,6 @@ def check_flash(dev, rng):
              for c, w in [(True, None), (False, None), (True, 64)]]
     cases += [(2, 100, 4, 2, hd, dt, True, w) for hd in (32, 128)
               for dt in (torch.float32, torch.bfloat16) for w in (None, 16)]
-    cases += [(2, 200, 8, 2, 256, torch.float32, False, 48)]
     cases += [(BATCH, PROMPT + 1, 32, 8, 128, torch.float32, True, None)]
     for B, S, H, KV, hd, dt, causal, window in cases:
         q = rand(rng, (B, S, H, hd), dt, dev)
@@ -133,14 +135,31 @@ def check_flash(dev, rng):
                       ref.attention_ref(q, k, v), TOL[torch.float32])
     log(f"kernels: flash_attention matches its plain version on {len(cases) + 1} "
         f"cases; slice-shape max_abs_err {err:.3g}")
+    x = torch.zeros((1, 64, 2, 96), device=dev)          # head_dim 96: no kernel
+    expect_refusal("flash_attention head_dim 96", lambda: flash_attention(x, x, x))
     return err
+
+
+def expect_refusal(name, fn):
+    """The C interface refuses inputs it has no kernel for; the wrapper
+    raises ValueError and counts no launch."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    try:
+        fn()
+    except ValueError:
+        assert ops.launch_counts() == before, name
+        return
+    raise AssertionError(f"{name}: accepted")
 
 
 def check_decode(dev, rng):
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     n = 0
-    for S, H, KV, hd in [(512, 4, 2, 64), (1024, 8, 8, 64), (256, 4, 1, 128), (300, 16, 2, 32)]:
+    # test_kernels.py's grid, a ragged S, one chunk (S=48) and chunks of two tiles (S=2000)
+    for S, H, KV, hd in [(512, 4, 2, 64), (1024, 8, 8, 64), (256, 4, 1, 128), (300, 16, 2, 32),
+                         (48, 4, 2, 64), (2000, 8, 8, 64)]:
         for dt in (torch.float32, torch.bfloat16):
             for window in (None, 128):
                 B = 2
@@ -163,6 +182,10 @@ def check_decode(dev, rng):
     check_close("decode rolling", out, ref.decode_attention_ref(q, k, v, qpos, kvpos), 2e-5)
     check_close("decode no valid slot = mean(V)", out[1, 0],
                 v[1].mean(0).repeat_interleave(H // KV, dim=0), 2e-5)
+    q, kv = torch.zeros((1, 1, 32, 64), device=dev), torch.zeros((1, 64, 1, 64), device=dev)
+    pos = torch.zeros((1, 64), dtype=torch.int32, device=dev)
+    expect_refusal("decode_attention 32 query heads per kv head",
+                   lambda: decode_attention(q, kv, kv, pos[:, 0], pos))
     # the slice's decode shape: the engine's heads-major cache, read as a view
     err = decode_slice_case(dev, rng)
     log(f"kernels: decode_attention matches its plain version on {n + 3} cases; "
@@ -273,10 +296,69 @@ def run_slice(dev):
              "tokens_per_s": len(done) * DECODE / wall,
              "prefill_ms": (t1 - t0) * 1e3, "decode_step_ms": (t2 - t1) * 1e3,
              "decode_vs_prefill_rel_err": rel,
+             "alone": profile_alone(model, params, cfg, toks, tok, buf),
              "profile": profile_pump(eng, prompts[:BATCH], wall * 1e3 / PUMPS)}
     del eng, model, params, cache
     torch.cuda.empty_cache()
     return launches, stats
+
+
+def kernel_groups(prof):
+    """Device ms by kernel group in one torch.profiler run."""
+    groups = {"flash_attention": 0.0, "decode_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    for key, us in device_kernels_us(prof):
+        name = key.lower()
+        if "flash_attn_kernel" in name:
+            groups["flash_attention"] += us / 1e3
+        elif "decode_attn" in name:
+            groups["decode_attention"] += us / 1e3
+        elif "gemm" in name or "gemv" in name or "cutlass" in name:
+            groups["matmul"] += us / 1e3
+        else:
+            groups["other"] += us / 1e3
+    if sum(groups.values()) <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return groups
+
+
+def aten_calls(prof):
+    """ATen operator calls the host issued in one torch.profiler run,
+    nested calls included."""
+    return sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
+
+
+def prefill_matmul_flops(cfg, batch, seq):
+    """Operations of the prefill's matrix products, from the shapes: QKV, O
+    and the three SwiGLU projections in every layer, and the head on the
+    last token."""
+    T, d, hd = batch * seq, cfg.d_model, cfg.hd
+    per_layer = (2 * T * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+                 + 2 * T * cfg.n_heads * hd * d + 3 * 2 * T * d * cfg.d_ff)
+    return cfg.n_layers * per_layer + 2 * batch * d * cfg.vocab_size
+
+
+def profile_alone(model, params, cfg, toks, tok, buf):
+    """One prefill and then one decode step, each alone under
+    torch.profiler: device ms by group, the prefill's matmul rate, and the
+    host's ATen calls per layer of the decode step."""
+    with torch.inference_mode():
+        cache = model.init_cache(BATCH, buf, dtype=torch.float32)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=ACTIVITIES) as prof:
+            model.prefill(params, {"tokens": toks}, cache)
+            torch.cuda.synchronize()
+        prefill = kernel_groups(prof)
+        with torch.profiler.profile(activities=ACTIVITIES) as prof:
+            model.decode_step(params, tok, cache)
+            torch.cuda.synchronize()
+        decode = kernel_groups(prof)
+        decode_aten = aten_calls(prof)
+    flops = prefill_matmul_flops(cfg, BATCH, PROMPT)
+    return {"prefill_device_ms": prefill,
+            "prefill_matmul_tflop": flops / 1e12,
+            "prefill_matmul_tflop_per_s": flops / (prefill["matmul"] * 1e-3) / 1e12,
+            "decode_step_device_ms": decode,
+            "decode_step_aten_calls_per_layer": decode_aten / cfg.n_layers}
 
 
 def profile_pump(eng, prompts, pump_ms):
@@ -288,22 +370,9 @@ def profile_pump(eng, prompts, pump_ms):
         eng.submit(Request(rid=1000 + i, tokens=p, arrival_s=time.time()))
     with torch.profiler.profile(activities=ACTIVITIES) as prof:
         eng.pump()
-    groups = {"flash_attention": 0.0, "decode_attention": 0.0, "matmul": 0.0, "other": 0.0}
-    for key, us in device_kernels_us(prof):
-        name = key.lower()
-        if "flash_attn_kernel" in name:
-            groups["flash_attention"] += us / 1e3
-        elif "decode_attn_kernel" in name:
-            groups["decode_attention"] += us / 1e3
-        elif "gemm" in name or "gemv" in name or "cutlass" in name:
-            groups["matmul"] += us / 1e3
-        else:
-            groups["other"] += us / 1e3
-    busy = sum(groups.values())
-    if busy <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
+    groups = kernel_groups(prof)
     return {"pump_ms": pump_ms, "device_ms": groups,
-            "idle_share": max(0.0, 1.0 - busy / pump_ms)}
+            "idle_share": max(0.0, 1.0 - sum(groups.values()) / pump_ms)}
 
 
 def _leaves(tree):
@@ -443,7 +512,9 @@ def main():
                time_decode(dev, rng, launches, decode_err)]
     for k in kernels:
         log(f"timing: {k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
-            f"library {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by {k['bound_by']})")
+            f"library {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by {k['bound_by']}); "
+            f"plain / kernel = {k['plain_ms'] / k['ms']:.2f}, "
+            f"{k['bound_ms'] / k['ms']:.1%} of bound")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"slice": {**stats, "gpu": smi}}))

@@ -1,16 +1,17 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
 ``csrc/attention.cu`` has a plain C interface and includes no PyTorch
-header, so ``nvcc`` turns it into a shared library in seconds; the
-library is loaded with ``ctypes`` and called with raw device pointers and
-PyTorch's current stream.  (Building through
-``torch.utils.cpp_extension.load`` would compile PyTorch's headers for a
-binding file, which takes minutes on every fresh machine.)
+header, so ``nvcc`` compiles that one source and nothing else into a
+shared library, which is loaded with ``ctypes`` and called with raw
+device pointers and PyTorch's current stream.  (A binding through
+``torch.utils.cpp_extension.load`` would compile PyTorch's headers as
+well, on every fresh machine.)
 
-The library goes to ``build/kernels/`` at the repository root (listed in
-``.gitignore``), named by a hash of the source and flags, so an edited
-source rebuilds and an unchanged one loads the existing file.  Nothing is
-compiled when this module is imported.
+The library goes to ``build/kernels/`` at the root of the source checkout
+(listed in ``.gitignore``), named by a hash of the source and flags, so an
+edited source rebuilds and an unchanged one loads the existing file.  The
+port runs from the source tree (``PYTHONPATH=src``); it is not installed
+as a package.  Nothing is compiled when this module is imported.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "attention.cu",)
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+ROOT = Path(__file__).resolve().parents[3]       # <root>/src/repro_torch/kernels
+BUILD_DIR = ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -65,7 +67,7 @@ def _bind(lib):
         i32, i32, vp, vp, vp, vp, i32, i32, i32, i32, i64p, i32, i32, f32, vp]
     lib.repro_flash_attention.restype = i32
     lib.repro_decode_attention.argtypes = [
-        i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i64p, i32, f32, vp]
+        i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i64p, i32, f32, vp]
     lib.repro_decode_attention.restype = i32
     return lib
 
@@ -76,6 +78,10 @@ def load():
     with _lock:
         if _lib is not None:
             return _lib
+        if not (ROOT / "src" / "repro_torch").is_dir():
+            raise RuntimeError(f"repro_torch at {CSRC.parents[1]} is not inside a source "
+                               "checkout; the kernels build into the checkout's "
+                               "build/kernels (run with PYTHONPATH=src)")
         t0 = time.perf_counter()
         path = library_path()
         if not path.exists():
@@ -95,8 +101,17 @@ def load():
         return _lib
 
 
+CUDA_ERROR_INVALID_VALUE = 1
+
+
 def check(err: int, name: str):
-    """Raise if a launch was refused (the C function returns cudaError_t)."""
+    """Raise if a launch was refused (the C function returns cudaError_t).
+    cudaErrorInvalidValue is how the C interface refuses a head_dim, dtype
+    or query-group size that it has no kernel for."""
+    if err == CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"{name}: no kernel for these inputs (head_dim, dtype or "
+                         "query heads per kv head; see the dispatch in "
+                         "csrc/attention.cu)")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 

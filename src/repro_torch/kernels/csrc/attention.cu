@@ -29,13 +29,17 @@
 //   Bound on this card: bytes.  One query token reads the whole K/V cache
 //   (2 * B * KV * S * hd * 4 bytes; 17 MB per layer for qwen3-4b at B=4,
 //   S=524) and does 4 * H * S * hd operations on it.
-//   Design: one block per (kv head, batch) streams each K/V tile once into
-//   shared memory for the G = H / KV query heads that share it (the TPU grid
-//   re-read it for every q head), with an online softmax per head.  K/V are
-//   read through element strides, so the engine passes its heads-major cache
-//   (B, KV, S, hd) as a (B, S, KV, hd) view without copying it.
-//   Only B * KV blocks run (32 for the slice), so the card is far from its
-//   memory rate; splitting S across blocks (flash-decoding) is later work.
+//   Design (flash-decoding): B * KV blocks alone (32 for the slice) leave
+//   most of the 132 SMs idle, so each (batch, kv head)'s cache is cut into
+//   chunks of whole 64-slot tiles and one block runs per (kv head, batch,
+//   chunk).  A block streams each K/V tile of its chunk once into shared
+//   memory for the G = H / KV query heads that share it (the TPU grid
+//   re-read it for every q head), keeps an online softmax per head, and
+//   writes its unnormalised sum beside its running max and sum;
+//   decode_attn_combine rescales the chunks to their common max and
+//   divides.  K/V are read through element strides, so the engine passes
+//   its heads-major cache (B, KV, S, hd) as a (B, S, KV, hd) view without
+//   copying it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -308,7 +312,6 @@ cudaError_t dispatch_flash(const FlashArgs& a, int hd, cudaStream_t stream) {
     case 32: return launch_flash<T, 32>(a, stream);
     case 64: return launch_flash<T, 64>(a, stream);
     case 128: return launch_flash<T, 128>(a, stream);
-    case 256: return launch_flash<T, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -327,11 +330,15 @@ struct DecodeArgs {
   const void* v;
   const int* q_pos;   // (B,)
   const int* kv_pos;  // (B, S), row stride kvp_sb
-  void* o;
+  void* o;            // (B, 1, H, hd), contiguous
+  float* part_o;      // (B, KV, n_split, G, hd): each chunk's unnormalised sum
+  float* part_ml;     // (B, KV, n_split, G, 2): each chunk's running max and sum
   int B, S, H, KV;
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, kvp_sb;  // elements
   int window;  // <= 0: no window
   float sm_scale;
+  int chunk;    // cache slots per chunk, a multiple of DA_BK
+  int n_split;  // chunks per (batch, kv head) = gridDim.z
 };
 
 __host__ __device__ constexpr size_t decode_smem_bytes(int hd, int g) {
@@ -357,9 +364,10 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attn_kernel(DecodeArgs a) {
   float* al_s = l_s + G;                         // [G] rescale of this tile
   int* kp_s = reinterpret_cast<int*>(al_s + G);  // [BK] slot positions
 
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int qpos = a.q_pos[b];
+  const int s_lo = split * a.chunk, s_hi = min(a.S, s_lo + a.chunk);
 
   const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + (long long)kvh * G * a.q_sh;
   const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
@@ -378,18 +386,18 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attn_kernel(DecodeArgs a) {
 #pragma unroll
   for (int e = 0; e < MAXE; ++e) acc[e] = 0.f;
 
-  for (int k0 = 0; k0 < a.S; k0 += DA_BK) {
+  for (int k0 = s_lo; k0 < s_hi; k0 += DA_BK) {
     __syncthreads();  // Q staged / previous tile consumed
-    stage_rows<DA_BK, HD, KS, DA_THREADS>(Ks, kp, a.k_ss, k0, a.S, 1.f);
-    stage_rows<DA_BK, HD, HD, DA_THREADS>(Vs, vp, a.v_ss, k0, a.S, 1.f);
+    stage_rows<DA_BK, HD, KS, DA_THREADS>(Ks, kp, a.k_ss, k0, s_hi, 1.f);
+    stage_rows<DA_BK, HD, HD, DA_THREADS>(Vs, vp, a.v_ss, k0, s_hi, 1.f);
     for (int r = tid; r < DA_BK; r += DA_THREADS)
-      kp_s[r] = k0 + r < a.S ? kvpos[k0 + r] : -1;
+      kp_s[r] = k0 + r < s_hi ? kvpos[k0 + r] : -1;
     __syncthreads();
 
     for (int i = tid; i < G * DA_BK; i += DA_THREADS) {
       const int g = i / DA_BK, j = i % DA_BK;
       float s;
-      if (k0 + j >= a.S) {
+      if (k0 + j >= s_hi) {
         s = -INFINITY;
       } else {
         const float* qrow = &Qs[g * HD];
@@ -444,15 +452,40 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attn_kernel(DecodeArgs a) {
   }
   __syncthreads();
 
-  T* op = static_cast<T*>(a.o) + ((long long)b * a.H + (long long)kvh * G) * HD;
+  // this chunk's partial result; a fully masked chunk keeps m = NEG_INF and
+  // so weighs exp(NEG_INF - m) = 0 beside any chunk with a valid slot
+  const long long row = ((long long)b * a.KV + kvh) * a.n_split + split;
+  float* po = a.part_o + row * G * HD;
 #pragma unroll
   for (int e = 0; e < MAXE; ++e) {
     const int idx = tid + e * DA_THREADS;
-    if (idx < G * HD) {
-      const int g = idx / HD;
-      op[idx] = from_f32<T>(acc[e] / fmaxf(l_s[g], 1e-30f));
-    }
+    if (idx < G * HD) po[idx] = acc[e];
   }
+  float* pml = a.part_ml + row * G * 2;
+  for (int g = tid; g < G; g += DA_THREADS) {
+    pml[2 * g] = m_s[g];
+    pml[2 * g + 1] = l_s[g];
+  }
+}
+
+// One block per (q head, batch), one thread per output element: rescale
+// each chunk's sum to the largest chunk max and divide by the summed weight.
+template <typename T>
+__global__ void decode_attn_combine(DecodeArgs a) {
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x, hd = blockDim.x;
+  const int G = a.H / a.KV, kvh = h / G, g = h % G;
+  const long long row0 = ((long long)b * a.KV + kvh) * a.n_split;
+  float m = NEG_INF;
+  for (int s = 0; s < a.n_split; ++s) m = fmaxf(m, a.part_ml[((row0 + s) * G + g) * 2]);
+  float l = 0.f, acc = 0.f;
+  for (int s = 0; s < a.n_split; ++s) {
+    const float* ml = &a.part_ml[((row0 + s) * G + g) * 2];
+    const float w = expf(ml[0] - m);
+    l = fmaf(w, ml[1], l);
+    acc = fmaf(w, a.part_o[((row0 + s) * G + g) * hd + d], acc);
+  }
+  T* op = static_cast<T*>(a.o) + ((long long)b * a.H + h) * hd;
+  op[d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
 }
 
 template <typename T, int HD>
@@ -463,8 +496,10 @@ cudaError_t launch_decode(const DecodeArgs& a, cudaStream_t stream) {
       decode_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)decode_smem_bytes(HD, DA_MAXG));
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.KV, a.B);
-  decode_attn_kernel<T, HD><<<grid, DA_THREADS, smem, stream>>>(a);
+  decode_attn_kernel<T, HD><<<dim3(a.KV, a.B, a.n_split), DA_THREADS, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_attn_combine<T><<<dim3(a.H, a.B), HD, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -474,7 +509,6 @@ cudaError_t dispatch_decode(const DecodeArgs& a, int hd, cudaStream_t stream) {
     case 32: return launch_decode<T, 32>(a, stream);
     case 64: return launch_decode<T, 64>(a, stream);
     case 128: return launch_decode<T, 128>(a, stream);
-    case 256: return launch_decode<T, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -484,7 +518,9 @@ cudaError_t dispatch_decode(const DecodeArgs& a, int hd, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // C interface.  dtype: 0 = float32, 1 = bfloat16.  Strides are in elements
 // and multiples of 4, the last dimension is contiguous, and q/k/v start on
-// a 4-element boundary.  Returns a cudaError_t (0 = launched).
+// a 4-element boundary.  Returns a cudaError_t (0 = launched);
+// cudaErrorInvalidValue for a head_dim, dtype or query-group size that no
+// kernel here is built for: these switches are the one list of them.
 // ---------------------------------------------------------------------------
 
 extern "C" int repro_flash_attention(int dtype, int hd, const void* q, const void* k,
@@ -501,16 +537,23 @@ extern "C" int repro_flash_attention(int dtype, int hd, const void* q, const voi
   return cudaErrorInvalidValue;
 }
 
+// work: float32 scratch of B * KV * max_split * (H / KV) * (hd + 2) elements.
+// The cache is cut into at most max_split chunks of whole DA_BK-slot tiles.
 extern "C" int repro_decode_attention(int dtype, int hd, const void* q, const void* k,
                                       const void* v, const int* q_pos, const int* kv_pos,
-                                      void* o, int B, int S, int H, int KV,
+                                      void* o, float* work, int max_split,
+                                      int B, int S, int H, int KV,
                                       const long long* strides,  // q b,h  k b,s,h  v b,s,h  kv_pos b
                                       int window, float sm_scale, void* stream) {
-  if (H % KV != 0 || H / KV > DA_MAXG) return cudaErrorInvalidValue;
-  DecodeArgs a{q, k, v, q_pos, kv_pos, o, B, S, H, KV,
+  if (S < 1 || max_split < 1 || H % KV != 0 || H / KV > DA_MAXG) return cudaErrorInvalidValue;
+  const int per_split = (S + max_split - 1) / max_split;
+  const int chunk = (per_split + DA_BK - 1) / DA_BK * DA_BK;
+  const int n_split = (S + chunk - 1) / chunk;  // <= max_split, none empty
+  float* part_ml = work + (long long)B * KV * n_split * (H / KV) * hd;
+  DecodeArgs a{q, k, v, q_pos, kv_pos, o, work, part_ml, B, S, H, KV,
                strides[0], strides[1], strides[2], strides[3], strides[4],
                strides[5], strides[6], strides[7], strides[8],
-               window, sm_scale};
+               window, sm_scale, chunk, n_split};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_decode<float>(a, hd, st);
   if (dtype == 1) return dispatch_decode<__nv_bfloat16>(a, hd, st);

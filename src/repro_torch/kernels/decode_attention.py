@@ -3,9 +3,10 @@
 Replaces the Pallas TPU kernel ``repro.kernels.decode_attention``: one
 query token per sequence against a KV cache, GQA, absolute kv positions
 (-1 = never-written slot) and an optional sliding window.  On a CUDA
-tensor it launches the CUDA kernel in ``csrc/attention.cu``; on a CPU
-tensor it runs the plain ``ref.decode_attention_ref``.  There is no
-other path.
+tensor it launches the CUDA kernels in ``csrc/attention.cu`` (one pass
+over the cache cut into chunks, then a pass that combines the chunks);
+on a CPU tensor it runs the plain ``ref.decode_attention_ref``.  There
+is no other path.
 
 k and v may be any strided view whose head dimension is contiguous, so
 the engine hands over its heads-major cache ``(B, KV, S, hd)`` as
@@ -15,15 +16,27 @@ the engine hands over its heads-major cache ``(B, KV, S, hd)`` as
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import DTYPES
 
-MAX_GROUP = 16            # query heads per kv head (DA_MAXG in the kernel)
+TILE = 64                 # cache slots per kernel tile: no chunk is shorter
+
+
+def n_split(batch: int, kv_heads: int, slots: int, sms: int) -> int:
+    """Chunks to cut each (batch, kv head)'s cache into: enough blocks for
+    two per SM, and no more chunks than tiles."""
+    return max(1, min(-(-slots // TILE), -(-2 * sms // (batch * kv_heads))))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _validate(q, k, v, q_positions, kv_positions, window):
@@ -59,11 +72,6 @@ def decode_attention(q, k, v, q_positions, kv_positions, *,
     S, KV = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:
         raise TypeError(f"decode_attention: dtype {q.dtype} not in {list(DTYPES)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head_dim {hd} not in {HEAD_DIMS}")
-    if H // KV > MAX_GROUP:
-        raise ValueError(f"decode_attention: {H // KV} query heads per kv head "
-                         f"> {MAX_GROUP}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("decode_attention: the head dimension must be contiguous")
     if q_positions.dtype != torch.int32 or kv_positions.dtype != torch.int32:
@@ -75,14 +83,17 @@ def decode_attention(q, k, v, q_positions, kv_positions, *,
         _build.check_vector_aligned("decode_attention", t, (0, 1, 2))
     lib = _build.load()
     out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+    splits = n_split(B, KV, S, _sm_count(q.device))
+    work = torch.empty(B * H * splits * (hd + 2), dtype=torch.float32, device=q.device)
     strides = _build.strides_arg((q, (0, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
                                  (kv_positions, (0,)))
     with torch.cuda.device(q.device):
         err = lib.repro_decode_attention(
             DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             q_positions.data_ptr(), kv_positions.data_ptr(), out.data_ptr(),
-            B, S, H, KV, strides, 0 if window is None else window,
-            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+            work.data_ptr(), splits, B, S, H, KV, strides,
+            0 if window is None else window, 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -18,7 +18,6 @@ import torch
 from repro_torch.kernels import _build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)
 
 
 def _validate(q, k, v, window):
@@ -49,8 +48,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
     B, S, H, hd = q.shape
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype {q.dtype} not in {list(DTYPES)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: the head dimension must be contiguous")
     for t in (q, k, v):

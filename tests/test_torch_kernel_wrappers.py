@@ -1,6 +1,8 @@
 """The port's kernel wrappers: strided inputs, validation, launch counts
 and the build target.  Plain PyTorch only; the CUDA kernels run on the
 card in ``chip_smoke.py``."""
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -49,9 +51,21 @@ def test_cpu_path_counts_no_launch():
 
 def test_build_targets_hopper():
     """The kernels are compiled for sm_90a into the git-ignored build
-    directory, named by the source's hash (built on the card's machine)."""
+    directory of this checkout, named by the source's hash (built on the
+    card's machine)."""
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-O3" in _build.NVCC_FLAGS
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.name.startswith("libattention-")
-    assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+    assert _build.BUILD_DIR == Path(__file__).resolve().parents[1] / "build" / "kernels"
+
+
+@pytest.mark.parametrize("batch, kv_heads, slots, want", [
+    (4, 8, 524, 9),       # the slice's decode: 9 tiles, 288 blocks on 132 SMs
+    (2, 8, 2000, 17),     # long cache: chunks of two tiles
+    (2, 2, 48, 1),        # one ragged tile: one chunk
+    (64, 8, 4096, 1),     # 512 (batch, kv head) pairs fill the card alone
+])
+def test_decode_split_fills_the_card(batch, kv_heads, slots, want):
+    from repro_torch.kernels.decode_attention import n_split
+    assert n_split(batch, kv_heads, slots, sms=132) == want
