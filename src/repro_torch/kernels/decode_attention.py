@@ -12,7 +12,7 @@ k and v may be any strided view whose head dimension is contiguous, so
 the engine hands over its heads-major cache ``(B, KV, S, hd)`` as
 ``cache.k.transpose(1, 2)`` without a copy.
 
-``decode_attention.launches`` counts kernel launches.
+``decode_attention.launches`` counts the calls that launched the kernels.
 """
 from __future__ import annotations
 
