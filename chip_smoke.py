@@ -5,28 +5,43 @@
 
 Phases (any failure raises and exits non-zero):
   1. device   -- the card's name and power limit (nvidia-smi)
-  2. build    -- nvcc builds the CUDA kernels from src/repro_torch/kernels/csrc
+  2. build    -- nvcc builds the CUDA kernels from src/repro_torch/kernels/csrc,
+                 one process per source, linked into one library
   3. kernels  -- each CUDA kernel against its plain PyTorch version on the
                  card: the shape grid of tests/test_kernels.py in f32 and
-                 bf16 (tolerance 2e-5 / 2e-2), a ragged S, rolling slots with
-                 a row that has no valid slot, caches cut into one chunk and
-                 into chunks of two tiles, and the slice's own shapes; inputs
-                 no kernel is built for raise
-  4. slice    -- ServingEngine over qwen3-4b at full width and depth (f32,
-                 random weights from a torch.Generator on the card) answers
-                 16 requests in 4 pumps; the kernels' launch counters are read
-                 over those pumps alone; the first decode step's logits must
-                 equal a prefill over prompt + that token (rel. err <= 1e-3);
-                 a reduced qwen3-4b on the card must match the same model's
-                 plain CPU path (rel. err <= 1e-4); one prefill and one
-                 decode step alone, on the host clock and under torch.profiler
-  5. timing   -- device time (torch.profiler) of each kernel, its plain
-                 version and one PyTorch library call (scaled_dot_product_
-                 attention, a yardstick the port never calls) at the slice's
-                 shapes, beside the least time the card could take (bound_ms)
-Prints one {"kernels": [...]} line, one {"slice": {...}} line, and last
-{"ok": true, "device": {...}}.
+                 bf16 (attention 2e-5 / 2e-2, the two scans 5x that), a
+                 ragged S, rolling slots with a row that has no valid slot,
+                 caches cut into one chunk and into chunks of two tiles,
+                 head_dim 80 (zamba2's shared attention), nonzero initial
+                 states and a two-call continuation for the scans, B and C
+                 in group form (head stride 0), and each kernel at its
+                 served model's own shapes; inputs no kernel is built for
+                 raise
+  4. slices   -- for each served model (qwen3-4b, rwkv6-1.6b, zamba2-2.7b)
+                 at full width (full depth but for qwen3-4b: see MODELS;
+                 f32, random weights from a torch.Generator on the card):
+                 a reduced model on the card
+                 must match the same model's plain CPU path (rel. err <=
+                 1e-4); ServingEngine answers 16 requests in 4 pumps; the
+                 kernels' launch counters are read over those pumps alone
+                 and must be exactly what the model runs; the first decode
+                 step's logits must equal a prefill over prompt + that token
+                 (rel. err <= 1e-3); a reset cache must give a fresh cache's
+                 logits bit for bit, and a fifth pump of the first pump's
+                 prompts the first pump's tokens; one prefill and one decode
+                 step alone, on the host clock and under torch.profiler.
+                 Each model's engine is freed before the next one loads.
+  5. timing   -- (run between phases 3 and 4, before any pump is profiled)
+                 device time (torch.profiler) of each kernel, its plain
+                 version and, for attention, one PyTorch library call
+                 (scaled_dot_product_attention, a yardstick the port never
+                 calls; no single call computes a scan) at the served
+                 shapes, beside the least time the card could take
+                 (bound_ms); attention also at zamba2's head_dim 80
+Prints one {"kernels": [...]} line, one {"slice": {...}} line per model,
+and last {"ok": true, "device": {...}}.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -43,13 +58,23 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SCAN_TOL = {dt: 5 * tol for dt, tol in TOL.items()}  # tests/test_kernels.py: 5x for the scans
+RWKV_SHAPE = (4, 512, 32, 64)            # rwkv6-1.6b prefill: B, S, H, hd
+SSD_SHAPE = (4, 512, 80, 64, 64)         # zamba2-2.7b prefill: B, S, H, hd, N
 
-ARCH, BATCH, PROMPT, DECODE, PUMPS = "qwen3-4b", 4, 512, 4, 4
+BATCH, PROMPT, DECODE, PUMPS = 4, 512, 4, 4
+# (arch, layers): every model the port serves, at full width; None = full
+# depth.  qwen3-4b runs 12 of its 36 layers to keep the script near 90 s.
+MODELS = [("qwen3-4b", 12), ("rwkv6-1.6b", None), ("zamba2-2.7b", None)]
 REL_TOL_FULL, REL_TOL_SMALL = 1e-3, 1e-4
 
 
+T_START = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """A line of the run's log; results (JSON lines) go through print."""
+    print(f"[{time.perf_counter() - T_START:6.1f} s] {msg}", flush=True)
 
 
 def rand(rng, shape, dtype, dev):
@@ -75,7 +100,7 @@ ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivi
 
 
 def device_kernels_us(prof):
-    """(kernel name, device microseconds) for every device event a
+    """(kernel name, device microseconds) for every device kernel a
     torch.profiler run recorded."""
     out = []
     for evt in prof.key_averages():
@@ -85,21 +110,43 @@ def device_kernels_us(prof):
     return out
 
 
-def device_ms(fn, n_inputs, iters=20):
+def device_ms(fn, n_inputs, iters=20, attempts=3):
     """Mean device time per call of fn(i), cycling over n_inputs input sets:
     the summed durations of the kernels it launched, read with
-    torch.profiler, so host time between small launches does not count."""
+    torch.profiler, so host time between small launches does not count.
+    On an H100 a profiler run that follows a large one drops its first
+    kernel records (from 1 of 20 calls to most of them), so each run first keeps the
+    card busy for about 10 ms and makes one call, and times only the
+    kernels that start inside the "timed" range after them.  Every call
+    launches the same kernels: a run whose count of some kernel is no
+    multiple of iters lost records there too and is measured again."""
     for i in range(3):
         fn(i % n_inputs)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=ACTIVITIES) as prof:
-        for i in range(iters):
-            fn(i % n_inputs)
-        torch.cuda.synchronize()
-    us = sum(t for _, t in device_kernels_us(prof))
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / iters / 1e3
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=ACTIVITIES) as prof:
+            torch.cuda._sleep(20_000_000)        # cycles: about 10 ms
+            fn(0)
+            torch.cuda.synchronize()
+            with torch.profiler.record_function("timed"):
+                for i in range(iters):
+                    fn(i % n_inputs)
+                torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        events = prof.events()
+        t0 = next(e.time_range.start for e in events
+                  if e.name == "timed" and e.device_type != cuda)
+        timed = [e for e in events if e.device_type == cuda and e.name != "timed"
+                 and e.time_range.start >= t0]
+        counts = {}
+        for e in timed:
+            counts[e.name] = counts.get(e.name, 0) + 1
+        lost = [(name[:60], n) for name, n in counts.items() if n % iters]
+        if timed and not lost:
+            return sum(e.time_range.elapsed_us() for e in timed) / iters / 1e3
+        log(f"timing: torch.profiler kept {lost or 'no kernel'} for {iters} calls; "
+            "measuring again")
+    raise RuntimeError(f"torch.profiler lost device records in {attempts} runs")
 
 
 def bound(flops, nbytes):
@@ -121,6 +168,10 @@ def check_flash(dev, rng):
     cases += [(2, 100, 4, 2, hd, dt, True, w) for hd in (32, 128)
               for dt in (torch.float32, torch.bfloat16) for w in (None, 16)]
     cases += [(BATCH, PROMPT + 1, 32, 8, 128, torch.float32, True, None)]
+    # zamba2's shared attention: head_dim 80, 32 query and 32 kv heads
+    cases += [(2, S, 32, 32, 80, dt, True, None) for S in (100, 256)
+              for dt in (torch.float32, torch.bfloat16)]
+    cases += [(BATCH, PROMPT + 1, 32, 32, 80, torch.float32, True, None)]
     for B, S, H, KV, hd, dt, causal, window in cases:
         q = rand(rng, (B, S, H, hd), dt, dev)
         k, v = rand(rng, (B, S, KV, hd), dt, dev), rand(rng, (B, S, KV, hd), dt, dev)
@@ -159,7 +210,7 @@ def check_decode(dev, rng):
     n = 0
     # test_kernels.py's grid, a ragged S, one chunk (S=48) and chunks of two tiles (S=2000)
     for S, H, KV, hd in [(512, 4, 2, 64), (1024, 8, 8, 64), (256, 4, 1, 128), (300, 16, 2, 32),
-                         (48, 4, 2, 64), (2000, 8, 8, 64)]:
+                         (48, 4, 2, 64), (2000, 8, 8, 64), (524, 32, 32, 80)]:
         for dt in (torch.float32, torch.bfloat16):
             for window in (None, 128):
                 B = 2
@@ -193,11 +244,11 @@ def check_decode(dev, rng):
     return err
 
 
-def decode_inputs(dev, rng, n_copies=1):
-    """The slice's decode call: q (4,1,32,128), heads-major caches
-    (4, 8, 524, 128) passed as (B, S, KV, hd) views, first step after a
-    512-token prompt."""
-    B, H, KV, hd, S_buf = BATCH, 32, 8, 128, PROMPT + DECODE + 8
+def decode_inputs(dev, rng, n_copies=1, H=32, KV=8, hd=128):
+    """A served model's decode call, first step after a 512-token prompt:
+    q (4, 1, H, hd) and heads-major caches (4, KV, 524, hd) passed as
+    (B, S, KV, hd) views; qwen3-4b's heads by default."""
+    B, S_buf = BATCH, PROMPT + DECODE + 8
     q = rand(rng, (B, 1, H, hd), torch.float32, dev)
     caches = [(rand(rng, (B, KV, S_buf, hd), torch.float32, dev),
                rand(rng, (B, KV, S_buf, hd), torch.float32, dev)) for _ in range(n_copies)]
@@ -216,20 +267,135 @@ def decode_slice_case(dev, rng):
     return check_close("decode slice shape", out, want, TOL[torch.float32])
 
 
+def rwkv_inputs(rng, B, S, H, hd, dt, dev):
+    """r, k, v, logw, u as tests/test_kernels.py draws them (logw clamped)."""
+    r, k = 0.5 * rand(rng, (B, S, H, hd), torch.float32, dev), 0.5 * rand(rng, (B, S, H, hd), torch.float32, dev)
+    v = rand(rng, (B, S, H, hd), torch.float32, dev)
+    logw = torch.clamp(-torch.exp(0.5 * rand(rng, (B, S, H, hd), torch.float32, dev) - 1.5), min=-2.0)
+    u = 0.3 * rand(rng, (H, hd), torch.float32, dev)
+    return tuple(t.to(dt) for t in (r, k, v, logw, u))
+
+
+def ssd_inputs(rng, B, S, H, hd, N, dt, dev, group=False):
+    """xdt, Bm, Cm, dA as tests/test_kernels.py draws them; group=True
+    passes B and C as the Mamba2 block does: (B, S, N) columns of one
+    (B, S, H*hd + 2N) buffer, expanded over the heads (head stride 0)."""
+    xdt = rand(rng, (B, S, H, hd), dt, dev)
+    if group:
+        buf = 0.5 * rand(rng, (B, S, H * hd + 2 * N), torch.float32, dev).to(dt)
+        Bm = buf[..., H * hd:H * hd + N][:, :, None].expand(B, S, H, N)
+        Cm = buf[..., H * hd + N:][:, :, None].expand(B, S, H, N)
+    else:
+        Bm = (0.5 * rand(rng, (B, S, H, N), torch.float32, dev)).to(dt)
+        Cm = (0.5 * rand(rng, (B, S, H, N), torch.float32, dev)).to(dt)
+    dA = -torch.exp(0.5 * rand(rng, (B, S, H), torch.float32, dev) - 1.5)
+    return xdt, Bm, Cm, dA
+
+
+def check_scan(name, dev, rng, kernel, plain, make, cases, state_shape, slice_case):
+    """One scan kernel against its plain version: the shape grid of
+    tests/test_kernels.py, ragged S and nonzero initial states (cases),
+    a two-call continuation, and the slice's own shape (max_abs_err)."""
+    for shape, dt, with_state in cases:
+        args = make(rng, *shape, dt, dev)
+        s0 = 0.1 * rand(rng, state_shape(*shape), torch.float32, dev) if with_state else None
+        y, s = kernel(*args, s0)
+        y_ref, s_ref = plain(*args, s0)
+        assert y.dtype == dt and s.dtype == torch.float32, (name, shape, dt)
+        check_close(f"{name} y {shape, dt, with_state}", y, y_ref, SCAN_TOL[dt])
+        check_close(f"{name} state {shape, dt, with_state}", s, s_ref, SCAN_TOL[dt])
+    # continuation: scan(S1) then scan(S2, state) == scan(S1 + S2)
+    shape = cases[0][0]
+    args = make(rng, *shape[:1], 357, *shape[2:], torch.float32, dev)
+    y_all, s_all = kernel(*args, None)
+    first = [t[:, :100] if t.dim() >= 3 else t for t in args]
+    rest = [t[:, 100:] if t.dim() >= 3 else t for t in args]
+    y1, s1 = kernel(*first, None)
+    y2, s2 = kernel(*rest, s1)
+    check_close(f"{name} continuation y", torch.cat([y1, y2], 1), y_all, SCAN_TOL[torch.float32])
+    check_close(f"{name} continuation state", s2, s_all, SCAN_TOL[torch.float32])
+    args = make(rng, *slice_case, torch.float32, dev)
+    y, s = kernel(*args, None)
+    y_ref, s_ref = plain(*args, None)
+    err = check_close(f"{name} slice shape", y, y_ref, SCAN_TOL[torch.float32])
+    check_close(f"{name} slice-shape state", s, s_ref, SCAN_TOL[torch.float32])
+    log(f"kernels: {name} matches its plain version on {len(cases) + 2} cases "
+        f"(+ a continuation); slice-shape max_abs_err {err:.3g}")
+    return err
+
+
+def check_rwkv(dev, rng):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    grid = [((2, S, H, hd), dt, False) for S, H, hd in [(128, 2, 32), (256, 4, 64), (64, 2, 32)]
+            for dt in (torch.float32, torch.bfloat16)]
+    ragged = [((2, S, 2, 64), dt, False) for S in (100, 513) for dt in (torch.float32, torch.bfloat16)]
+    state = [((2, S, 2, hd), dt, True) for S, hd in [(64, 32), (513, 64)]
+             for dt in (torch.float32, torch.bfloat16)]
+    err = check_scan("rwkv6_scan", dev, rng,
+                     lambda r, k, v, w, u, s0: rwkv6_scan(r, k, v, w, u, s0=s0),
+                     ref.rwkv6_ref, rwkv_inputs, grid + ragged + state,
+                     lambda B, S, H, hd: (B, H, hd, hd), RWKV_SHAPE)
+    x = torch.zeros((1, 32, 1, 128), device=dev)       # head_dim 128: no kernel
+    expect_refusal("rwkv6_scan head_dim 128",
+                   lambda: rwkv6_scan(x, x, x, x, torch.zeros((1, 128), device=dev)))
+    return err
+
+
+def check_ssd(dev, rng):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    grid = [((2, S, H, hd, N), dt, False) for S, H, hd, N in [(128, 2, 32, 16), (256, 4, 64, 64)]
+            for dt in (torch.float32, torch.bfloat16)]
+    ragged = [((2, S, 2, 64, 64), dt, False) for S in (100, 513)
+              for dt in (torch.float32, torch.bfloat16)]
+    state = [((2, S, 2, hd, N), dt, True) for S, hd, N in [(128, 32, 16), (513, 64, 64)]
+             for dt in (torch.float32, torch.bfloat16)]
+    err = check_scan("ssd_scan", dev, rng,
+                     lambda x, b, c, a, h0: ssd_scan(x, b, c, a, h0=h0),
+                     ref.ssd_ref,
+                     # per-head B/C on the grid's lengths, group form (head stride 0) on the others
+                     lambda rng, B, S, *rest: ssd_inputs(rng, B, S, *rest, group=S not in (128, 256)),
+                     grid + ragged + state,
+                     lambda B, S, H, hd, N: (B, H, hd, N), SSD_SHAPE)
+    x = torch.zeros((1, 8, 1, 64), device=dev)         # state size 128: no kernel
+    bc = torch.zeros((1, 8, 1, 128), device=dev)
+    expect_refusal("ssd_scan state size 128",
+                   lambda: ssd_scan(x, bc, bc, torch.zeros((1, 8, 1), device=dev)))
+    return err
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the slice
 # ---------------------------------------------------------------------------
 
-def run_slice(dev):
+def want_launches(cfg):
+    """Launches of each kernel over the timed pumps: every prefill runs
+    flash attention once per attention block and a scan once per recurrent
+    block; every decode step after the first token runs decode attention
+    once per attention block."""
+    kind = cfg.pattern[0]
+    n_attn = cfg.n_layers if kind == "attn" else (
+        cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0)
+    return {"flash_attention": n_attn * PUMPS,
+            "decode_attention": n_attn * (DECODE - 1) * PUMPS,
+            "rwkv6_scan": cfg.n_layers * PUMPS if kind == "rwkv6" else 0,
+            "ssd_scan": cfg.n_layers * PUMPS if kind == "mamba2" else 0}
+
+
+def run_slice(dev, arch, layers=None):
+    """Serve ``arch`` at full width (``layers``: cut depth) on the card."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Request, ServingEngine
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, batch_size=BATCH, prompt_len=PROMPT,
                         decode_tokens=DECODE, seed=0, device=dev)
     n_params = sum(t.numel() for t in _leaves(eng.params))
-    log(f"slice: {ARCH} full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"slice: {arch} full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B params f32, "
         f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB on the card); "
         f"init + warm-up {time.perf_counter() - t0:.1f} s")
@@ -252,10 +418,9 @@ def run_slice(dev):
     for c in done:
         assert c.tokens.shape == (DECODE,), c.tokens.shape
         assert ((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all(), c.tokens
-    want = {"flash_attention": cfg.n_layers * PUMPS,
-            "decode_attention": cfg.n_layers * (DECODE - 1) * PUMPS}
+    want = want_launches(cfg)
     assert launches == want, (launches, want)
-    log(f"slice: {len(done)} completions in {PUMPS} pumps, launches {launches}")
+    log(f"slice: {arch}: {len(done)} completions in {PUMPS} pumps, launches {launches}")
 
     # consistency at full width: decode step 1 == prefill over prompt + token
     model, params = eng.model, eng.params
@@ -268,12 +433,19 @@ def run_slice(dev):
         lg1, _ = model.decode_step(params, tok, cache)
         full, _ = model.prefill(params, {"tokens": torch.cat([toks, tok], 1)},
                                 model.init_cache(BATCH, buf, dtype=torch.float32))
+        # the same prompt from the used cache, without and with reset_cache
+        stale, _ = model.prefill(params, {"tokens": toks}, cache)
+        again, _ = model.prefill(params, {"tokens": toks}, model.reset_cache(cache))
+    assert torch.equal(again, lg0), "a reset cache differs from a fresh one"
+    stale_rel = rel_err(stale, lg0)
+    log(f"slice: {arch}: a reset cache gives a fresh cache's logits bit for bit "
+        f"(the used cache unreset: rel. err {stale_rel:.3g})")
     for name, t in (("prefill", lg0), ("decode", lg1), ("prefill+1", full)):
         assert t.shape[-1] == cfg.vocab_size and bool(torch.isfinite(t).all()), name
     assert np.array_equal(tok[:, 0].cpu().numpy(), np.stack([c.tokens[0] for c in done[:BATCH]])), \
         "engine's first tokens differ from the model's own prefill"
     rel = rel_err(lg1[:, 0], full)
-    log(f"slice: decode-vs-prefill rel. err {rel:.3g} (limit {REL_TOL_FULL})")
+    log(f"slice: {arch}: decode-vs-prefill rel. err {rel:.3g} (limit {REL_TOL_FULL})")
     assert rel <= REL_TOL_FULL, rel
 
     # one prefill and one decode step alone, host clock around a synchronize
@@ -289,29 +461,38 @@ def run_slice(dev):
         t2 = time.perf_counter()
 
     lats = np.array([c.latency_ms for c in done])
-    stats = {"arch": ARCH, "batch": BATCH, "prompt_len": PROMPT,
-             "decode_tokens": DECODE, "requests": len(done),
+    stats = {"arch": arch, "layers": cfg.n_layers, "batch": BATCH, "prompt_len": PROMPT,
+             "decode_tokens": DECODE, "requests": len(done), "launches": launches,
              "p50_ms": float(np.percentile(lats, 50)),
              "p99_ms": float(np.percentile(lats, 99)),
              "tokens_per_s": len(done) * DECODE / wall,
              "prefill_ms": (t1 - t0) * 1e3, "decode_step_ms": (t2 - t1) * 1e3,
-             "decode_vs_prefill_rel_err": rel,
-             "alone": profile_alone(model, params, cfg, toks, tok, buf),
-             "profile": profile_pump(eng, prompts[:BATCH], wall * 1e3 / PUMPS)}
+             "decode_vs_prefill_rel_err": rel, "unreset_cache_rel_err": stale_rel,
+             "alone": profile_alone(model, params, cfg, toks, tok, buf)}
+    # a pump of the first pump's prompts again: the engine's cache, reset,
+    # must give the same tokens (a state left from the last pass would not)
+    stats["profile"], again = profile_pump(eng, prompts[:BATCH], wall * 1e3 / PUMPS)
+    assert all(np.array_equal(a.tokens, c.tokens) for a, c in zip(again, done[:BATCH])), \
+        "a repeated pump gave other tokens"
+    log(f"slice: {arch}: a repeated pump returns the first pump's tokens")
     del eng, model, params, cache
+    gc.collect()
     torch.cuda.empty_cache()
     return launches, stats
 
 
+KERNEL_GROUPS = {"flash_attn_kernel": "flash_attention", "decode_attn": "decode_attention",
+                 "rwkv6_scan_kernel": "rwkv6_scan", "ssd_scan_kernel": "ssd_scan"}
+
+
 def kernel_groups(prof):
     """Device ms by kernel group in one torch.profiler run."""
-    groups = {"flash_attention": 0.0, "decode_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = dict.fromkeys([*KERNEL_GROUPS.values(), "matmul", "other"], 0.0)
     for key, us in device_kernels_us(prof):
         name = key.lower()
-        if "flash_attn_kernel" in name:
-            groups["flash_attention"] += us / 1e3
-        elif "decode_attn" in name:
-            groups["decode_attention"] += us / 1e3
+        group = next((g for k, g in KERNEL_GROUPS.items() if k in name), None)
+        if group:
+            groups[group] += us / 1e3
         elif "gemm" in name or "gemv" in name or "cutlass" in name:
             groups["matmul"] += us / 1e3
         else:
@@ -328,13 +509,24 @@ def aten_calls(prof):
 
 
 def prefill_matmul_flops(cfg, batch, seq):
-    """Operations of the prefill's matrix products, from the shapes: QKV, O
-    and the three SwiGLU projections in every layer, and the head on the
-    last token."""
-    T, d, hd = batch * seq, cfg.d_model, cfg.hd
-    per_layer = (2 * T * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
-                 + 2 * T * cfg.n_heads * hd * d + 3 * 2 * T * d * cfg.d_ff)
-    return cfg.n_layers * per_layer + 2 * batch * d * cfg.vocab_size
+    """Operations of the prefill's matrix products, from the shapes: every
+    projection of every block (attention QKV/O and SwiGLU; RWKV6 r, k, v,
+    g, o, its low-rank mixes and channel mix; Mamba2 in/out projections),
+    zamba2's shared block once per group, and the head on the last token."""
+    from repro_torch.models import rwkv, ssm
+    T, d, hd, kind = batch * seq, cfg.d_model, cfg.hd, cfg.pattern[0]
+    attn = (2 * T * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+            + 2 * T * cfg.n_heads * hd * d + 3 * 2 * T * d * cfg.d_ff)
+    if kind == "attn":
+        per_layer = attn
+    elif kind == "rwkv6":
+        per_layer = 2 * T * (6 * d * d + 2 * d * cfg.d_ff
+                             + 2 * 5 * rwkv.LORA_R * d + 2 * rwkv.DECAY_R * d)
+    else:
+        d_in, H, G, N, _ = ssm._dims(cfg)
+        per_layer = 2 * T * (d * (2 * d_in + 2 * G * N + H) + d_in * d)
+    groups = cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
+    return cfg.n_layers * per_layer + groups * attn + 2 * batch * d * cfg.vocab_size
 
 
 def profile_alone(model, params, cfg, toks, tok, buf):
@@ -364,15 +556,15 @@ def profile_alone(model, params, cfg, toks, tok, buf):
 def profile_pump(eng, prompts, pump_ms):
     """Device time by kernel group over one more pump (torch.profiler), and
     the share of an unprofiled pump's wall time (pump_ms, the mean of the
-    timed pumps) in which no kernel ran."""
+    timed pumps) in which no kernel ran; also the pump's completions."""
     from repro_torch.serving.engine import Request
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=1000 + i, tokens=p, arrival_s=time.time()))
     with torch.profiler.profile(activities=ACTIVITIES) as prof:
-        eng.pump()
+        done = eng.pump()
     groups = kernel_groups(prof)
     return {"pump_ms": pump_ms, "device_ms": groups,
-            "idle_share": max(0.0, 1.0 - sum(groups.values()) / pump_ms)}
+            "idle_share": max(0.0, 1.0 - sum(groups.values()) / pump_ms)}, done
 
 
 def _leaves(tree):
@@ -386,38 +578,42 @@ def _leaves(tree):
         yield tree
 
 
-def check_small_against_cpu(dev):
-    """A reduced qwen3-4b on the card against the same weights on the CPU
-    (plain path): logits of prefill and three decode steps."""
+def check_small_against_cpu(dev, arch):
+    """A reduced ``arch`` on the card against the same weights on the CPU
+    (plain path): logits of prefill and three decode steps.  zamba2 keeps
+    two groups (4 layers)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.zoo import build_model
-    cfg = reduced(get_config(ARCH))
+    cfg = get_config(arch)
+    cfg = reduced(cfg, layers=4 if cfg.shared_attn_every else 2)
     cpu_model, gpu_model = build_model(cfg, "cpu"), build_model(cfg, dev)
     params_cpu = cpu_model.init(seed=1)
-    params_gpu = {k: ([{kk: _to(vv, dev) for kk, vv in b.items()} for b in v]
-                      if k == "blocks" else _to(v, dev)) for k, v in params_cpu.items()}
+    params_gpu = _to(params_cpu, dev)
     rng = np.random.default_rng(2)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)))
     worst = 0.0
     with torch.inference_mode():
         cc = cpu_model.init_cache(2, 32, dtype=torch.float32)
-        gc = gpu_model.init_cache(2, 32, dtype=torch.float32)
+        gc_ = gpu_model.init_cache(2, 32, dtype=torch.float32)
         lc, cc = cpu_model.prefill(params_cpu, {"tokens": tokens}, cc)
-        lg, gc = gpu_model.prefill(params_gpu, {"tokens": tokens.to(dev)}, gc)
+        lg, gc_ = gpu_model.prefill(params_gpu, {"tokens": tokens.to(dev)}, gc_)
         worst = max(worst, rel_err(lg.cpu(), lc))
         for _ in range(3):
             tok = lc.reshape(2, -1).argmax(-1).to(torch.int32)[:, None]
             lc, cc = cpu_model.decode_step(params_cpu, tok, cc)
-            lg, gc = gpu_model.decode_step(params_gpu, tok.to(dev), gc)
+            lg, gc_ = gpu_model.decode_step(params_gpu, tok.to(dev), gc_)
             worst = max(worst, rel_err(lg.cpu(), lc))
-    log(f"small: reduced {ARCH} on the card vs CPU, worst rel. err {worst:.3g} "
+    log(f"small: reduced {arch} on the card vs CPU, worst rel. err {worst:.3g} "
         f"(limit {REL_TOL_SMALL})")
     assert worst <= REL_TOL_SMALL, worst
+    return worst
 
 
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
     return tree.to(dev)
 
 
@@ -425,10 +621,12 @@ def _to(tree, dev):
 # Phase 5: timing at the slice's shapes
 # ---------------------------------------------------------------------------
 
-def time_flash(dev, rng, launches, err):
+def time_flash(dev, rng, err, H=32, KV=8, hd=128):
+    """Flash attention at a served model's prefill shape (qwen3-4b's heads
+    by default): kernel, plain version and SDPA device times, and bound."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    B, S, H, KV, hd = BATCH, PROMPT, 32, 8, 128
+    B, S = BATCH, PROMPT
     q = rand(rng, (B, S, H, hd), torch.float32, dev)
     k, v = rand(rng, (B, S, KV, hd), torch.float32, dev), rand(rng, (B, S, KV, hd), torch.float32, dev)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -444,19 +642,20 @@ def time_flash(dev, rng, launches, err):
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:72",
-            "launches": launches["flash_attention"], "max_abs_err": err,
+            "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": lib_ms}
 
 
-def time_decode(dev, rng, launches, err):
+def time_decode(dev, rng, err, H=32, KV=8, hd=128):
+    """Decode attention at a served model's first decode step (qwen3-4b's
+    heads by default), over enough cache copies to exceed the L2 cache."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     n_copies = 8                                  # 8 x 17 MB of cache > 50 MB L2
-    q, caches, qpos, kvpos = decode_inputs(dev, rng, n_copies)
+    q, caches, qpos, kvpos = decode_inputs(dev, rng, n_copies, H, KV, hd)
     views = [(kc.transpose(1, 2), vc.transpose(1, 2)) for kc, vc in caches]
-    B, H, hd = q.shape[0], q.shape[2], q.shape[3]
-    KV, S_buf = caches[0][0].shape[1], caches[0][0].shape[2]
+    B, S_buf = q.shape[0], caches[0][0].shape[2]
     mask = (kvpos >= 0) & (kvpos <= qpos[:, None])
     qh = q.transpose(1, 2)                        # (B, H, 1, hd)
     with torch.inference_mode():
@@ -473,9 +672,67 @@ def time_decode(dev, rng, launches, err):
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:64",
-            "launches": launches["decode_attention"], "max_abs_err": err,
+            "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": lib_ms}
+
+
+def time_rwkv(dev, rng, err):
+    """rwkv6_scan at rwkv6-1.6b's prefill, from a zero initial state as the
+    model passes it; no single PyTorch call computes the recurrence."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    B, S, H, hd = RWKV_SHAPE
+    r, k, v, logw, u = rwkv_inputs(rng, B, S, H, hd, torch.float32, dev)
+    s0 = torch.zeros((B, H, hd, hd), device=dev)
+    with torch.inference_mode():
+        ms = device_ms(lambda i: rwkv6_scan(r, k, v, logw, u, s0=s0), 1)
+        plain_ms = device_ms(lambda i: ref.rwkv6_ref(r, k, v, logw, u, s0), 1, iters=3)
+    # the recurrence's least work per step and head: the state's read-out
+    # r·S and its rank-1 update kᵀv, 2 flops per FMA (a chunked form decays
+    # the state once a chunk, so the per-step decay is left out)
+    flops = B * S * H * 4 * hd * hd
+    nbytes = 4 * (5 * B * S * H * hd + H * hd + 2 * B * H * hd * hd)
+    bound_ms, by = bound(flops, nbytes)
+    return {"name": "rwkv6_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan.py:60",
+            "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None}
+
+
+def time_ssd(dev, rng, err):
+    """ssd_scan at zamba2-2.7b's prefill: B and C in group form expanded
+    over the heads and a zero initial state, as the Mamba2 block passes
+    them; no single PyTorch call computes the recurrence."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    B, S, H, hd, N = SSD_SHAPE
+    xdt, Bm, Cm, dA = ssd_inputs(rng, B, S, H, hd, N, torch.float32, dev, group=True)
+    h0 = torch.zeros((B, H, hd, N), device=dev)
+    with torch.inference_mode():
+        ms = device_ms(lambda i: ssd_scan(xdt, Bm, Cm, dA, h0=h0), 1)
+        plain_ms = device_ms(lambda i: ref.ssd_ref(xdt, Bm, Cm, dA, h0), 1, iters=3)
+    # as for rwkv6: the read-out C·S and the rank-1 update xdtᵀB per step and
+    # head, 2 flops per FMA
+    flops = B * S * H * 4 * hd * N
+    nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * N + B * S * H + 2 * B * H * hd * N)
+    bound_ms, by = bound(flops, nbytes)
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:55",
+            "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None}
+
+
+def log_timing(k, what=None):
+    lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+    log(f"timing: {what or k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
+        f"library {lib}, bound {k['bound_ms']:.4f} by {k['bound_by']}); "
+        f"plain / kernel = {k['plain_ms'] / k['ms']:.2f}, "
+        f"{k['bound_ms'] / k['ms']:.1%} of bound")
 
 
 def main():
@@ -493,7 +750,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip()
-    log(smi)
+    print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -504,22 +761,37 @@ def main():
             log(f"  ptxas: {line.strip()}")
 
     rng = np.random.default_rng(0)
-    flash_err = check_flash(dev, rng)
-    decode_err = check_decode(dev, rng)
-    check_small_against_cpu(dev)
-    launches, stats = run_slice(dev)
-    kernels = [time_flash(dev, rng, launches, flash_err),
-               time_decode(dev, rng, launches, decode_err)]
+    errs = {"flash_attention": check_flash(dev, rng), "decode_attention": check_decode(dev, rng),
+            "rwkv6_scan": check_rwkv(dev, rng), "ssd_scan": check_ssd(dev, rng)}
+    # phase 5 before phase 4: the larger the profiler runs before a timing,
+    # the more kernel records it drops (see device_ms)
+    kernels = [time_flash(dev, rng, errs["flash_attention"]),
+               time_decode(dev, rng, errs["decode_attention"]),
+               time_rwkv(dev, rng, errs["rwkv6_scan"]),
+               time_ssd(dev, rng, errs["ssd_scan"])]
     for k in kernels:
-        log(f"timing: {k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
-            f"library {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by {k['bound_by']}); "
-            f"plain / kernel = {k['plain_ms'] / k['ms']:.2f}, "
-            f"{k['bound_ms'] / k['ms']:.1%} of bound")
+        log_timing(k)
+    # the attention kernels at zamba2-2.7b's shared block: head_dim 80, 32 kv heads
+    hd80 = [time_flash(dev, rng, errs["flash_attention"], 32, 32, 80),
+            time_decode(dev, rng, errs["decode_attention"], 32, 32, 80)]
+    for k in hd80:
+        log_timing(k, f"{k['name']} (zamba2-2.7b, head_dim 80)")
+    launches, slices = dict.fromkeys(errs, 0), []
+    for arch, layers in MODELS:
+        check_small_against_cpu(dev, arch)
+        counts, stats = run_slice(dev, arch, layers)
+        launches = {k: n + counts[k] for k, n in launches.items()}
+        slices.append(stats)
+    kernels = [{**k, "launches": launches[k["name"]]} for k in kernels]
+    zamba = next(st for st in slices if st["arch"] == "zamba2-2.7b")
+    zamba["attention_hd80"] = {k["name"]: {key: k[key] for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for k in hd80}
     log(f"total: {time.perf_counter() - t_all:.1f} s")
-    log(json.dumps({"kernels": kernels}))
-    log(json.dumps({"slice": {**stats, "gpu": smi}}))
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                          "count": torch.cuda.device_count()}}))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    for stats in slices:
+        print(json.dumps({"slice": {**stats, "gpu": smi}}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                            "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -1,9 +1,11 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-``csrc/attention.cu`` has a plain C interface and includes no PyTorch
-header, so ``nvcc`` compiles that one source and nothing else into a
-shared library, which is loaded with ``ctypes`` and called with raw
-device pointers and PyTorch's current stream.  (A binding through
+The sources in ``csrc/`` (``attention.cu``, ``scan.cu``, sharing
+``common.cuh``) have a plain C interface and include no PyTorch header.
+``nvcc`` compiles each source to an object file, all of them at once in
+parallel processes, and links the objects into one shared library, which
+is loaded with ``ctypes`` and called with raw device pointers and
+PyTorch's current stream.  (A binding through
 ``torch.utils.cpp_extension.load`` would compile PyTorch's headers as
 well, on every fresh machine.)
 
@@ -26,11 +28,12 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "attention.cu",)
+SOURCES = (CSRC / "attention.cu", CSRC / "scan.cu")
+HEADERS = (CSRC / "common.cuh",)
 ROOT = Path(__file__).resolve().parents[3]       # <root>/src/repro_torch/kernels
 BUILD_DIR = ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -50,15 +53,21 @@ def nvcc_path() -> str:
     return str(path)
 
 
-def nvcc_command(out: Path) -> list:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), *map(str, SOURCES)]
+def compile_command(src: Path, obj: Path) -> list:
+    return [nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(objs, out: Path) -> list:
+    return [nvcc_path(), "-gencode=arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(out), *map(str, objs)]
 
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
+        h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libattention-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libreprokernels-{h.hexdigest()[:16]}.so"
 
 
 def _bind(lib):
@@ -69,7 +78,37 @@ def _bind(lib):
     lib.repro_decode_attention.argtypes = [
         i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i64p, i32, f32, vp]
     lib.repro_decode_attention.restype = i32
+    lib.repro_rwkv6_scan.argtypes = [
+        i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i64p, vp]
+    lib.repro_rwkv6_scan.restype = i32
+    lib.repro_ssd_scan.argtypes = [
+        i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i64p, vp]
+    lib.repro_ssd_scan.restype = i32
     return lib
+
+
+def _build(path: Path) -> str:
+    """Compile every source at once (one nvcc each), then link them into
+    ``path``; returns the compilers' output.  Raises if any step fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        procs = [subprocess.Popen(compile_command(src, obj), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(src.name, p.returncode, log)
+                  for src, p, log in zip(SOURCES, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        lib = Path(tmp) / path.name
+        proc = subprocess.run(link_command(objs, lib), capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(lib, path)              # atomic: concurrent builds agree
+    return "".join(logs)
 
 
 def load():
@@ -85,17 +124,7 @@ def load():
         t0 = time.perf_counter()
         path = library_path()
         if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            proc = subprocess.run(nvcc_command(Path(tmp)), capture_output=True,
-                                  text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            ptxas_log = proc.stdout + proc.stderr
-            os.replace(tmp, path)          # atomic: concurrent builds agree
+            ptxas_log = _build(path)
         _lib = _bind(ctypes.CDLL(str(path)))
         build_seconds = time.perf_counter() - t0
         return _lib
@@ -106,12 +135,12 @@ CUDA_ERROR_INVALID_VALUE = 1
 
 def check(err: int, name: str):
     """Raise if a launch was refused (the C function returns cudaError_t).
-    cudaErrorInvalidValue is how the C interface refuses a head_dim, dtype
-    or query-group size that it has no kernel for."""
+    cudaErrorInvalidValue is how the C interface refuses a head_dim, state
+    size, dtype or query-group size that it has no kernel for."""
     if err == CUDA_ERROR_INVALID_VALUE:
-        raise ValueError(f"{name}: no kernel for these inputs (head_dim, dtype or "
-                         "query heads per kv head; see the dispatch in "
-                         "csrc/attention.cu)")
+        raise ValueError(f"{name}: no kernel for these inputs (head_dim, state "
+                         "size, dtype or query heads per kv head; see the "
+                         "dispatch in csrc/)")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
@@ -128,3 +157,25 @@ def strides_arg(*tensors_dims):
     """Pack (tensor, dims) pairs into the kernels' int64 stride array."""
     vals = [t.stride(d) for t, dims in tensors_dims for d in dims]
     return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def compare_build_times():
+    """Wall seconds of this module's parallel build and of one serial
+    ``nvcc -shared`` over every source, each into a fresh directory.
+    Run on a machine with nvcc: ``PYTHONPATH=src python -m
+    repro_torch.kernels._build``."""
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _build(Path(tmp) / "parallel.so")
+        times["parallel_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        subprocess.run([nvcc_path(), *NVCC_FLAGS, "-shared", "-o", str(Path(tmp) / "serial.so"),
+                        *map(str, SOURCES)], check=True, capture_output=True)
+        times["serial_s"] = time.perf_counter() - t0
+    return times
+
+
+if __name__ == "__main__":
+    import json
+    print(json.dumps(compare_build_times()))

@@ -19,7 +19,8 @@
 //   memory as float32 (each thread issues all its vector loads of a tile
 //   before storing any); every thread owns a 4x4 block of the 64x64 score
 //   tile, read with 16-byte loads from padded rows (no bank conflicts), and
-//   4 rows x hd/16 columns of the f32 output accumulator in registers.
+//   4 rows x hd/16 columns of the f32 output accumulator in registers
+//   (for hd = 80, zamba2's shared attention, five single columns 16 apart).
 //   Row max and sum reduce over the 16 lanes holding a row with shuffles.
 //   q tiles are issued heaviest first so the causal tail does not idle SMs.
 //   Ragged S is masked here; the TPU kernel asserted S % 128 == 0.
@@ -45,64 +46,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-__device__ __forceinline__ float comp(const float4& v, int u) {
-  return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
-}
-
-// Four consecutive elements as float32 (16-byte load for float32, 8-byte
-// load for bfloat16; the wrapper checks the alignment).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// Stage rows [r0, r0 + ROWS) of a (S, HD) matrix with row stride ld_src
-// (elements) into shared memory as float32 with row stride LD, times scale;
-// rows at or past S become 0.  Each thread issues all its vector loads
-// before its first store, so ROWS * HD / (4 * NT) loads are in flight at
-// once instead of one at a time.
-template <int ROWS, int HD, int LD, int NT, typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, long long ld_src,
-                                           int r0, int S, float scale) {
-  constexpr int VPR = HD / 4;  // vectors per row
-  constexpr int ITERS = ROWS * VPR / NT;
-  static_assert(ROWS * VPR % NT == 0, "tile must split evenly over the threads");
-  float4 buf[ITERS];
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int idx = threadIdx.x + it * NT, r = idx / VPR, c = (idx % VPR) * 4;
-    buf[it] = r0 + r < S ? load4(src + (r0 + r) * ld_src + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int idx = threadIdx.x + it * NT, r = idx / VPR, c = (idx % VPR) * 4;
-    float* d = dst + r * LD + c;
-    d[0] = buf[it].x * scale;
-    d[1] = buf[it].y * scale;
-    d[2] = buf[it].z * scale;
-    d[3] = buf[it].w * scale;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Prefill: blockwise online-softmax attention
@@ -133,9 +81,9 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
   constexpr int QS = HD + 4;        // padded row stride of the Q and K tiles
   constexpr int PS = FA_BK + 4;     // padded row stride of the P tile
-  constexpr int VEC = HD >= 64 ? 4 : 2;
+  constexpr int VEC = HD % 64 == 0 ? 4 : (HD % 32 == 0 ? 2 : 1);
   constexpr int NCH = HD / (16 * VEC);  // column chunks per thread
-  static_assert(HD % 64 == 0 || HD == 32, "head_dim must be 32 or a multiple of 64");
+  static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][QS], pre-scaled
@@ -264,10 +212,12 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
             vv[n * 4 + 1] = t.y;
             vv[n * 4 + 2] = t.z;
             vv[n * 4 + 3] = t.w;
-          } else {
+          } else if constexpr (VEC == 2) {
             const float2 t = *reinterpret_cast<const float2*>(&vrow[col]);
             vv[n * 2 + 0] = t.x;
             vv[n * 2 + 1] = t.y;
+          } else {
+            vv[n] = vrow[col];
           }
         }
 #pragma unroll
@@ -311,6 +261,7 @@ cudaError_t dispatch_flash(const FlashArgs& a, int hd, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch_flash<T, 32>(a, stream);
     case 64: return launch_flash<T, 64>(a, stream);
+    case 80: return launch_flash<T, 80>(a, stream);
     case 128: return launch_flash<T, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -508,6 +459,7 @@ cudaError_t dispatch_decode(const DecodeArgs& a, int hd, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch_decode<T, 32>(a, stream);
     case 64: return launch_decode<T, 64>(a, stream);
+    case 80: return launch_decode<T, 80>(a, stream);
     case 128: return launch_decode<T, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }

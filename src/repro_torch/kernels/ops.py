@@ -9,9 +9,13 @@ from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 KERNELS = {"flash_attention": flash_attention,
-           "decode_attention": decode_attention}
+           "decode_attention": decode_attention,
+           "rwkv6_scan": rwkv6_scan,
+           "ssd_scan": ssd_scan}
 
 
 def reset_launch_counts():
@@ -23,5 +27,5 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["flash_attention", "decode_attention", "reset_launch_counts",
-           "launch_counts"]
+__all__ = ["flash_attention", "decode_attention", "rwkv6_scan", "ssd_scan",
+           "reset_launch_counts", "launch_counts"]

@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the attention kernels (exact, unchunked).
+"""Plain PyTorch versions of the kernels (exact, unchunked).
 
-They compute what ``csrc/attention.cu`` computes, in float32, with the
-same finite ``NEG_INF`` mask.  The CPU path of the wrappers runs them, and
-``chip_smoke.py`` holds each CUDA kernel against them on the card.
-Counterpart of the JAX package's ``kernels/ref.py``.
+They compute what ``csrc/attention.cu`` and ``csrc/scan.cu`` compute, in
+float32; attention uses the same finite ``NEG_INF`` mask, and the scans are
+the exact step-by-step recurrences, with an initial state.  The CPU path
+of the wrappers runs them, and ``chip_smoke.py`` holds each CUDA kernel
+against them on the card.  Counterpart of the JAX package's
+``kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -55,3 +57,40 @@ def decode_attention_ref(q, k, v, q_positions, kv_positions, *,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bqkgs,bskd->bqkgd", w, v.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def rwkv6_ref(r, k, v, logw, u, s0=None):
+    """Exact sequential RWKV6 recurrence, one step at a time:
+        y_t = r_t (S + diag(u) k_t^T v_t),   S <- diag(exp(logw_t)) S + k_t^T v_t
+    r, k, v, logw: (B,S,H,hd); u: (H,hd); s0: (B,H,hd,hd) float32 or None
+    (zeros).  Returns (y (B,S,H,hd) float32, final state (B,H,hd,hd))."""
+    B, S, H, hd = r.shape
+    state = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+             if s0 is None else s0.float().clone())
+    rf, kf, vf = r.float(), k.float(), v.float()
+    wf = torch.exp(logw.float())
+    uf = u.float()[None, :, :, None]
+    ys = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]            # (B,H,hd,hd)
+        ys.append(torch.einsum("bhd,bhde->bhe", rf[:, t], state + uf * kv))
+        state = state * wf[:, t, :, :, None] + kv
+    return torch.stack(ys, dim=1), state
+
+
+def ssd_ref(xdt, Bm, Cm, dA, h0=None):
+    """Exact sequential SSD (Mamba2) recurrence, scalar decay per head:
+        h <- h exp(dA_t) + xdt_t^T B_t,   y_t = h C_t
+    xdt: (B,S,H,hd); Bm, Cm: (B,S,H,N); dA: (B,S,H) <= 0; h0: (B,H,hd,N)
+    float32 or None (zeros).  Returns (y (B,S,H,hd) float32, final state)."""
+    B, S, H, hd = xdt.shape
+    N = Bm.shape[-1]
+    h = (torch.zeros((B, H, hd, N), dtype=torch.float32, device=xdt.device)
+         if h0 is None else h0.float().clone())
+    xf, bf, cf = xdt.float(), Bm.float(), Cm.float()
+    af = torch.exp(dA.float())
+    ys = []
+    for t in range(S):
+        h = h * af[:, t, :, None, None] + xf[:, t, :, :, None] * bf[:, t, :, None, :]
+        ys.append(torch.einsum("bhn,bhdn->bhd", cf[:, t], h))
+    return torch.stack(ys, dim=1), h

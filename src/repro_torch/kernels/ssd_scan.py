@@ -1,0 +1,83 @@
+"""Mamba2 SSD scan on Hopper: wrapper of ``ssd_scan_kernel``.
+
+Replaces the Pallas TPU kernel ``repro.kernels.ssd_scan``, scalar decay per
+head:
+
+    h <- h exp(dA_t) + xdt_t^T B_t,   y_t = h C_t
+
+with an initial state ``h0`` and any sequence length.  On a CUDA tensor it
+launches the CUDA kernel in ``csrc/scan.cu`` (chunks of 128 steps, a
+ragged last chunk zero-padded); on a CPU tensor it runs the plain
+``ref.ssd_ref``.  There is no other path.
+
+B and C are read through their strides, so the Mamba2 block passes its
+group-form (B, S, N) tensors as ``Bm[:, :, None].expand(B, S, H, N)``: a
+head stride of 0 and no copy.
+
+``ssd_scan.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flash_attention import DTYPES
+
+
+def _validate(xdt, Bm, Cm, dA, h0):
+    if xdt.dim() != 4 or Bm.dim() != 4 or Bm.shape != Cm.shape:
+        raise ValueError("ssd_scan: xdt (B,S,H,hd), Bm/Cm (B,S,H,N)")
+    B, S, H, hd = xdt.shape
+    N = Bm.shape[-1]
+    if tuple(Bm.shape[:3]) != (B, S, H) or tuple(dA.shape) != (B, S, H):
+        raise ValueError(f"ssd_scan: shapes {tuple(xdt.shape)} {tuple(Bm.shape)} "
+                         f"{tuple(dA.shape)} disagree")
+    if h0 is not None and tuple(h0.shape) != (B, H, hd, N):
+        raise ValueError(f"ssd_scan: h0 {tuple(h0.shape)} is not {(B, H, hd, N)}")
+    tensors = (xdt, Bm, Cm, dA) + (() if h0 is None else (h0,))
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("ssd_scan: tensors on different devices")
+    if not (xdt.dtype == Bm.dtype == Cm.dtype):
+        raise ValueError("ssd_scan: xdt, Bm, Cm of different dtypes")
+    if S < 1:
+        raise ValueError("ssd_scan: empty sequence")
+
+
+def ssd_scan(xdt, Bm, Cm, dA, *, h0=None):
+    """xdt: (B, S, H, hd) = x * dt; Bm, Cm: (B, S, H, N); dA: (B, S, H) <= 0
+    float32; h0: (B, H, hd, N) float32 or None (zeros).  Returns (y (B, S,
+    H, hd) in xdt's dtype, final state (B, H, hd, N) float32)."""
+    _validate(xdt, Bm, Cm, dA, h0)
+    if xdt.device.type == "cpu":
+        y, h_fin = ref.ssd_ref(xdt, Bm, Cm, dA, h0)
+        return y.to(xdt.dtype), h_fin
+    if xdt.device.type != "cuda":
+        raise ValueError(f"ssd_scan: unsupported device {xdt.device}")
+    B, S, H, hd = xdt.shape
+    N = Bm.shape[-1]
+    if xdt.dtype not in DTYPES:
+        raise TypeError(f"ssd_scan: dtype {xdt.dtype} not in {list(DTYPES)}")
+    if dA.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: dA must be float32, not {dA.dtype}")
+    if any(t.stride(3) != 1 for t in (xdt, Bm, Cm)):
+        raise ValueError("ssd_scan: the last dimension must be contiguous")
+    for t in (xdt, Bm, Cm):
+        _build.check_vector_aligned("ssd_scan", t, (0, 1, 2))
+    if h0 is not None and (h0.dtype != torch.float32 or not h0.is_contiguous()):
+        raise ValueError("ssd_scan: h0 must be contiguous float32")
+    lib = _build.load()
+    y = torch.empty((B, S, H, hd), dtype=xdt.dtype, device=xdt.device)
+    h_fin = torch.empty((B, H, hd, N), dtype=torch.float32, device=xdt.device)
+    strides = _build.strides_arg(*((t, (0, 1, 2)) for t in (xdt, Bm, Cm, dA)))
+    with torch.cuda.device(xdt.device):
+        err = lib.repro_ssd_scan(
+            DTYPES[xdt.dtype], hd, N, xdt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            dA.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
+            h_fin.data_ptr(), B, S, H, strides,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "ssd_scan")
+    ssd_scan.launches += 1
+    return y, h_fin
+
+
+ssd_scan.launches = 0

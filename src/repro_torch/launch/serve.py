@@ -1,11 +1,18 @@
 """Serving launcher for the port: the batched engine on one GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cpu
 
 Serves a reduced model (2 layers, d_model 256) as the JAX launcher's
-``--mode engine`` does.  Cluster mode (provision + simulate) arrives with
-the planner slices of the port.
+``--mode engine`` does, of any family the port runs: dense attention
+(qwen3-4b and the other "attn" configs without MoE, encoder or M-RoPE),
+RWKV6 (rwkv6-1.6b) and Mamba2 with shared attention (zamba2-2.7b).  On the
+card the prompt goes through the CUDA kernels (flash attention, or the
+rwkv6 / SSD scan) and each decode step through flash-decode attention
+where the model has attention; ``--device cpu`` runs their plain
+versions.  Cluster mode (provision + simulate) arrives with the planner
+slices of the port.
 """
 import argparse
 import time

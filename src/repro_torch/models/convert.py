@@ -3,7 +3,9 @@
 ``params_from_jax`` takes the JAX parameter tree after
 ``jax.tree.map(np.asarray, params)`` and returns the port's tree: the same
 nested dicts and leaf layouts, with the stacked leading layer axis of
-``params["blocks"]`` split into one dict per layer.  Values are copied
+``params["blocks"]`` split into one dict per layer (attention, RWKV6 or
+Mamba2 blocks alike); every other entry, zamba2's unstacked
+``shared_attn`` block among them, is copied as it is.  Values are copied
 exactly: a float32 leaf stays bit-for-bit the same float32.
 """
 from __future__ import annotations

@@ -38,15 +38,27 @@ def rms_norm(x, scale, eps: float = 1e-5):
     return (y * (1.0 + scale.float())).to(dt)
 
 
-def init_norm(d, device):
-    return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm in float32 (scale stored as is, not zero-centred)."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+def init_norm(d, device, *, with_bias: bool = False):
+    """RMSNorm: a zero-centred scale; LayerNorm (with_bias): scale 1, bias 0."""
+    if not with_bias:
+        return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
 def apply_norm(p, x, eps=1e-5):
     if "bias" in p:
-        raise NotImplementedError(
-            "LayerNorm (encoder-decoder and RWKV6 blocks) arrives with the "
-            "whisper and rwkv6-1.6b slices")
+        return layer_norm(x, p["scale"], p["bias"], eps)
     return rms_norm(x, p["scale"], eps)
 
 

@@ -39,6 +39,9 @@ class Model:
         return T.init_cache(self.cfg, batch_size, max_len, dtype=dtype,
                             window=window, device=self.device)
 
+    def reset_cache(self, cache):
+        return T.reset_cache(cache)
+
 
 def build_model(cfg: ArchConfig, device=None) -> Model:
     """device: None -> cuda:0 (raises without CUDA); "cpu" on request."""

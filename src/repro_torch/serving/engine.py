@@ -3,9 +3,9 @@
 Counterpart of the JAX package's ``serving/engine.py`` with the same
 batching and padding: requests queue up; each serving pass takes up to
 ``batch_size`` of them, zero-pads every prompt to ``prompt_len``, runs one
-prefill (flash-attention kernel) and ``decode_tokens - 1`` greedy decode
-steps (flash-decode kernel), and returns ``decode_tokens`` tokens per
-request.  Latency runs from a request's arrival to the moment its output
+prefill (through the flash-attention or scan kernels) and
+``decode_tokens - 1`` greedy decode steps, and returns ``decode_tokens``
+tokens per request.  Latency runs from a request's arrival to the moment its output
 tokens reach the host.
 """
 from __future__ import annotations
@@ -55,7 +55,9 @@ class ServingEngine:
         self.queue: Deque[Request] = deque()
         self.latencies: List[float] = []
         # One cache per engine, in float32 as in the JAX engine.  Each pass
-        # resets it: prefill overwrites every slot and the write position.
+        # starts where the JAX engine's fresh cache starts: reset_cache zeros
+        # the recurrent states, and prefill overwrites every KV slot and the
+        # write position.
         self._cache = self.model.init_cache(
             batch_size, prompt_len + decode_tokens + 8, dtype=torch.float32)
         # warm-up (and first-use kernel build) so latencies are steady-state
@@ -64,8 +66,8 @@ class ServingEngine:
     @torch.inference_mode()
     def _serve(self, tokens: np.ndarray) -> np.ndarray:
         toks = torch.from_numpy(tokens).to(self.device)
-        logits, cache = self.model.prefill(self.params, {"tokens": toks},
-                                           self._cache)
+        cache = self.model.reset_cache(self._cache)
+        logits, cache = self.model.prefill(self.params, {"tokens": toks}, cache)
         tok = logits.argmax(-1).to(torch.int32)[:, None]
         outs = [tok]
         for _ in range(self.decode_tokens - 1):

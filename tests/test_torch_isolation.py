@@ -39,7 +39,9 @@ def test_port_imports_no_jax_and_no_repro():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     found = {p.relative_to(PORT).as_posix() for p in files if PORT in p.parents}
     for mod in ("device.py", "configs/base.py", "kernels/ops.py",
-                "models/attention.py", "serving/engine.py", "launch/serve.py"):
+                "kernels/rwkv6_scan.py", "kernels/ssd_scan.py",
+                "models/attention.py", "models/rwkv.py", "models/ssm.py",
+                "serving/engine.py", "launch/serve.py"):
         assert mod in found
     bad = {str(p.relative_to(REPO)): _reaches_jax_or_repro(ast.parse(p.read_text()))
            for p in files}

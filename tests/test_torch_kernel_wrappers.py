@@ -46,17 +46,20 @@ def test_cpu_path_counts_no_launch():
     ops.flash_attention(x, x, x)
     ops.decode_attention(x[:, :1], x, x, torch.zeros(1, dtype=torch.int32),
                          torch.zeros(1, 8, dtype=torch.int32))
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
+                                   "rwkv6_scan": 0, "ssd_scan": 0}
 
 
 def test_build_targets_hopper():
-    """The kernels are compiled for sm_90a into the git-ignored build
-    directory of this checkout, named by the source's hash (built on the
-    card's machine)."""
+    """The kernels are compiled for sm_90a, one nvcc per source, into one
+    library in the git-ignored build directory of this checkout, named by
+    the sources' hash (built on the card's machine)."""
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-O3" in _build.NVCC_FLAGS
+    assert {p.name for p in _build.SOURCES} == {"attention.cu", "scan.cu"}
+    assert all(p.exists() for p in _build.SOURCES + _build.HEADERS)
     path = _build.library_path()
-    assert path.parent == _build.BUILD_DIR and path.name.startswith("libattention-")
+    assert path.parent == _build.BUILD_DIR and path.name.startswith("libreprokernels-")
     assert _build.BUILD_DIR == Path(__file__).resolve().parents[1] / "build" / "kernels"
 
 

@@ -86,9 +86,11 @@ def test_serving_engine_matches_jax_engine():
 
 
 def test_unported_blocks_name_their_slice():
-    for arch, slice_name in [("rwkv6-1.6b", "rwkv6-1.6b slice"),
-                             ("zamba2-2.7b", "zamba2-2.7b slice"),
-                             ("mixtral-8x22b", "MoE slice"),
-                             ("whisper-large-v3", "encoder/vision slice")]:
+    for arch, slice_name in [("mixtral-8x22b", "MoE slice"),
+                             ("dbrx-132b", "MoE slice"),
+                             ("whisper-large-v3", "encoder/vision slice"),
+                             ("qwen2-vl-7b", "encoder/vision slice")]:
         with pytest.raises(NotImplementedError, match=slice_name):
             build_model(reduced(REGISTRY[arch]), "cpu")
+    for arch in ("qwen3-4b", "rwkv6-1.6b", "zamba2-2.7b"):   # served since slice 2
+        assert build_model(reduced(REGISTRY[arch]), "cpu").cfg.name == arch
