@@ -6,17 +6,25 @@
 Phases (any failure raises and exits non-zero):
   1. device   -- the card's name and power limit (nvidia-smi)
   2. build    -- nvcc builds the CUDA kernels from src/repro_torch/kernels/csrc,
-                 one process per source, linked into one library
+                 one process per source, linked into one library; ptxas's
+                 registers, shared memory and spills per kernel; the SASS
+                 (cuobjdump -sass) of every instantiation of the two
+                 tensor-core kernels (flash_attn_kernel, ssd_scan_kernel)
+                 must hold tensor-core products (HMMA ... TF32), and TF32
+                 stays off in torch
   3. kernels  -- each CUDA kernel against its plain PyTorch version on the
                  card: the shape grid of tests/test_kernels.py in f32 and
                  bf16 (attention 2e-5 / 2e-2, the two scans 5x that), a
                  ragged S, rolling slots with a row that has no valid slot,
                  caches cut into one chunk and into chunks of two tiles,
                  head_dim 80 (zamba2's shared attention), nonzero initial
-                 states and a two-call continuation for the scans, B and C
-                 in group form (head stride 0), and each kernel at its
-                 served model's own shapes; inputs no kernel is built for
-                 raise
+                 states and a two-call continuation (f32 and bf16) for the
+                 scans, B and C in group form (head stride 0), the edges of
+                 the tensor-core tiling (flash: S = 1, 63, 65, 513, windows
+                 of 1 and longer than S, 1/2/4/8 query heads per kv head at
+                 every head_dim; ssd: S = 1, 40, 2048 and every (hd, N)),
+                 and each kernel at its served model's own shapes; inputs no
+                 kernel is built for raise
   4. slices   -- for each served model (qwen3-4b, rwkv6-1.6b, zamba2-2.7b)
                  at full width (full depth but for qwen3-4b: see MODELS;
                  f32, random weights from a torch.Generator on the card):
@@ -34,18 +42,27 @@ Phases (any failure raises and exits non-zero):
   5. timing   -- (run between phases 3 and 4, before any pump is profiled)
                  device time (torch.profiler) of each kernel, its plain
                  version and, for attention, one PyTorch library call
-                 (scaled_dot_product_attention, a yardstick the port never
-                 calls; no single call computes a scan) at the served
-                 shapes, beside the least time the card could take
-                 (bound_ms); attention also at zamba2's head_dim 80
+                 (scaled_dot_product_attention under its efficient backend
+                 on K/V expanded to every query head, a yardstick the port
+                 never calls; the math-backend time of the enable_gqa call
+                 beside it where H > KV; no single call computes a scan) at
+                 the served shapes, beside the least time the card could
+                 take (bound_ms at the 3xTF32 rate, bound_f32_cores_ms at
+                 the CUDA cores' float32 rate); attention also at zamba2's
+                 head_dim 80
 Prints one {"kernels": [...]} line, one {"slice": {...}} line per model,
 and last {"ok": true, "device": {...}}.
 """
 import gc
+import importlib.util
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -54,8 +71,12 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, HBM3 rate
+# H100 SXM peaks (NVIDIA data sheet): float32 FMA on the CUDA cores, TF32
+# on the tensor cores, HBM3 rate.  The fastest float32-accurate route is
+# three TF32 passes (3xTF32, as the kernels' tensor-core products run).
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_F32_ACCURATE_TC_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES_S = 3.35e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SCAN_TOL = {dt: 5 * tol for dt, tol in TOL.items()}  # tests/test_kernels.py: 5x for the scans
@@ -110,7 +131,7 @@ def device_kernels_us(prof):
     return out
 
 
-def device_ms(fn, n_inputs, iters=20, attempts=3):
+def device_ms(fn, n_inputs, iters=20, attempts=6, warmup=3):
     """Mean device time per call of fn(i), cycling over n_inputs input sets:
     the summed durations of the kernels it launched, read with
     torch.profiler, so host time between small launches does not count.
@@ -120,7 +141,7 @@ def device_ms(fn, n_inputs, iters=20, attempts=3):
     kernels that start inside the "timed" range after them.  Every call
     launches the same kernels: a run whose count of some kernel is no
     multiple of iters lost records there too and is measured again."""
-    for i in range(3):
+    for i in range(warmup):
         fn(i % n_inputs)
     torch.cuda.synchronize()
     for _ in range(attempts):
@@ -150,8 +171,14 @@ def device_ms(fn, n_inputs, iters=20, attempts=3):
 
 
 def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    """The least time the card could take for ``flops`` float32-accurate
+    operations and ``nbytes`` of traffic: bound_ms and bound_by at the
+    3xTF32 peak, and bound_f32_cores_ms at the CUDA cores' float32 peak
+    (the bound of earlier tables)."""
+    t_ops, t_bytes = flops / PEAK_F32_ACCURATE_TC_FLOPS, nbytes / PEAK_BYTES_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_f32_cores_ms": max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3}
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +199,17 @@ def check_flash(dev, rng):
     cases += [(2, S, 32, 32, 80, dt, True, None) for S in (100, 256)
               for dt in (torch.float32, torch.bfloat16)]
     cases += [(BATCH, PROMPT + 1, 32, 32, 80, torch.float32, True, None)]
+    # the edges of the tensor-core tiling (64 query rows a warpgroup, 16 a
+    # warp, kv tiles of 32): G = 1, 2, 4, 8 query heads per kv
+    # head at every head_dim; S = 1, a block's rows - 1 and + 1, 513; a
+    # window of 1 and one longer than S
+    dts = (torch.float32, torch.bfloat16)
+    cases += [(1, 65, 8, 8 // G, hd, dt, True, None) for hd in (32, 64, 80, 128)
+              for G in (1, 2, 4, 8) for dt in dts]
+    cases += [(2, S, 4, 2, hd, dt, True, None) for S in (1, 63, 65, 513) for hd in (80, 128)
+              for dt in dts]
+    cases += [(2, 100, 4, 2, hd, dt, causal, w) for w in (1, 1000) for hd in (64, 80)
+              for dt in dts for causal in (True, False)]
     for B, S, H, KV, hd, dt, causal, window in cases:
         q = rand(rng, (B, S, H, hd), dt, dev)
         k, v = rand(rng, (B, S, KV, hd), dt, dev), rand(rng, (B, S, KV, hd), dt, dev)
@@ -189,6 +227,49 @@ def check_flash(dev, rng):
     x = torch.zeros((1, 64, 2, 96), device=dev)          # head_dim 96: no kernel
     expect_refusal("flash_attention head_dim 96", lambda: flash_attention(x, x, x))
     return err
+
+
+# the kernels redesigned for the tensor cores, and their instantiations
+# (dtype x head_dim, dtype x head_dim x state size in the C dispatch)
+TENSOR_CORE_KERNELS = {"flash_attn_kernel": 2 * 4, "ssd_scan_kernel": 2 * 2 * 3}
+
+
+def find_cuobjdump():
+    """The toolkit's cuobjdump, or the copy Triton ships."""
+    found = shutil.which("cuobjdump")
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidates = [found, str(Path(home) / "bin" / "cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        candidates.append(str(Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump"))
+    for c in candidates:
+        if c and Path(c).exists():
+            return c
+    raise RuntimeError(f"cuobjdump not found in {candidates}")
+
+
+def check_tensor_cores(lib_path):
+    """Disassemble the built library (cuobjdump -sass) and require
+    tensor-core products (HMMA ... TF32, or HGMMA) in every instantiation
+    of the redesigned kernels; returns {kernel: [tensor-core instructions
+    per instantiation]}."""
+    sass = subprocess.run([find_cuobjdump(), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    found = {k: [] for k in TENSOR_CORE_KERNELS}
+    for chunk in sass.split("Function : ")[1:]:
+        name, body = chunk.split("\n", 1)
+        kernel = next((k for k in TENSOR_CORE_KERNELS if k in name), None)
+        if kernel is None:
+            continue
+        n_tc = len(re.findall(r"\bHMMA\.\S*TF32|\bHGMMA\.", body))
+        if n_tc == 0:
+            raise AssertionError(f"{name.strip()}: no tensor-core instruction in its SASS")
+        found[kernel].append(n_tc)
+    for kernel, n in TENSOR_CORE_KERNELS.items():
+        if len(found[kernel]) != n:
+            raise AssertionError(f"{kernel}: {len(found[kernel])} instantiations in the SASS, "
+                                 f"want {n}")
+    return found
 
 
 def expect_refusal(name, fn):
@@ -304,23 +385,25 @@ def check_scan(name, dev, rng, kernel, plain, make, cases, state_shape, slice_ca
         assert y.dtype == dt and s.dtype == torch.float32, (name, shape, dt)
         check_close(f"{name} y {shape, dt, with_state}", y, y_ref, SCAN_TOL[dt])
         check_close(f"{name} state {shape, dt, with_state}", s, s_ref, SCAN_TOL[dt])
-    # continuation: scan(S1) then scan(S2, state) == scan(S1 + S2)
+    # continuation: scan(S1) then scan(S2, state) == scan(S1 + S2), the
+    # state carried through the initial-state argument
     shape = cases[0][0]
-    args = make(rng, *shape[:1], 357, *shape[2:], torch.float32, dev)
-    y_all, s_all = kernel(*args, None)
-    first = [t[:, :100] if t.dim() >= 3 else t for t in args]
-    rest = [t[:, 100:] if t.dim() >= 3 else t for t in args]
-    y1, s1 = kernel(*first, None)
-    y2, s2 = kernel(*rest, s1)
-    check_close(f"{name} continuation y", torch.cat([y1, y2], 1), y_all, SCAN_TOL[torch.float32])
-    check_close(f"{name} continuation state", s2, s_all, SCAN_TOL[torch.float32])
+    for dt in (torch.float32, torch.bfloat16):
+        args = make(rng, *shape[:1], 357, *shape[2:], dt, dev)
+        y_all, s_all = kernel(*args, None)
+        first = [t[:, :100] if t.dim() >= 3 else t for t in args]
+        rest = [t[:, 100:] if t.dim() >= 3 else t for t in args]
+        y1, s1 = kernel(*first, None)
+        y2, s2 = kernel(*rest, s1)
+        check_close(f"{name} continuation y {dt}", torch.cat([y1, y2], 1), y_all, SCAN_TOL[dt])
+        check_close(f"{name} continuation state {dt}", s2, s_all, SCAN_TOL[dt])
     args = make(rng, *slice_case, torch.float32, dev)
     y, s = kernel(*args, None)
     y_ref, s_ref = plain(*args, None)
     err = check_close(f"{name} slice shape", y, y_ref, SCAN_TOL[torch.float32])
     check_close(f"{name} slice-shape state", s, s_ref, SCAN_TOL[torch.float32])
-    log(f"kernels: {name} matches its plain version on {len(cases) + 2} cases "
-        f"(+ a continuation); slice-shape max_abs_err {err:.3g}")
+    log(f"kernels: {name} matches its plain version on {len(cases) + 1} cases "
+        f"(+ a continuation in f32 and bf16); slice-shape max_abs_err {err:.3g}")
     return err
 
 
@@ -351,12 +434,19 @@ def check_ssd(dev, rng):
               for dt in (torch.float32, torch.bfloat16)]
     state = [((2, S, 2, hd, N), dt, True) for S, hd, N in [(128, 32, 16), (513, 64, 64)]
              for dt in (torch.float32, torch.bfloat16)]
+    # the edges of the tensor-core tiling (chunks of 64 in a ring of two,
+    # 32 state rows a block): S = 1, S below a chunk, S = 2048 (32 chunks
+    # of state carried across), and every (hd, N) the dispatch takes
+    edges = [((2, S, 2, 64, 64), dt, S != 1) for S in (1, 40, 2048)
+             for dt in (torch.float32, torch.bfloat16)]
+    edges += [((2, 100, 2, hd, N), dt, True) for hd, N in [(32, 32), (32, 64), (64, 16), (64, 32)]
+              for dt in (torch.float32, torch.bfloat16)]
     err = check_scan("ssd_scan", dev, rng,
                      lambda x, b, c, a, h0: ssd_scan(x, b, c, a, h0=h0),
                      ref.ssd_ref,
                      # per-head B/C on the grid's lengths, group form (head stride 0) on the others
                      lambda rng, B, S, *rest: ssd_inputs(rng, B, S, *rest, group=S not in (128, 256)),
-                     grid + ragged + state,
+                     grid + ragged + state + edges,
                      lambda B, S, H, hd, N: (B, H, hd, N), SSD_SHAPE)
     x = torch.zeros((1, 8, 1, 64), device=dev)         # state size 128: no kernel
     bc = torch.zeros((1, 8, 1, 128), device=dev)
@@ -629,22 +719,27 @@ def time_flash(dev, rng, err, H=32, KV=8, hd=128):
     B, S = BATCH, PROMPT
     q = rand(rng, (B, S, H, hd), torch.float32, dev)
     k, v = rand(rng, (B, S, KV, hd), torch.float32, dev), rand(rng, (B, S, KV, hd), torch.float32, dev)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    # the yardstick: SDPA's efficient kernel on K/V expanded to H heads
+    # outside the timed call (with enable_gqa, f32 SDPA runs only its math
+    # backend); that math-backend time is kept beside it where H > KV
+    qt, kg, vg = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous() for t in (k, v))
     with torch.inference_mode():
         ms = device_ms(lambda i: flash_attention(q, k, v), 1)
         plain_ms = device_ms(lambda i: ref.attention_ref(q, k, v), 1, iters=5)
-        lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 1)
+        lib = library_times(
+            lambda: device_ms(lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 1),
+            None if H == KV else lambda: device_ms(lambda i: F.scaled_dot_product_attention(
+                qt, kg, vg, is_causal=True, enable_gqa=True), 1))
     pairs = S * (S + 1) // 2                      # causal (q, k) pairs per head
     flops = 4 * hd * pairs * B * H                # QK^T and PV, 2 flops per FMA
     nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-    bound_ms, by = bound(flops, nbytes)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:72",
             "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": lib_ms}
+            "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes), **lib}
 
 
 def time_decode(dev, rng, err, H=32, KV=8, hd=128):
@@ -658,23 +753,43 @@ def time_decode(dev, rng, err, H=32, KV=8, hd=128):
     B, S_buf = q.shape[0], caches[0][0].shape[2]
     mask = (kvpos >= 0) & (kvpos <= qpos[:, None])
     qh = q.transpose(1, 2)                        # (B, H, 1, hd)
+    expanded = [tuple(c.repeat_interleave(H // KV, dim=1) for c in kv) for kv in caches]
     with torch.inference_mode():
         ms = device_ms(lambda i: decode_attention(q, *views[i], qpos, kvpos), n_copies, 40)
         plain_ms = device_ms(lambda i: ref.decode_attention_ref(q, *views[i], qpos, kvpos),
                            n_copies, 16)
-        lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(
-            qh, caches[i][0], caches[i][1], attn_mask=mask[:, None, None, :],
-            enable_gqa=True), n_copies, 40)
+        lib = library_times(
+            lambda: device_ms(lambda i: F.scaled_dot_product_attention(
+                qh, *expanded[i], attn_mask=mask[:, None, None, :]), n_copies, 40),
+            None if H == KV else lambda: device_ms(lambda i: F.scaled_dot_product_attention(
+                qh, caches[i][0], caches[i][1], attn_mask=mask[:, None, None, :],
+                enable_gqa=True), n_copies, 40))
+    del expanded
     valid = int(mask.sum())                       # valid (b, slot) pairs
     flops = 4 * hd * H * valid
     nbytes = 4 * (2 * B * KV * S_buf * hd + B * S_buf + B + 2 * B * H * hd)
-    bound_ms, by = bound(flops, nbytes)
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:64",
             "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": lib_ms}
+            "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes), **lib}
+
+
+SDPA_EFFICIENT = "scaled_dot_product_attention, EFFICIENT_ATTENTION backend, K/V expanded to H heads"
+
+
+def library_times(efficient, gqa_math=None):
+    """The attention rows' yardstick: ``efficient()`` timed under SDPA's
+    efficient backend, named, not guessed; ``gqa_math()`` (enable_gqa on
+    float32, which only the math backend takes) as library_math_ms, the
+    time earlier tables gave, where the two calls differ."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out = {"library_ms": efficient(), "library": SDPA_EFFICIENT}
+    if gqa_math is not None:
+        with sdpa_kernel(SDPBackend.MATH):
+            out["library_math_ms"] = gqa_math()
+    return out
 
 
 def time_rwkv(dev, rng, err):
@@ -687,18 +802,18 @@ def time_rwkv(dev, rng, err):
     s0 = torch.zeros((B, H, hd, hd), device=dev)
     with torch.inference_mode():
         ms = device_ms(lambda i: rwkv6_scan(r, k, v, logw, u, s0=s0), 1)
-        plain_ms = device_ms(lambda i: ref.rwkv6_ref(r, k, v, logw, u, s0), 1, iters=3)
+        # thousands of small kernels a call: the profiler's own cost grows with them
+        plain_ms = device_ms(lambda i: ref.rwkv6_ref(r, k, v, logw, u, s0), 1, iters=1, warmup=1)
     # the recurrence's least work per step and head: the state's read-out
     # r·S and its rank-1 update kᵀv, 2 flops per FMA (a chunked form decays
     # the state once a chunk, so the per-step decay is left out)
     flops = B * S * H * 4 * hd * hd
     nbytes = 4 * (5 * B * S * H * hd + H * hd + 2 * B * H * hd * hd)
-    bound_ms, by = bound(flops, nbytes)
     return {"name": "rwkv6_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/scan.cu",
             "replaces": "src/repro/kernels/rwkv6_scan.py:60",
             "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes),
             "library_ms": None}
 
 
@@ -713,24 +828,26 @@ def time_ssd(dev, rng, err):
     h0 = torch.zeros((B, H, hd, N), device=dev)
     with torch.inference_mode():
         ms = device_ms(lambda i: ssd_scan(xdt, Bm, Cm, dA, h0=h0), 1)
-        plain_ms = device_ms(lambda i: ref.ssd_ref(xdt, Bm, Cm, dA, h0), 1, iters=3)
+        plain_ms = device_ms(lambda i: ref.ssd_ref(xdt, Bm, Cm, dA, h0), 1, iters=1, warmup=1)
     # as for rwkv6: the read-out C·S and the rank-1 update xdtᵀB per step and
     # head, 2 flops per FMA
     flops = B * S * H * 4 * hd * N
     nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * N + B * S * H + 2 * B * H * hd * N)
-    bound_ms, by = bound(flops, nbytes)
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:55",
             "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes),
             "library_ms": None}
 
 
 def log_timing(k, what=None):
     lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+    if "library_math_ms" in k:
+        lib += f" (math backend {k['library_math_ms']:.4f})"
     log(f"timing: {what or k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
-        f"library {lib}, bound {k['bound_ms']:.4f} by {k['bound_by']}); "
+        f"library {lib}, bound {k['bound_ms']:.4f} by {k['bound_by']}, "
+        f"on the CUDA cores {k['bound_f32_cores_ms']:.4f}); "
         f"plain / kernel = {k['plain_ms'] / k['ms']:.2f}, "
         f"{k['bound_ms'] / k['ms']:.1%} of bound")
 
@@ -759,18 +876,24 @@ def main():
     for line in _build.ptxas_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
-
-    rng = np.random.default_rng(0)
-    errs = {"flash_attention": check_flash(dev, rng), "decode_attention": check_decode(dev, rng),
-            "rwkv6_scan": check_rwkv(dev, rng), "ssd_scan": check_ssd(dev, rng)}
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must stay off in torch"
+    # the disassembly runs on the host while phase 3 runs on the card
+    with ThreadPoolExecutor(1) as pool:
+        sass = pool.submit(check_tensor_cores, _build.library_path())
+        rng = np.random.default_rng(0)
+        errs = {"flash_attention": check_flash(dev, rng),
+                "decode_attention": check_decode(dev, rng),
+                "rwkv6_scan": check_rwkv(dev, rng), "ssd_scan": check_ssd(dev, rng)}
+        for kernel, counts in sass.result().items():
+            log(f"sass: every {kernel} instantiation runs on the tensor cores "
+                f"(HMMA ... TF32 / HGMMA instructions: {counts})")
     # phase 5 before phase 4: the larger the profiler runs before a timing,
     # the more kernel records it drops (see device_ms)
-    kernels = [time_flash(dev, rng, errs["flash_attention"]),
-               time_decode(dev, rng, errs["decode_attention"]),
-               time_rwkv(dev, rng, errs["rwkv6_scan"]),
-               time_ssd(dev, rng, errs["ssd_scan"])]
-    for k in kernels:
-        log_timing(k)
+    kernels = []
+    for name, timer in (("flash_attention", time_flash), ("decode_attention", time_decode),
+                        ("rwkv6_scan", time_rwkv), ("ssd_scan", time_ssd)):
+        kernels.append(timer(dev, rng, errs[name]))
+        log_timing(kernels[-1])
     # the attention kernels at zamba2-2.7b's shared block: head_dim 80, 32 kv heads
     hd80 = [time_flash(dev, rng, errs["flash_attention"], 32, 32, 80),
             time_decode(dev, rng, errs["decode_attention"], 32, 32, 80)]
@@ -785,7 +908,8 @@ def main():
     kernels = [{**k, "launches": launches[k["name"]]} for k in kernels]
     zamba = next(st for st in slices if st["arch"] == "zamba2-2.7b")
     zamba["attention_hd80"] = {k["name"]: {key: k[key] for key in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for k in hd80}
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms")}
+        for k in hd80}
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     for stats in slices:

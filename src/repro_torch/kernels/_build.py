@@ -33,7 +33,8 @@ HEADERS = (CSRC / "common.cuh",)
 ROOT = Path(__file__).resolve().parents[3]       # <root>/src/repro_torch/kernels
 BUILD_DIR = ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--split-compile=4")      # each nvcc optimises its kernels on 4 threads
 
 _lock = threading.Lock()
 _lib = None
@@ -176,6 +177,22 @@ def compare_build_times():
     return times
 
 
+def measure_peaks() -> str:
+    """Build and run ``csrc/peak.cu`` (not part of the library): the card's
+    wgmma and mma.sync TF32 rates and its float32 FMA rate, as one JSON
+    line.  Run on
+    a machine with nvcc: ``PYTHONPATH=src python -m
+    repro_torch.kernels._build --peaks``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = Path(tmp) / "peak"
+        subprocess.run([nvcc_path(), "-O3", "-gencode=arch=compute_90a,code=sm_90a",
+                        "-std=c++17", "-o", str(exe), str(CSRC / "peak.cu")],
+                       check=True, capture_output=True)
+        return subprocess.run([str(exe)], check=True, capture_output=True,
+                              text=True).stdout.strip()
+
+
 if __name__ == "__main__":
     import json
-    print(json.dumps(compare_build_times()))
+    import sys
+    print(measure_peaks() if "--peaks" in sys.argv[1:] else json.dumps(compare_build_times()))

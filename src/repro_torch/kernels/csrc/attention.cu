@@ -1,35 +1,49 @@
 // Attention kernels for NVIDIA Hopper (sm_90a), hand-written in CUDA C++.
 //
 // Plain C interface, built with nvcc into a shared library and bound with
-// ctypes by repro_torch/kernels/_build.py.  Both kernels compute in float32
-// on the CUDA cores (no tensor cores, no TF32), read float32 or bfloat16,
-// and write the input's type.  Masked scores use the finite NEG_INF = -1e30
-// of the TPU kernels: a row whose first kv tile is fully masked accumulates
-// exp(0) = 1 junk that alpha = exp(-1e30 - m) = 0 wipes at its first valid
-// score.  Slots past the end of the sequence are -inf and weigh exactly 0.
+// ctypes by repro_torch/kernels/_build.py.  Both kernels read float32 or
+// bfloat16, compute in float32 and write the input's type.  Masked scores
+// use the finite NEG_INF = -1e30 of the TPU kernels: a row whose first kv
+// tile is fully masked accumulates exp(0) = 1 junk that alpha = exp(-1e30 -
+// m) = 0 wipes at its first valid score.  Slots past the end of the
+// sequence are -inf and weigh exactly 0.
 //
 // flash_attn_kernel replaces the Pallas kernel
 //   src/repro/kernels/flash_attention.py::flash_attention (_attn_kernel).
 //   Bound on this card: operations.  Causal prefill at B=4, S=512, H=32,
-//   hd=128 is 4.3 GFLOP of float32 FMA work against 84 MB of traffic.
-//   Design: one block of 256 threads per (q tile of 64 rows, q head, batch).
-//   The TPU's sequential kv grid axis becomes a loop inside the block,
-//   bounded to the kv tiles the causal / window mask can reach (the TPU grid
-//   visits every tile).  The Q tile and each K/V tile are staged in shared
-//   memory as float32 (each thread issues all its vector loads of a tile
-//   before storing any); every thread owns a 4x4 block of the 64x64 score
-//   tile, read with 16-byte loads from padded rows (no bank conflicts), and
-//   4 rows x hd/16 columns of the f32 output accumulator in registers
-//   (for hd = 80, zamba2's shared attention, five single columns 16 apart).
-//   Row max and sum reduce over the 16 lanes holding a row with shuffles.
-//   q tiles are issued heaviest first so the causal tail does not idle SMs.
-//   Ragged S is masked here; the TPU kernel asserted S % 128 == 0.
+//   hd=128 is 8.6 GFLOP of products against 84 MB of traffic.  The products
+//   run on the tensor cores as 3xTF32 (common.cuh: float32-accurate, three
+//   TF32 passes), so the bound is 52 us at 495 / 3 = 165 TFLOP/s (129 us at
+//   the CUDA cores' 67 TFLOP/s of float32 FMA).
+//   Design: one warpgroup (4 warps) per (q tile of 64 rows, q head,
+//   batch) runs wgmma.m64nNk8 (tf32): Q K^T with N = 32 keys, P V with N =
+//   head_dim.  Q is pre-scaled by sm_scale and split into hi/lo once, as A
+//   fragments in registers for the whole kv loop.  K and V tiles of 32 keys
+//   come in by cp.async (rows past S zero-filled) into a raw buffer, the
+//   next tile while this one computes; the warpgroup splits each tile once
+//   into tf32 halves in wgmma's canonical K-major layout, V transposed
+//   (wgmma takes tf32 B only K-major, and P V's k is the key).  The TPU's
+//   sequential kv grid axis becomes a loop inside the block, bounded to the
+//   kv tiles the causal / window mask can reach (the TPU grid visits every
+//   tile); only tiles on an edge of the mask are masked.  Shared memory at
+//   hd 128, float32: 4 split tiles x 32 x 128 floats + 2 raw tiles x 32 x
+//   132 = 99,328 B, and 255 registers a thread: two blocks per SM.  The
+//   online softmax stays in registers: a row of the accumulator lives in
+//   one quad of 4 lanes, so its max takes 2 shuffles and its sum is reduced
+//   once, at the end.  P V sums each k-step's keys in the order (2t, 2t+1)
+//   for A columns (t, t+4), so the score accumulator is P's A fragment as
+//   it stands (no shuffle, no trip through shared memory); the split V^T
+//   holds its keys in that order.  q tiles are issued heaviest first so the
+//   causal tail does not idle SMs.  Ragged S is masked here; the TPU kernel
+//   asserted S % 128 == 0.  The G query heads of a kv head each stream and
+//   split its K/V (from L2).
 //
 // decode_attn_kernel replaces the Pallas kernel
 //   src/repro/kernels/decode_attention.py::decode_attention (_decode_kernel).
 //   Bound on this card: bytes.  One query token reads the whole K/V cache
 //   (2 * B * KV * S * hd * 4 bytes; 17 MB per layer for qwen3-4b at B=4,
-//   S=524) and does 4 * H * S * hd operations on it.
+//   S=524) and does 4 * H * S * hd operations on it, float32 FMA on the
+//   CUDA cores.
 //   Design (flash-decoding): B * KV blocks alone (32 for the slice) leave
 //   most of the 132 SMs idle, so each (batch, kv head)'s cache is cut into
 //   chunks of whole 64-slot tiles and one block runs per (kv head, batch,
@@ -53,12 +67,12 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------------------------
-// Prefill: blockwise online-softmax attention
+// Prefill: blockwise online-softmax attention on the tensor cores (wgmma)
 // ---------------------------------------------------------------------------
 
-constexpr int FA_BQ = 64;
-constexpr int FA_BK = 64;
-constexpr int FA_THREADS = 256;
+constexpr int FA_BQ = 64;             // query rows per block: one warpgroup, 16 per warp
+constexpr int FA_BK = 32;             // keys per kv tile
+constexpr int FA_THREADS = 128;
 
 struct FlashArgs {
   const void* q;
@@ -71,183 +85,217 @@ struct FlashArgs {
   float sm_scale;
 };
 
-template <int HD>
-constexpr size_t flash_smem_bytes() {
-  return sizeof(float) * (size_t)(FA_BQ * (HD + 4) + FA_BK * (HD + 4) +
-                                  FA_BK * HD + FA_BQ * (FA_BK + 4));
+// Shared memory: the current kv tile split into tf32 halves in wgmma's
+// canonical layout (K hi, K lo: [BK][HD]; V^T hi, V^T lo: [HD][BK]; float32
+// bits), then the raw K and V tiles the next copy lands in (rows of HD + 4
+// in the input's type).  hd 128, float32: 4 * 32 * 128 * 4 + 2 * 32 * 132 *
+// 4 = 99,328 B, two blocks per SM.
+template <typename T, int HD>
+__host__ __device__ constexpr size_t flash_smem_bytes() {
+  return sizeof(float) * 4 * FA_BK * HD + sizeof(T) * 2 * FA_BK * (HD + 4);
 }
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
-  constexpr int QS = HD + 4;        // padded row stride of the Q and K tiles
-  constexpr int PS = FA_BK + 4;     // padded row stride of the P tile
-  constexpr int VEC = HD % 64 == 0 ? 4 : (HD % 32 == 0 ? 2 : 1);
-  constexpr int NCH = HD / (16 * VEC);  // column chunks per thread
-  static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr int LDR = HD + 4;     // raw rows: the split pass's 16-byte reads hit distinct banks
+  constexpr int KS = HD / 8;      // k-steps of the score product
+  constexpr int NJ = FA_BK / 8;   // key chunks of a kv tile: score n-tiles, k-steps of P V
+  constexpr int TS = FA_BK * HD;  // floats of one split tile
+  static_assert(HD % 16 == 0 || HD == 80, "head_dim");
 
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][QS], pre-scaled
-  float* Ks = Qs + FA_BQ * QS;                   // [BK][QS]
-  float* Vs = Ks + FA_BK * QS;                   // [BK][HD]
-  float* Ps = Vs + FA_BK * HD;                   // [BQ][PS]
+  float* Khi = reinterpret_cast<float*>(smem4);
+  float* Klo = Khi + TS;
+  float* Vhi = Klo + TS;  // V^T
+  float* Vlo = Vhi + TS;
+  T* Kr = reinterpret_cast<T*>(Vlo + TS);  // [BK][LDR] raw K, then [BK][LDR] raw V
+  T* Vr = Kr + FA_BK * LDR;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;    // heaviest causal tiles first
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int q0 = qt * FA_BQ;
+  const int r0 = q0 + 16 * warp;  // this warp's first query row
 
   const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
   const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-
-  stage_rows<FA_BQ, HD, QS, FA_THREADS>(Qs, qp, a.q_ss, q0, a.S, a.sm_scale);
 
   // kv tiles any row of this q tile can see
   const int k_hi = a.causal ? min(a.S, q0 + FA_BQ) : a.S;
   const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int kt_lo = k_lo / FA_BK, kt_hi = (k_hi + FA_BK - 1) / FA_BK;
 
-  float m[4], l[4], acc[4][NCH * VEC];
+  auto load_tile = [&](int kt) {
+    copy_rows_async<FA_BK, HD, LDR, FA_THREADS>(Kr, kp, a.k_ss, kt * FA_BK, a.S);
+    copy_rows_async<FA_BK, HD, LDR, FA_THREADS>(Vr, vp, a.v_ss, kt * FA_BK, a.S);
+    cp_async_commit();
+  };
+  if (kt_lo < kt_hi) load_tile(kt_lo);
+
+  // Q, pre-scaled by sm_scale and split into hi/lo once, as wgmma A
+  // fragments in registers for the whole kv loop (rows past S are 0)
+  Split qa[KS][4];
+  {
+    const int ra = r0 + g, rb = r0 + g + 8;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NCH * VEC; ++c) acc[i][c] = 0.f;
+    for (int ks = 0; ks < KS; ++ks) {
+      const int c = 8 * ks + t;
+      qa[ks][0] = split_tf32(ra < a.S ? to_f32(qp[ra * a.q_ss + c]) * a.sm_scale : 0.f);
+      qa[ks][1] = split_tf32(rb < a.S ? to_f32(qp[rb * a.q_ss + c]) * a.sm_scale : 0.f);
+      qa[ks][2] = split_tf32(ra < a.S ? to_f32(qp[ra * a.q_ss + c + 4]) * a.sm_scale : 0.f);
+      qa[ks][3] = split_tf32(rb < a.S ? to_f32(qp[rb * a.q_ss + c + 4]) * a.sm_scale : 0.f);
+    }
   }
 
+  // rows g and g + 8 of each warp: running max, this lane's share of the
+  // running sum (the quad's shares are added at the end), output columns
+  // 8n + 2t, 8n + 2t + 1 (o[4n + e], wgmma's accumulator layout)
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * FA_BK;
-    __syncthreads();  // Q staged / previous K, V, P consumed
-    stage_rows<FA_BK, HD, QS, FA_THREADS>(Ks, kp, a.k_ss, k0, a.S, 1.f);
-    stage_rows<FA_BK, HD, HD, FA_THREADS>(Vs, vp, a.v_ss, k0, a.S, 1.f);
-    __syncthreads();
+    cp_async_wait<0>();  // this thread's copies of tile kt landed
+    __syncthreads();     // everyone's; and the last tile's products are done
 
-    // scores: rows ty + 16 i, keys tx + 16 j
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * QS + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * QS + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float s = sc[i][j];
-          s = fmaf(qv[i].x, kv[j].x, s);
-          s = fmaf(qv[i].y, kv[j].y, s);
-          s = fmaf(qv[i].z, kv[j].z, s);
-          s = fmaf(qv[i].w, kv[j].w, s);
-          sc[i][j] = s;
-        }
+    // split the tile once for the warpgroup, into core matrices of 8 rows
+    // x 16 bytes (rows 16 bytes apart, cores 128 bytes apart along k):
+    // K as [key / 8][d / 4] cores, V^T as [d / 8][k-step, half] cores where
+    // half 0 holds keys 8j + 0, 2, 4, 6 and half 1 keys 8j + 1, 3, 5, 7 (the
+    // order the score accumulator hands P over in, see below)
+    for (int idx = tid; idx < FA_BK * HD / 4; idx += FA_THREADS) {
+      const int r8 = idx & 7, kb = (idx >> 3) % (HD / 4), nb = (idx >> 3) / (HD / 4);
+      const float4 x = load4(Kr + (8 * nb + r8) * LDR + 4 * kb);
+      const Split s0 = split_tf32(x.x), s1 = split_tf32(x.y), s2 = split_tf32(x.z),
+                  s3 = split_tf32(x.w);
+      const int at = nb * HD * 8 + kb * 32 + r8 * 4;
+      *reinterpret_cast<uint4*>(Khi + at) = make_uint4(s0.hi, s1.hi, s2.hi, s3.hi);
+      *reinterpret_cast<uint4*>(Klo + at) = make_uint4(s0.lo, s1.lo, s2.lo, s3.lo);
     }
+    for (int idx = tid; idx < FA_BK * HD / 4; idx += FA_THREADS) {
+      const int d8 = idx & 7, kb = (idx >> 3) % (FA_BK / 4), nb = (idx >> 3) / (FA_BK / 4);
+      const T* vc = Vr + (8 * (kb >> 1) + (kb & 1)) * LDR + 8 * nb + d8;
+      const Split s0 = split_tf32(to_f32(vc[0])), s1 = split_tf32(to_f32(vc[2 * LDR])),
+                  s2 = split_tf32(to_f32(vc[4 * LDR])), s3 = split_tf32(to_f32(vc[6 * LDR]));
+      const int at = nb * FA_BK * 8 + kb * 32 + d8 * 4;
+      *reinterpret_cast<uint4*>(Vhi + at) = make_uint4(s0.hi, s1.hi, s2.hi, s3.hi);
+      *reinterpret_cast<uint4*>(Vlo + at) = make_uint4(s0.lo, s1.lo, s2.lo, s3.lo);
+    }
+    fence_proxy_async();  // the split tile is visible to wgmma
+    __syncthreads();      // and the raw tile is free
+    if (kt + 1 < kt_hi) load_tile(kt + 1);  // streams in while this tile computes
 
-    // mask + online softmax, one row at a time
+    const int k0 = kt * FA_BK;
+    // scores S = (Q sm_scale) K^T: 64 rows x FA_BK keys, K-major B
+    float sc[NJ * 4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
+    for (int i = 0; i < NJ * 4; ++i) sc[i] = 0.f;
+    pin_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma3<FA_BK>(sc, qa[ks], wgmma_desc(Khi + 64 * ks, 128, HD * 32),
+                    wgmma_desc(Klo + 64 * ks, 128, HD * 32));
+    wgmma_commit();
+    wgmma_wait();
+    pin_regs(sc);
+
+    // mask (only on a tile at an edge of the mask) and online softmax;
+    // sc[4j + e] is row g, sc[4j + 2 + e] row g + 8, key k0 + 8 j + 2 t + e
+    const bool edge = k0 + FA_BK > a.S || (a.causal && k0 + FA_BK - 1 > q0) ||
+                      (a.window > 0 && k0 <= q0 + FA_BQ - 1 - a.window);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = r0 + g + 8 * r;
       float rmax = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        float s = sc[i][j];
-        if (kj >= a.S)
-          s = -INFINITY;
-        else if ((a.causal && kj > qi) || (a.window > 0 && kj <= qi - a.window))
-          s = NEG_INF;
-        sc[i][j] = s;
-        rmax = fmaxf(rmax, s);
-      }
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = expf(m[i] - m_new);
+        for (int e = 0; e < 2; ++e) {
+          const int kj = k0 + 8 * j + 2 * t + e;
+          float s = sc[4 * j + 2 * r + e];
+          if (edge && kj >= a.S)
+            s = -INFINITY;
+          else if (edge && ((a.causal && kj > qi) || (a.window > 0 && kj <= qi - a.window)))
+            s = NEG_INF;
+          sc[4 * j + 2 * r + e] = s;
+          rmax = fmaxf(rmax, s);
+        }
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
+      const float m_new = fmaxf(m[r], rmax);
+      alpha[r] = exp_fast(m[r] - m_new);
       float rsum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        sc[i][j] = p;
-        rsum += p;
-      }
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = alpha * l[i] + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NCH * VEC; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * PS + tx + 16 * j] = sc[i][j];
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp_fast(sc[4 * j + 2 * r + e] - m_new);
+          sc[4 * j + 2 * r + e] = p;
+          rsum += p;
+        }
+      l[r] = alpha[r] * l[r] + rsum;
+      m[r] = m_new;
     }
-    __syncthreads();
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        o[4 * n + 0] *= alpha[0];
+        o[4 * n + 1] *= alpha[0];
+        o[4 * n + 2] *= alpha[1];
+        o[4 * n + 3] *= alpha[1];
+      }
+    }
 
-    // acc += P @ V; thread columns: chunk n covers n*16*VEC + tx*VEC + [0, VEC)
-#pragma unroll 2
-    for (int kk = 0; kk < FA_BK; kk += 4) {
-      float4 p4[4];
+    // o += P V.  A k-step's 8 keys are summed in the order (2t, 2t + 1) for
+    // A columns (t, t + 4): the score accumulator is P's A fragment as it
+    // stands, and V^T's cores hold the keys in that order.
+    Split pa[NJ][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(&Ps[(ty + 16 * i) * PS + kk]);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vrow = &Vs[(kk + u) * HD];
-        float vv[NCH * VEC];
-#pragma unroll
-        for (int n = 0; n < NCH; ++n) {
-          const int col = n * 16 * VEC + tx * VEC;
-          if constexpr (VEC == 4) {
-            const float4 t = *reinterpret_cast<const float4*>(&vrow[col]);
-            vv[n * 4 + 0] = t.x;
-            vv[n * 4 + 1] = t.y;
-            vv[n * 4 + 2] = t.z;
-            vv[n * 4 + 3] = t.w;
-          } else if constexpr (VEC == 2) {
-            const float2 t = *reinterpret_cast<const float2*>(&vrow[col]);
-            vv[n * 2 + 0] = t.x;
-            vv[n * 2 + 1] = t.y;
-          } else {
-            vv[n] = vrow[col];
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = comp(p4[i], u);
-#pragma unroll
-          for (int c = 0; c < NCH * VEC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-        }
-      }
+    for (int j = 0; j < NJ; ++j) {
+      pa[j][0] = split_tf32(sc[4 * j + 0]);
+      pa[j][1] = split_tf32(sc[4 * j + 2]);
+      pa[j][2] = split_tf32(sc[4 * j + 1]);
+      pa[j][3] = split_tf32(sc[4 * j + 3]);
     }
+    pin_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      wgmma3<HD>(o, pa[j], wgmma_desc(Vhi + 64 * j, 128, FA_BK * 32),
+                 wgmma_desc(Vlo + 64 * j, 128, FA_BK * 32));
+    wgmma_commit();
+    wgmma_wait();
+    pin_regs(o);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) pin_regs(pa[j]);
   }
 
   T* op = static_cast<T*>(a.o);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int s = r0 + g + 8 * r;
     if (s >= a.S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = op + (((long long)b * a.S + s) * a.H + h) * HD;
+    const float inv = 1.f / fmaxf(lr, 1e-30f);
+    T* orow = op + (((long long)b * a.S + s) * a.H + h) * HD + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NCH; ++n)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        orow[n * 16 * VEC + tx * VEC + e] = from_f32<T>(acc[i][n * VEC + e] * inv);
+    for (int n = 0; n < HD / 8; ++n) {
+      orow[8 * n] = from_f32<T>(o[4 * n + 2 * r] * inv);
+      orow[8 * n + 1] = from_f32<T>(o[4 * n + 2 * r + 1] * inv);
+    }
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch_flash(const FlashArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = flash_smem_bytes<HD>();
+  constexpr size_t smem = flash_smem_bytes<T, HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -2,9 +2,8 @@
 //
 // Plain C interface, built with nvcc into the same shared library as
 // attention.cu and bound with ctypes by repro_torch/kernels/_build.py.
-// Both kernels read float32 or bfloat16, compute in float32 on the CUDA
-// cores (no tensor cores, no TF32), write y in the input's type and the
-// final state in float32.  Both take an initial state (the models' s0 / h0;
+// Both kernels read float32 or bfloat16, compute in float32, write y in
+// the input's type and the final state in float32.  Both take an initial state (the models' s0 / h0;
 // the TPU kernels started from zero) and any S: the ragged last chunk is
 // zero-padded in shared memory, which is exact (see each kernel).
 //
@@ -37,16 +36,41 @@
 //   src/repro/kernels/ssd_scan.py::ssd_scan (_ssd_kernel): Mamba2's SSD
 //   with a scalar decay per head,
 //     y = ((C B^T) o L) @ xdt + (C S0^T) e^cum,  S <- S0 e^cum_Q + xdt^T (B o w).
-//   Bound on this card: operations.  At zamba2-2.7b's prefill (B=4, S=512,
-//   H=80, hd=64, N=64) the chunked form does 8.1 GFLOP, 120 us at 67
-//   TFLOP/s, against 96 MB of traffic (29 us).
-//   Design: one block of 256 threads per (batch, head) loops over chunks of
-//   Q = 128 steps; x, B, C of a chunk, the (Q, Q) decayed score matrix and
-//   the (hd, N) state all sit in shared memory (185 KB at hd = N = 64).
-//   Every product is register-tiled: each thread computes an 8x8 block of
-//   C B^T, an 8 x hd/16 block of y (its rows end at the causal edge, so it
-//   stops there) and an hd/16 x N/16 block of the state.  Every exponent
-//   taken is <= 0 (dA <= 0), so nothing overflows.  B and C are read
+//   Bound on this card: bytes, with the products on the tensor cores.  At
+//   zamba2-2.7b's prefill (B=4, S=512, H=80, hd=64, N=64) the recurrence's
+//   least work is 2.7 GFLOP (16 us at 165 TFLOP/s, the 3xTF32 rate; 40 us
+//   at 67 of float32 FMA) against 96 MB of traffic (29 us).  The chunked form does more: per chunk of Q steps, C B^T over
+//   the causal tiles, ((C B^T) o L) x, C S^T and x^T (B o w).
+//   Design: all four chunk products run on the tensor cores as 3xTF32
+//   (mma.sync.m16n8k8, common.cuh), float32-accurate.  The recurrence is
+//   independent per state row p (y[:, p] needs only x[:, p] and S[p, :]),
+//   so a block owns 32 of the hd rows of one (batch, head): 640 blocks at
+//   zamba2's shape instead of 320 blocks of 185 KB, one per SM, in 2.4
+//   waves.  Each block recomputes the chunk's C B^T for its rows: the count
+//   that decided it, per chunk of Q = 64 at hd = N = 64, in m16n8k8 steps
+//   per (batch, head): C B^T over the causal tiles 160, and per 32 rows
+//   C S^T 128, ((C B^T) o L) x 80 and x^T (B o w) 128, so two slices take
+//   2 (160 + 128 + 80 + 128) = 992 against 832 for one block (+19 %), in
+//   one launch and with no scratch in device memory.  The
+//   state-passing split (chunk states in parallel, a sequential pass, then
+//   the read-out) would write and read about 84 MB of chunk states against
+//   96 MB of compulsory traffic.  Chunks of Q = 64 steps (exact for any Q:
+//   every exponent taken is <= 0, since dA <= 0) keep two stages of x, B
+//   and dA in flight by cp.async, so the next chunk loads while this one
+//   computes; C, which only the warp that owns a row reads, goes from
+//   global memory straight to that warp's registers, requested a chunk
+//   ahead.  72 KB of shared memory at N = 64 in float32 and 159 registers
+//   a thread: three blocks (12 warps) per SM.  Warp w owns the chunk's rows
+//   16 w .. 16 w + 15, so a row's causal scores never leave the warp's
+//   registers: they are decayed there and fed back as the A fragment of
+//   ((C B^T) o L) x.  The state slice lives in registers across chunks
+//   (each warp 16 rows x N/2 columns) and is mirrored in shared memory,
+//   split once into tf32 halves, for every warp's read-out C S^T.  What
+//   sets the pace is not the products but each warp's chain of other work
+//   between them (splits, decays, address arithmetic), at 12 warps an SM.
+//   mma.sync rather than wgmma: a wgmma version (products of 64 rows, B and
+//   x^T split into shared memory) ran no faster, at 215 registers and 93 KB
+//   a block, two blocks an SM.  B and C are read
 //   through element strides: the model passes its group-form (B, S, N)
 //   tensors expanded to (B, S, H, N) with a head stride of 0, no copy, and
 //   the 80 heads of a sequence read the same rows from L2.  Padded steps
@@ -287,11 +311,14 @@ cudaError_t dispatch_rwkv(const RwkvArgs& a, int hd, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// Mamba2 SSD
+// Mamba2 SSD on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int SSD_Q = 128;      // chunk length
-constexpr int SSD_THREADS = 256;
+constexpr int SSD_Q = 64;       // chunk length
+constexpr int SSD_P = 32;       // state rows p (columns of y) per block
+constexpr int SSD_WARPS = 4;    // warp w owns chunk rows 16 w .. 16 w + 15
+constexpr int SSD_THREADS = 32 * SSD_WARPS;
+constexpr int SSD_STAGES = 2;   // chunks in flight (cp.async ring)
 
 struct SsdArgs {
   const void* x;        // xdt = x * dt
@@ -305,215 +332,240 @@ struct SsdArgs {
   long long x_sb, x_ss, x_sh, b_sb, b_ss, b_sh, c_sb, c_ss, c_sh, a_sb, a_ss, a_sh;
 };
 
-template <int HD, int N>
+// One stage: x [Q][P + 4] and B [Q][N + 4] in the input's type, dA [Q];
+// then the state slice [P][N + 4] split into tf32 (hi, lo) pairs and each
+// warp's cumulative dA [Q] in float32.  C goes straight to registers.
+// N = 64, float32: 2 x 26,880 + 17,408 + 1,024 = 72,192 B, three blocks
+// per SM.
+template <int N>
+__host__ __device__ constexpr size_t ssd_stage_elems() {
+  return (size_t)SSD_Q * ((SSD_P + 4) + (N + 4));
+}
+template <typename T, int N>
 constexpr size_t ssd_smem_bytes() {
-  return sizeof(float) * (size_t)(SSD_Q * HD + 2 * SSD_Q * (N + 4) + SSD_Q * (SSD_Q + 1) +
-                                  N * HD + SSD_Q + 8);
+  return SSD_STAGES * (sizeof(T) * ssd_stage_elems<N>() + sizeof(float) * SSD_Q) +
+         sizeof(uint2) * SSD_P * (N + 4) + sizeof(float) * SSD_WARPS * SSD_Q;
 }
 
 template <typename T, int HD, int N>
 __global__ void __launch_bounds__(SSD_THREADS) ssd_scan_kernel(SsdArgs a) {
-  constexpr int NS = N + 4;           // padded B / C rows, 16-byte aligned
-  constexpr int SCS = SSD_Q + 1;      // padded score rows
-  constexpr int PB = HD / 16;         // y columns per thread (contiguous)
-  constexpr int SN = N / 16;          // state columns per thread (16 apart)
-  static_assert(HD % 16 == 0 && N % 16 == 0 && SSD_Q == 128, "shapes");
+  // Row strides P + 4 and N + 4 (= 4 mod 8): the fragment reads below hit
+  // 32 distinct banks for float32, whether a quad's lanes walk a row
+  // (columns t, rows g: bank 4g + t) or rows 2t, 2t + 1 (bank 8t + g); the
+  // state's 8-byte (hi, lo) pairs, rows g and columns t, fill a half-warp's
+  // 16 slots since N + 4 = 4 mod 16.
+  constexpr int LX = SSD_P + 4, LN = N + 4;
+  constexpr int NK = N / 8;          // k-steps over the state size
+  constexpr int NP = SSD_P / 8;      // n-tiles of y's columns
+  constexpr int NQ = SSD_Q / 8;      // n-tiles of the chunk's steps
+  constexpr int NS = NK / 2;         // state n-tiles per warp
+  constexpr int STAGE = (int)ssd_stage_elems<N>();
+  static_assert(HD % SSD_P == 0 && N % 16 == 0 && SSD_Q == 16 * SSD_WARPS, "shapes");
 
   extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);  // [Q][HD] xdt
-  float* Bs = X + SSD_Q * HD;                   // [Q][NS] B, then B o w
-  float* Cs = Bs + SSD_Q * NS;                  // [Q][NS] C
-  float* Sc = Cs + SSD_Q * NS;                  // [Q][SCS] (C B^T) o L
-  float* St = Sc + SSD_Q * SCS;                 // [N][HD] state, transposed
-  float* CUM = St + N * HD;                     // [Q] cumulative dA
-  float* WT = CUM + SSD_Q;                      // [4] warp totals of the scan
+  T* ring = reinterpret_cast<T*>(smem4);  // SSD_STAGES x (x, B)
+  float* DA = reinterpret_cast<float*>(ring + SSD_STAGES * STAGE);  // [STAGES][Q]
+  // [P][LN] the state, split once per chunk for every warp's read-out
+  uint2* St = reinterpret_cast<uint2*>(DA + SSD_STAGES * SSD_Q);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  float* CUM = reinterpret_cast<float*>(St + SSD_P * LN) + warp * SSD_Q;  // [Q] this warp's cumulative dA
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, lane = tid & 31, warp = tid >> 5;
-  const T* xp = static_cast<const T*>(a.x) + b * a.x_sb + h * a.x_sh;
+  const int p0 = blockIdx.x * SSD_P, h = blockIdx.y, b = blockIdx.z;
+  const T* xp = static_cast<const T*>(a.x) + b * a.x_sb + h * a.x_sh + p0;
   const T* bp = static_cast<const T*>(a.bm) + b * a.b_sb + h * a.b_sh;
   const T* cp = static_cast<const T*>(a.cm) + b * a.c_sb + h * a.c_sh;
   const float* ap = a.da + b * a.a_sb + h * a.a_sh;
-  const long long st_off = ((long long)b * a.H + h) * HD * N;
+  const float* h0 = a.h0 ? a.h0 + ((long long)b * a.H + h) * HD * N + (long long)p0 * N : nullptr;
+  float* hf = a.h_fin + ((long long)b * a.H + h) * HD * N + (long long)p0 * N;
+  const int n_chunks = (a.S + SSD_Q - 1) / SSD_Q;
 
-  for (int i = tid; i < HD * N; i += SSD_THREADS) {
-    const int p = i / N, n = i % N;
-    St[n * HD + p] = a.h0 ? a.h0[st_off + i] : 0.f;
-  }
+  auto load_chunk = [&](int c) {
+    T* X = ring + (c % SSD_STAGES) * STAGE;
+    const int t0 = c * SSD_Q;
+    copy_rows_async<SSD_Q, SSD_P, LX, SSD_THREADS>(X, xp, a.x_ss, t0, a.S);
+    copy_rows_async<SSD_Q, N, LN, SSD_THREADS>(X + SSD_Q * LX, bp, a.b_ss, t0, a.S);
+    for (int i = tid; i < SSD_Q; i += SSD_THREADS) {
+      const bool valid = t0 + i < a.S;
+      cp_async1(DA + (c % SSD_STAGES) * SSD_Q + i, valid ? ap + (t0 + i) * a.a_ss : ap, valid);
+    }
+  };
+  load_chunk(0);
+  cp_async_commit();
 
-  for (int t0 = 0; t0 < a.S; t0 += SSD_Q) {
-    const int valid = min(SSD_Q, a.S - t0);
-    __syncthreads();  // previous chunk consumed
-    stage_rows<SSD_Q, HD, HD, SSD_THREADS>(X, xp, a.x_ss, t0, a.S, 1.f);
-    stage_rows<SSD_Q, N, NS, SSD_THREADS>(Bs, bp, a.b_ss, t0, a.S, 1.f);
-    stage_rows<SSD_Q, N, NS, SSD_THREADS>(Cs, cp, a.c_ss, t0, a.S, 1.f);
-    // inclusive prefix sum of dA over the chunk (padded steps add 0)
-    float cs = 0.f;
-    if (tid < SSD_Q) {
-      cs = tid < valid ? ap[(long long)(t0 + tid) * a.a_ss] : 0.f;
+  // the state S[p][n], p in this block's slice: warp w keeps rows
+  // 16 (w % 2) + (g, g + 8), columns 8 (NS (w / 2) + i) + (2t, 2t + 1) in
+  // registers across chunks (an m16n8 accumulator per n-tile) and mirrors
+  // the whole slice into St for the read-out
+  const int sm = 16 * (warp & 1), sn = NS * (warp >> 1);
+  float sacc[NS][4];
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = sm + g + 8 * (e >> 1), n = 8 * (sn + i) + 2 * t + (e & 1);
+      sacc[i][e] = h0 ? h0[p * N + n] : 0.f;
+      const Split sp = split_tf32(sacc[i][e]);
+      St[p * LN + n] = make_uint2(sp.hi, sp.lo);
+    }
+
+  const int ta = 16 * warp + g, tb = ta + 8;  // this lane's chunk rows
+  const int nj = 2 * (warp + 1);              // step n-tiles at or below the diagonal
+
+  // C's rows ta and tb of a chunk, the A fragments of C B^T and C S^T, go
+  // from global memory straight to registers (only this warp reads them):
+  // a chunk's are requested as soon as the previous chunk's are used, and
+  // land while the rest of that chunk computes
+  float cr[NK][4];
+  auto load_c = [&](int c) {
+    const int ra = c * SSD_Q + ta, rb = ra + 8;
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks) {
+      const int n = 8 * ks + t;
+      cr[ks][0] = ra < a.S ? to_f32(cp[ra * a.c_ss + n]) : 0.f;
+      cr[ks][1] = rb < a.S ? to_f32(cp[rb * a.c_ss + n]) : 0.f;
+      cr[ks][2] = ra < a.S ? to_f32(cp[ra * a.c_ss + n + 4]) : 0.f;
+      cr[ks][3] = rb < a.S ? to_f32(cp[rb * a.c_ss + n + 4]) : 0.f;
+    }
+  };
+  load_c(0);
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<0>();  // chunk c landed (this thread's copies)
+    __syncthreads();     // everyone's; St written; chunk c - 1 consumed
+    if (c + 1 < n_chunks) load_chunk(c + 1);  // streams in while chunk c computes
+    cp_async_commit();
+
+    const T* X = ring + (c % SSD_STAGES) * STAGE;
+    const T* Bs = X + SSD_Q * LX;
+    {  // cumulative dA over the chunk, each warp its own copy (padded steps add 0)
+      const float* da = DA + (c % SSD_STAGES) * SSD_Q;
+      const float d0 = da[2 * lane], d1 = da[2 * lane + 1];
+      float incl = d0 + d1;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, cs, off);
-        if (lane >= off) cs += o;
+        const float o = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += o;
       }
-      if (lane == 31) WT[warp] = cs;
+      CUM[2 * lane] = incl - d1;
+      CUM[2 * lane + 1] = incl;
+      __syncwarp();
     }
-    __syncthreads();
-    if (tid < SSD_Q) {
-      for (int w = 0; w < warp; ++w) cs += WT[w];
-      CUM[tid] = cs;
-    }
-    __syncthreads();
+    const float cum_a = CUM[ta], cum_b = CUM[tb], cum_q = CUM[SSD_Q - 1];
 
-    // Sc[t][s] = (C_t . B_s) exp(cum_t - cum_s) for s <= t, else 0;
-    // rows ty + 16 i, columns tx + 16 j
-    {
-      float acc[8][8];
+    // scores C B^T for the warp's 16 rows and the step tiles at or below
+    // its diagonal, and the read-out C S^T, sharing C's fragments
+    float sc[NQ][4], yacc[NP][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < NQ; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-      for (int n = 0; n < N; n += 4) {
-        float4 cv[8], bv[8];
+    for (int j = 0; j < NP; ++j) yacc[j][0] = yacc[j][1] = yacc[j][2] = yacc[j][3] = 0.f;
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          cv[i] = *reinterpret_cast<const float4*>(&Cs[(ty + 16 * i) * NS + n]);
+    for (int ks = 0; ks < NK; ++ks) {
+      const Split cf[4] = {split_tf32(cr[ks][0]), split_tf32(cr[ks][1]), split_tf32(cr[ks][2]),
+                           split_tf32(cr[ks][3])};
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          bv[j] = *reinterpret_cast<const float4*>(&Bs[(tx + 16 * j) * NS + n]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            float s = acc[i][j];
-            s = fmaf(cv[i].x, bv[j].x, s);
-            s = fmaf(cv[i].y, bv[j].y, s);
-            s = fmaf(cv[i].z, bv[j].z, s);
-            s = fmaf(cv[i].w, bv[j].w, s);
-            acc[i][j] = s;
-          }
+      for (int j = 0; j < NQ; ++j) {
+        if (j >= nj) break;
+        const T* br = Bs + (8 * j + g) * LN + 8 * ks + t;
+        const Split bf[2] = {split_tf32(to_f32(br[0])), split_tf32(to_f32(br[4]))};
+        mma3(sc[j], cf, bf);
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int t = ty + 16 * i;
-        const float ct = CUM[t];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int s = tx + 16 * j;
-          Sc[t * SCS + s] = s <= t ? acc[i][j] * expf(ct - CUM[s]) : 0.f;
-        }
+      for (int j = 0; j < NP; ++j) {
+        const uint2* sr = St + (8 * j + g) * LN + 8 * ks + t;
+        const uint2 s0 = sr[0], s1 = sr[4];
+        const Split sf[2] = {{s0.x, s0.y}, {s1.x, s1.y}};
+        mma3(yacc[j], cf, sf);
       }
     }
-    __syncthreads();
+    if (c + 1 < n_chunks) load_c(c + 1);
+    // y = e^cum_t (C S^T) + ((C B^T) o L) x, L[t][s] = e^(cum_t - cum_s) for s <= t
+    const float ea = expf(cum_a), eb = expf(cum_b);
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      yacc[j][0] *= ea;
+      yacc[j][1] *= ea;
+      yacc[j][2] *= eb;
+      yacc[j][3] *= eb;
+    }
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int s = 8 * j + 2 * t + (e & 1), tt = e < 2 ? ta : tb;
+        sc[j][e] = s <= tt ? sc[j][e] * expf((e < 2 ? cum_a : cum_b) - CUM[s]) : 0.f;
+      }
+      // steps of the k-step in the order (2t, 2t + 1), as in flash_attn_kernel:
+      // the accumulator fragment is the A fragment
+      const Split pa[4] = {split_tf32(sc[j][0]), split_tf32(sc[j][2]), split_tf32(sc[j][1]),
+                           split_tf32(sc[j][3])};
+      const T* x0 = X + (8 * j + 2 * t) * LX + g;
+#pragma unroll
+      for (int n = 0; n < NP; ++n) {
+        const Split xf[2] = {split_tf32(to_f32(x0[8 * n])), split_tf32(to_f32(x0[LX + 8 * n]))};
+        mma3(yacc[n], pa, xf);
+      }
+    }
+    const int valid = min(SSD_Q, a.S - c * SSD_Q);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int tt = r ? tb : ta;
+      if (tt >= valid) continue;
+      T* yrow = static_cast<T*>(a.y) + (((long long)b * a.S + c * SSD_Q + tt) * a.H + h) * HD +
+                p0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NP; ++n) {
+        yrow[8 * n] = from_f32<T>(yacc[n][2 * r]);
+        yrow[8 * n + 1] = from_f32<T>(yacc[n][2 * r + 1]);
+      }
+    }
 
-    // B o w, w_s = exp(cum_Q - cum_s), for the state update below
-    const float cq = CUM[SSD_Q - 1];
-    for (int i = tid; i < SSD_Q * N; i += SSD_THREADS) {
-      const int s = i / N, n = i % N;
-      Bs[s * NS + n] *= expf(cq - CUM[s]);
-    }
-    // y[t][p] = exp(cum_t) (C_t . S[p]) + sum_{s <= t} Sc[t][s] x[s][p];
-    // rows ty * 8 + i, columns tx * PB + j
-    {
-      float acc[8][PB];
+    // S[p][n] <- S[p][n] e^cum_Q + sum_s x[s][p] (B o w)[s][n], w_s =
+    // e^(cum_Q - cum_s) folded into x's fragment; steps in the order
+    // (2t, 2t + 1) as above
+    const float dq = expf(cum_q);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NS; ++i)
 #pragma unroll
-        for (int j = 0; j < PB; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-      for (int n = 0; n < N; n += 4) {
-        float4 cv[8];
+      for (int e = 0; e < 4; ++e) sacc[i][e] *= dq;
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          cv[i] = *reinterpret_cast<const float4*>(&Cs[(ty * 8 + i) * NS + n]);
+    for (int ks = 0; ks < NQ; ++ks) {
+      const int s0 = 8 * ks + 2 * t;
+      const float w0 = expf(cum_q - CUM[s0]), w1 = expf(cum_q - CUM[s0 + 1]);
+      const T* xa = X + s0 * LX + sm + g;
+      const Split xf[4] = {split_tf32(to_f32(xa[0]) * w0), split_tf32(to_f32(xa[8]) * w0),
+                           split_tf32(to_f32(xa[LX]) * w1), split_tf32(to_f32(xa[LX + 8]) * w1)};
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float* srow = &St[(n + u) * HD + tx * PB];
-          float sv[PB];
-#pragma unroll
-          for (int j = 0; j < PB; ++j) sv[j] = srow[j];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float c = comp(cv[i], u);
-#pragma unroll
-            for (int j = 0; j < PB; ++j) acc[i][j] = fmaf(c, sv[j], acc[i][j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float dec = expf(CUM[ty * 8 + i]);
-#pragma unroll
-        for (int j = 0; j < PB; ++j) acc[i][j] *= dec;
-      }
-      const int s_end = (ty + 1) * 8;  // Sc is 0 past the diagonal
-      for (int s = 0; s < s_end; ++s) {
-        const float* xrow = &X[s * HD + tx * PB];
-        float xv[PB];
-#pragma unroll
-        for (int j = 0; j < PB; ++j) xv[j] = xrow[j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float sc = Sc[(ty * 8 + i) * SCS + s];
-#pragma unroll
-          for (int j = 0; j < PB; ++j) acc[i][j] = fmaf(sc, xv[j], acc[i][j]);
-        }
-      }
-      T* yp = static_cast<T*>(a.y);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int t = ty * 8 + i;
-        if (t < valid) {
-          T* yrow = yp + (((long long)b * a.S + t0 + t) * a.H + h) * HD + tx * PB;
-#pragma unroll
-          for (int j = 0; j < PB; ++j) yrow[j] = from_f32<T>(acc[i][j]);
-        }
+      for (int i = 0; i < NS; ++i) {
+        const T* br = Bs + s0 * LN + 8 * (sn + i) + g;
+        const Split bf[2] = {split_tf32(to_f32(br[0])), split_tf32(to_f32(br[LN]))};
+        mma3(sacc[i], xf, bf);
       }
     }
-    __syncthreads();
-
-    // S[p][n] <- S[p][n] exp(cum_Q) + sum_s x[s][p] (B o w)[s][n];
-    // p = tx + 16 i, n = ty + 16 j
-    {
-      const float dq = expf(cq);
-      float acc[PB][SN];
+    __syncthreads();  // every warp has read St for this chunk's read-out
 #pragma unroll
-      for (int i = 0; i < PB; ++i)
+    for (int i = 0; i < NS; ++i)
 #pragma unroll
-        for (int j = 0; j < SN; ++j) acc[i][j] = St[(ty + 16 * j) * HD + tx + 16 * i] * dq;
-#pragma unroll 4
-      for (int s = 0; s < SSD_Q; ++s) {
-        float xv[PB], bv[SN];
-#pragma unroll
-        for (int i = 0; i < PB; ++i) xv[i] = X[s * HD + tx + 16 * i];
-#pragma unroll
-        for (int j = 0; j < SN; ++j) bv[j] = Bs[s * NS + ty + 16 * j];
-#pragma unroll
-        for (int i = 0; i < PB; ++i)
-#pragma unroll
-          for (int j = 0; j < SN; ++j) acc[i][j] = fmaf(xv[i], bv[j], acc[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const Split sp = split_tf32(sacc[i][e]);
+        St[(sm + g + 8 * (e >> 1)) * LN + 8 * (sn + i) + 2 * t + (e & 1)] = make_uint2(sp.hi, sp.lo);
       }
-#pragma unroll
-      for (int i = 0; i < PB; ++i)
-#pragma unroll
-        for (int j = 0; j < SN; ++j) St[(ty + 16 * j) * HD + tx + 16 * i] = acc[i][j];
-    }
   }
-  __syncthreads();
-  for (int i = tid; i < HD * N; i += SSD_THREADS) {
-    const int p = i / N, n = i % N;
-    a.h_fin[st_off + i] = St[n * HD + p];
-  }
+  cp_async_wait<0>();  // no copy outlives the block
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      hf[(sm + g + 8 * (e >> 1)) * N + 8 * (sn + i) + 2 * t + (e & 1)] = sacc[i][e];
 }
 
 template <typename T, int HD, int N>
 cudaError_t launch_ssd(const SsdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = ssd_smem_bytes<HD, N>();
+  constexpr size_t smem = ssd_smem_bytes<T, N>();
   cudaError_t err = cudaFuncSetAttribute(
       ssd_scan_kernel<T, HD, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  ssd_scan_kernel<T, HD, N><<<dim3(a.H, a.B), SSD_THREADS, smem, stream>>>(a);
+  ssd_scan_kernel<T, HD, N><<<dim3(HD / SSD_P, a.H, a.B), SSD_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -6,9 +6,9 @@ head:
     h <- h exp(dA_t) + xdt_t^T B_t,   y_t = h C_t
 
 with an initial state ``h0`` and any sequence length.  On a CUDA tensor it
-launches the CUDA kernel in ``csrc/scan.cu`` (chunks of 128 steps, a
-ragged last chunk zero-padded); on a CPU tensor it runs the plain
-``ref.ssd_ref``.  There is no other path.
+launches the CUDA kernel in ``csrc/scan.cu`` (chunks of 64 steps on the
+tensor cores, a ragged last chunk zero-padded); on a CPU tensor it runs
+the plain ``ref.ssd_ref``.  There is no other path.
 
 B and C are read through their strides, so the Mamba2 block passes its
 group-form (B, S, N) tensors as ``Bm[:, :, None].expand(B, S, H, N)``: a
