@@ -8,10 +8,10 @@ Phases (any failure raises and exits non-zero):
   2. build    -- nvcc builds the CUDA kernels from src/repro_torch/kernels/csrc,
                  one process per source, linked into one library; ptxas's
                  registers, shared memory and spills per kernel; the SASS
-                 (cuobjdump -sass) of every instantiation of the two
-                 tensor-core kernels (flash_attn_kernel, ssd_scan_kernel)
-                 must hold tensor-core products (HMMA ... TF32), and TF32
-                 stays off in torch
+                 (cuobjdump -sass) of every instantiation of the three
+                 tensor-core kernels (flash_attn_kernel, ssd_scan_kernel,
+                 rwkv6_scan_kernel) must hold tensor-core products (HGMMA /
+                 HMMA ... TF32), and TF32 stays off in torch
   3. kernels  -- each CUDA kernel against its plain PyTorch version on the
                  card: the shape grid of tests/test_kernels.py in f32 and
                  bf16 (attention 2e-5 / 2e-2, the two scans 5x that), a
@@ -22,7 +22,8 @@ Phases (any failure raises and exits non-zero):
                  scans, B and C in group form (head stride 0), the edges of
                  the tensor-core tiling (flash: S = 1, 63, 65, 513, windows
                  of 1 and longer than S, 1/2/4/8 query heads per kv head at
-                 every head_dim; ssd: S = 1, 40, 2048 and every (hd, N)),
+                 every head_dim; ssd: S = 1, 40, 2048 and every (hd, N);
+                 rwkv6: S = 1, 31, 33 at hd 32 and 64, S = 33 from a state),
                  and each kernel at its served model's own shapes; inputs no
                  kernel is built for raise
   4. slices   -- for each served model (qwen3-4b, rwkv6-1.6b, zamba2-2.7b)
@@ -231,7 +232,8 @@ def check_flash(dev, rng):
 
 # the kernels redesigned for the tensor cores, and their instantiations
 # (dtype x head_dim, dtype x head_dim x state size in the C dispatch)
-TENSOR_CORE_KERNELS = {"flash_attn_kernel": 2 * 4, "ssd_scan_kernel": 2 * 2 * 3}
+TENSOR_CORE_KERNELS = {"flash_attn_kernel": 2 * 4, "ssd_scan_kernel": 2 * 2 * 3,
+                       "rwkv6_scan_kernel": 2 * 2}
 
 
 def find_cuobjdump():
@@ -415,9 +417,16 @@ def check_rwkv(dev, rng):
     ragged = [((2, S, 2, 64), dt, False) for S in (100, 513) for dt in (torch.float32, torch.bfloat16)]
     state = [((2, S, 2, hd), dt, True) for S, hd in [(64, 32), (513, 64)]
              for dt in (torch.float32, torch.bfloat16)]
+    # the edges of the two-stage copy and its zero-fill (chunks of 32): S =
+    # 1, one step short of a chunk and one past it, at both head_dims; the
+    # ragged S = 33 from an initial state
+    edges = [((2, S, 2, hd), dt, False) for S in (1, 31, 33) for hd in (32, 64)
+             for dt in (torch.float32, torch.bfloat16)]
+    edges += [((2, 33, 2, hd), dt, True) for hd in (32, 64)
+              for dt in (torch.float32, torch.bfloat16)]
     err = check_scan("rwkv6_scan", dev, rng,
                      lambda r, k, v, w, u, s0: rwkv6_scan(r, k, v, w, u, s0=s0),
-                     ref.rwkv6_ref, rwkv_inputs, grid + ragged + state,
+                     ref.rwkv6_ref, rwkv_inputs, grid + ragged + state + edges,
                      lambda B, S, H, hd: (B, H, hd, hd), RWKV_SHAPE)
     x = torch.zeros((1, 32, 1, 128), device=dev)       # head_dim 128: no kernel
     expect_refusal("rwkv6_scan head_dim 128",

@@ -22,10 +22,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
 }
 
-__device__ __forceinline__ float comp(const float4& v, int u) {
-  return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
-}
-
 // e^x as 2^(x log2 e): the hardware's exp2 and one multiply, where expf
 // takes about eight instructions.  The rounding of x log2 e costs a
 // relative error of |x| 2^-24 in the result, below 1e-6 wherever e^x is

@@ -10,27 +10,61 @@
 // rwkv6_scan_kernel replaces the Pallas kernel
 //   src/repro/kernels/rwkv6_scan.py::rwkv6_scan (_wkv_kernel):
 //     y_t = r_t (S + diag(u) k_t^T v_t),   S <- diag(w_t) S + k_t^T v_t.
-//   Bound on this card: bytes, barely.  At rwkv6-1.6b's prefill (B=4, S=512,
-//   H=32, hd=64) the kernel moves 88 MB (r, k, v, logw read once, y and the
-//   states once) in 26 us at 3.35 TB/s, and the chunked form does 1.6 GFLOP,
-//   24 us at 67 TFLOP/s of float32.
+//   Bound on this card: bytes.  At rwkv6-1.6b's prefill (B=4, S=512, H=32,
+//   hd=64) the kernel moves 88 MB (r, k, v, logw read once, y and the
+//   states once) in 26 us at 3.35 TB/s; the recurrence's least work, 1.6
+//   GFLOP, takes 10 us at 165 TFLOP/s of 3xTF32 (24 at 67 of float32 FMA).
 //   Design: chunks of Q = 32 steps, computed as the TPU kernel does with the
 //   exact factorisation r_t.k_s exp(cum_{t-1} - cum_s) =
 //   (r_t exp(cum_{t-1} - tot)) . (k_s exp(tot - cum_s)), which stays in
 //   float32 range because logw >= -2 (LOGW_CLAMP in models/rwkv.py) gives
 //   exponents of at most 2 Q = 64.  The chunk length is fixed: a longer one
-//   overflows.  Padded steps past S take logw = 0 and r = k = v = 0, so they
-//   change neither the state nor any valid output.  The TPU's sequential
-//   chunk grid axis becomes a loop inside the block.  B * H = 128 (batch,
-//   head) pairs would leave SMs idle, and the recurrence is independent per
-//   value column e (y[:, e] needs only S[:, e] and v[:, e]), so each block
-//   owns 16 value columns of one (batch, head): 512 blocks at that shape.
-//   Its (hd, 16) state slice stays in shared memory for the whole sequence;
-//   each block recomputes the chunk's (Q, Q) score matrix for its columns.
-//   The three chunk products are register-tiled with 8- and 16-byte
-//   shared-memory loads (scalar loads, two per FMA, made the first version
-//   bound by load instructions), and the cumulative decay of each key
-//   column is cut into 256 / hd segments joined by a shuffle scan.
+//   overflows.  The read-out takes the same r_f = r exp(cum_{t-1} - tot)
+//   against the decayed state exp(tot) S, which the state update needs
+//   anyway: r_t exp(cum_{t-1}) S = r_f (exp(tot) S), each term bounded by
+//   |r S|.  Padded steps past S take logw = 0 and r = k = v = 0 (the
+//   copies zero-fill them), so they change neither the state nor any valid
+//   output.  The TPU's sequential chunk grid axis becomes a loop inside the
+//   block.  B * H = 128 (batch, head) pairs would leave SMs idle, and the
+//   recurrence is independent per value column e (y[:, e] needs only
+//   S[:, e] and v[:, e]), so each block of 4 warps owns 16 value columns of
+//   one (batch, head): 512 blocks at that shape, each recomputing the
+//   chunk's causal scores for its columns.
+//   All four chunk products run on the tensor cores as 3xTF32
+//   (mma.sync.m16n8k8, common.cuh), float32-accurate; per chunk and block,
+//   in m16n8k8 steps at hd = 64 (hd = 32): the scores r_f k_f^T over the
+//   causal tiles (rows 0-15 x keys 0-15, rows 16-31 x keys 0-31) 48 (24),
+//   the read-out r_f (exp(tot) S) 32 (16), A V 12 (12) and the state update
+//   k_f^T V 32 (16).  The scores go through shared memory, masked, with
+//   r_t . (u o k_t) on the diagonal, as the A fragments of A V; since A V
+//   is linear in A, rows 0-15 take their two key tiles as four half-hd
+//   partial tiles, which balances the warps: warp w computes key tile w of
+//   rows 16-31 and one half of hd of key tile w % 2 of rows 0-15 (12
+//   k-steps each, in three independent accumulator chains), then rows 16
+//   (w / 2) and columns 8 (w % 2) of y (12), then hd / 4 rows of the
+//   state (8), which it keeps in registers across chunks and mirrors once
+//   a chunk, decayed and split into tf32 halves, in shared memory for every
+//   warp's read-out.  The next chunk's r, k and v slice stream in by
+//   cp.async (two stages, in the input's type) while this one computes;
+//   logw goes straight to the decay pass's registers a chunk ahead, since
+//   two stages of it too would not fit four blocks an SM.  In the decay
+//   pass warp w takes steps 8w .. 8w + 7 and each lane hd / 32 adjacent
+//   key columns (8-byte accesses, no bank conflict); the warps' sums of
+//   logw meet in shared memory for the cumulative decay; it writes r_f and
+//   k_f in float32 (over the stage itself for float32 inputs) and sums the
+//   diagonal over hd by a reduce-scatter of 9 shuffles.  exp_fast takes
+//   the exponents <= 0 (tot - cum_s, tot); r_f's exponent, in [0, 64],
+//   keeps expf.  Shared memory and registers a thread (ptxas), float32 /
+//   bfloat16: hd = 64 55,680 / 53,120 B and 128 / 128; hd = 32 33,536 /
+//   30,976 B and 127 / 128; no spills, no local memory.  The registers
+//   (128 x 128 threads) allow four blocks (16 warps) per SM in every
+//   instantiation, so the 512 blocks of rwkv6-1.6b's prefill run in one
+//   wave on 132 SMs.  What sets the pace (phases timed with clock64 in a
+//   copy of the kernel): the decay pass is the longest phase between
+//   barriers, led by the issue of the next chunk's copies (each thread
+//   issues nine at once, and a head's four blocks read the same r and k);
+//   the product phases spend longer on operand loads and tf32 splits than
+//   the tensor cores take for their products.
 //
 // ssd_scan_kernel replaces the Pallas kernel
 //   src/repro/kernels/ssd_scan.py::ssd_scan (_ssd_kernel): Mamba2's SSD
@@ -90,7 +124,11 @@ namespace {
 
 constexpr int RW_Q = 32;        // chunk length (fixed: see the note above)
 constexpr int RW_E = 16;        // value columns per block
-constexpr int RW_THREADS = 256;
+constexpr int RW_WARPS = 4;
+constexpr int RW_THREADS = 32 * RW_WARPS;
+constexpr int RW_STAGES = 2;    // chunks in flight (cp.async ring)
+constexpr int RW_LV = RW_E + 4; // row stride of the value slice (and of the state mirror)
+constexpr int RW_TILES = 8;     // stored (16-row, 8-key) score tiles of a chunk
 
 struct RwkvArgs {
   const void* r;
@@ -105,195 +143,329 @@ struct RwkvArgs {
   long long r_sb, r_ss, r_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, w_sb, w_ss, w_sh;
 };
 
+// One stage: r and k [Q][HD + 4] and the block's v slice [Q][E + 4], in the
+// input's type.  Then, for bfloat16 only, r_f and k_f [Q][HD + 4] in
+// float32 (float32 inputs are overwritten in place); the scores as A
+// fragments [8][32 lanes] float4; the state mirror [HD][E + 4] split into
+// tf32 (hi, lo) pairs; exp(tot) [HD]; the diagonal [Q]; the warps' segment
+// sums of logw [4][HD].  HD = 64, float32: 2 x 19,968 + 4,096 + 10,240 +
+// 256 + 128 + 1,024 = 55,680 B (bfloat16 53,120), four blocks per SM.
 template <int HD>
+__host__ __device__ constexpr size_t rwkv_stage_elems() {
+  return (size_t)RW_Q * (2 * (HD + 4) + RW_LV);
+}
+template <typename T, int HD>
 constexpr size_t rwkv_smem_bytes() {
-  return sizeof(float) * (size_t)(4 * RW_Q * (HD + 4) + RW_Q * RW_E + RW_Q * (RW_Q + 4) +
-                                  HD * RW_E + 2 * HD);
+  return RW_STAGES * sizeof(T) * rwkv_stage_elems<HD>() +
+         (sizeof(T) == 4 ? 0 : sizeof(float) * 2 * RW_Q * (HD + 4)) +
+         sizeof(float4) * RW_TILES * 32 + sizeof(uint2) * HD * RW_LV +
+         sizeof(float) * (HD + RW_Q + RW_WARPS * HD);
+}
+
+// N = 1 or 2 consecutive elements as float32 (one 4- or 8-byte access).
+template <int N, typename T>
+__device__ __forceinline__ void load_n(float (&o)[N], const T* p) {
+  if constexpr (N == 1) {
+    o[0] = to_f32(p[0]);
+  } else if constexpr (sizeof(T) == sizeof(float)) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    o[0] = x.x, o[1] = x.y;
+  } else {
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    o[0] = x.x, o[1] = x.y;
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_n(float* p, const float (&x)[N]) {
+  if constexpr (N == 1) {
+    p[0] = x[0];
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  }
+}
+
+// logw[t][d .. d + N - 1] for t = t_first .. t_first + STEPS - 1 into
+// registers (0 past S).
+template <int STEPS, int N, typename T>
+__device__ __forceinline__ void load_logw(float (&lw)[STEPS][N], const T* wp, long long ss,
+                                          int t_first, int S, int d) {
+#pragma unroll
+  for (int i = 0; i < STEPS; ++i) {
+    if (t_first + i < S) {
+      load_n<N>(lw[i], wp + (t_first + i) * ss + d);
+    } else {
+#pragma unroll
+      for (int c = 0; c < N; ++c) lw[i][c] = 0.f;
+    }
+  }
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(RW_THREADS) rwkv6_scan_kernel(RwkvArgs a) {
-  constexpr int LD = HD + 4;              // 16-byte aligned rows, conflict-free float4 reads
-  constexpr int AS = RW_Q + 4;
-  constexpr int SEG = RW_THREADS / HD;    // threads per key column in the decay scan
-  constexpr int STEPS = RW_Q / SEG;       // steps per thread in the decay scan
-  constexpr int SPT = HD * RW_E / RW_THREADS;  // state entries per thread
-  static_assert(RW_THREADS % HD == 0 && 32 % SEG == 0 && RW_Q % SEG == 0, "head_dim");
-  static_assert(RW_Q == 32 && RW_E == 16 && RW_THREADS == 256, "tiling");
+__global__ void __launch_bounds__(RW_THREADS, 4) rwkv6_scan_kernel(RwkvArgs a) {
+  // Row stride HD + 4 (= 4 mod 32 in float32): the fragment reads below hit
+  // 32 distinct banks whether a quad's lanes walk a row (columns t, rows g:
+  // bank 4g + t) or rows 2t, 2t + 1 (bank 8t + g); the value slice and the
+  // state mirror's 8-byte pairs likewise with stride E + 4.
+  constexpr int LD = HD + 4;
+  constexpr int CPT = HD / 32;            // key columns per lane in the decay pass
+  constexpr int STEPS = RW_Q / RW_WARPS;  // steps per warp in the decay pass
+  constexpr int NKD = HD / 8;             // k-steps over the head dimension
+  constexpr int NS = HD / 32;             // state n-tiles per warp
+  constexpr int STAGE = (int)rwkv_stage_elems<HD>();
+  constexpr bool IN_PLACE = sizeof(T) == sizeof(float);
+  static_assert(HD == 32 * CPT && (CPT == 1 || CPT == 2) && STEPS == 8, "head_dim");
+  static_assert(RW_Q == 32 && RW_E == 16 && RW_WARPS == 4 && NS >= 1, "tiling");
 
   extern __shared__ float4 smem4[];
-  float* R = reinterpret_cast<float*>(smem4);  // [Q][LD] r, then r exp(cum_prev - tot)
-  float* K = R + RW_Q * LD;                     // [Q][LD] k, then k exp(tot - cum)
-  float* W = K + RW_Q * LD;                     // [Q][LD] logw, then r exp(cum_prev)
-  float* P = W + RW_Q * LD;                     // [Q][LD] r u k (the diagonal)
-  float* V = P + RW_Q * LD;                     // [Q][E] this block's value columns
-  float* A = V + RW_Q * RW_E;                   // [Q][AS] intra-chunk scores
-  float* St = A + RW_Q * AS;                    // [HD][E] state slice
-  float* U = St + HD * RW_E;                    // [HD] bonus u
-  float* DT = U + HD;                           // [HD] exp(tot)
+  T* ring = reinterpret_cast<T*>(smem4);  // RW_STAGES x (r, k, v)
+  float* work = reinterpret_cast<float*>(ring + RW_STAGES * STAGE);  // bf16: r_f, k_f
+  float4* SF = reinterpret_cast<float4*>(work + (IN_PLACE ? 0 : 2 * RW_Q * LD));
+  uint2* St = reinterpret_cast<uint2*>(SF + RW_TILES * 32);  // [HD][LV] exp(tot) S, split
+  float* DT = reinterpret_cast<float*>(St + HD * RW_LV);      // [HD] exp(tot)
+  float* DG = DT + HD;                                         // [Q] r_t . (u o k_t)
+  float* SEGT = DG + RW_Q;                                     // [WARPS][HD] segment sums of logw
 
   const int e0 = blockIdx.x * RW_E, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const T* rp = static_cast<const T*>(a.r) + b * a.r_sb + h * a.r_sh;
   const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
   const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh + e0;
   const T* wp = static_cast<const T*>(a.w) + b * a.w_sb + h * a.w_sh;
-  const long long st_off = ((long long)b * a.H + h) * HD * HD;
+  const float* s0 = a.s0 ? a.s0 + ((long long)b * a.H + h) * HD * HD + e0 : nullptr;
+  float* sf = a.s_fin + ((long long)b * a.H + h) * HD * HD + e0;
+  const int n_chunks = (a.S + RW_Q - 1) / RW_Q;
 
-  for (int i = tid; i < HD * RW_E; i += RW_THREADS) {
-    const int d = i / RW_E, e = i % RW_E;
-    St[i] = a.s0 ? a.s0[st_off + d * HD + e0 + e] : 0.f;
-  }
-  for (int d = tid; d < HD; d += RW_THREADS)
-    U[d] = to_f32(static_cast<const T*>(a.u)[h * HD + d]);
+  // rows past S are zero-filled: padded steps get r = k = v = 0 here and
+  // logw = 0 below, so they change neither the state nor any valid output
+  auto load_chunk = [&](int c) {
+    T* X = ring + (c % RW_STAGES) * STAGE;
+    const int t0 = c * RW_Q;
+    copy_rows_async<RW_Q, HD, LD, RW_THREADS>(X, rp, a.r_ss, t0, a.S);
+    copy_rows_async<RW_Q, HD, LD, RW_THREADS>(X + RW_Q * LD, kp, a.k_ss, t0, a.S);
+    copy_rows_async<RW_Q, RW_E, RW_LV, RW_THREADS>(X + 2 * RW_Q * LD, vp, a.v_ss, t0, a.S);
+  };
+  load_chunk(0);
+  cp_async_commit();
 
-  for (int t0 = 0; t0 < a.S; t0 += RW_Q) {
-    const int valid = min(RW_Q, a.S - t0);
-    __syncthreads();  // previous chunk consumed
-    stage_rows<RW_Q, HD, LD, RW_THREADS>(R, rp, a.r_ss, t0, a.S, 1.f);
-    stage_rows<RW_Q, HD, LD, RW_THREADS>(K, kp, a.k_ss, t0, a.S, 1.f);
-    stage_rows<RW_Q, HD, LD, RW_THREADS>(W, wp, a.w_ss, t0, a.S, 1.f);
-    if (tid < RW_Q * RW_E / 4) {
-      const int t = tid / (RW_E / 4), c = (tid % (RW_E / 4)) * 4;
-      const float4 x = t < valid ? load4(vp + (t0 + t) * a.v_ss + c)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(V + t * RW_E + c) = x;
-    }
-    __syncthreads();
+  // the decay pass: warp w takes steps t_lo .. t_lo + 7 of the chunk, lane
+  // l key columns CPT l .. CPT l + CPT - 1; its logw goes from global memory
+  // straight to registers, a chunk ahead (two stages of logw as well would
+  // not fit four blocks an SM)
+  const int dcol = CPT * lane, t_lo = STEPS * warp;
+  float u[CPT];
+#pragma unroll
+  for (int cc = 0; cc < CPT; ++cc) u[cc] = to_f32(static_cast<const T*>(a.u)[h * HD + dcol + cc]);
+  float lw[STEPS][CPT];
+  load_logw(lw, wp, a.w_ss, t_lo, a.S, dcol);
 
-    // per key column d, SEG threads of STEPS steps each: the cumulative log
-    // decay over the chunk (a shuffle scan joins the segments), then the
-    // factorised r and k, r exp(cum_prev) for the carried state, and r u k
+  // the state S[d][e], e in this block's slice: warp w keeps rows
+  // 16 sm + (g, g + 8), columns 8 (sn + i) + (2t, 2t + 1) in registers
+  // across chunks (an m16n8 accumulator per n-tile), and mirrors exp(tot) S
+  // into St once per chunk for every warp's read-out
+  const int sm = warp * NS / 2, sn = warp * NS % 2;
+  float sacc[NS][4];
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sacc[i][e] = s0 ? s0[(16 * sm + g + 8 * (e >> 1)) * HD + 8 * (sn + i) + 2 * t + (e & 1)] : 0.f;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<0>();  // chunk c landed (this thread's copies)
+    __syncthreads();     // everyone's; chunk c - 1 consumed
+    if (c + 1 < n_chunks) load_chunk(c + 1);  // streams in while chunk c computes
+    cp_async_commit();
+
+    T* X = ring + (c % RW_STAGES) * STAGE;
+    const T* Vs = X + 2 * RW_Q * LD;
+    float* RF = IN_PLACE ? reinterpret_cast<float*>(X) : work;  // [Q][LD] r exp(cum_prev - tot)
+    float* KF = RF + RW_Q * LD;                                // [Q][LD] k exp(tot - cum)
+
+    // decay pass: the cumulative log decay of each key column over the
+    // chunk (the warps' segment sums through shared memory), the factorised
+    // r and k (exact, in float32 range since logw >= -2 bounds cum_prev -
+    // tot by 64), exp(tot), and the diagonal r_t . (u o k_t), reduced across
+    // the warp's lanes, which hold all of hd
     {
-      const int d = tid / SEG, seg = tid % SEG, t_lo = seg * STEPS;
-      float run = 0.f;
+      float run[CPT], tot[CPT], cp[CPT];
 #pragma unroll
-      for (int k = 0; k < STEPS; ++k) run += W[(t_lo + k) * LD + d];
-      float incl = run;
+      for (int cc = 0; cc < CPT; ++cc) {
+        run[cc] = 0.f;
 #pragma unroll
-      for (int off = 1; off < SEG; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, incl, off, SEG);
-        if (seg >= off) incl += o;
+        for (int i = 0; i < STEPS; ++i) run[cc] += lw[i][cc];
       }
-      const float tot = __shfl_sync(0xffffffffu, incl, SEG - 1, SEG);
-      float cp = incl - run;  // cum_prev at this segment's first step
-      const float u = U[d];
+      store_n<CPT>(SEGT + warp * HD + dcol, run);
+      __syncthreads();
 #pragma unroll
-      for (int k = 0; k < STEPS; ++k) {
-        const int i = (t_lo + k) * LD + d;
-        const float lw = W[i], r = R[i], kk = K[i];
-        P[i] = r * u * kk;
-        R[i] = r * expf(cp - tot);
-        K[i] = kk * expf(tot - (cp + lw));
-        W[i] = r * expf(cp);
-        cp += lw;
-      }
-      if (seg == 0) DT[d] = expf(tot);
-    }
-    __syncthreads();
-
-    // scores A[t][s] = r_f[t] . k_f[s] below the diagonal, 0 above it: a
-    // 2x2 tile per thread (rows ty + 16 i, columns tx + 16 j); the first
-    // warp puts r_t . (u k_t) on the diagonal
-    {
-      float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 4
-      for (int d = 0; d < HD; d += 4) {
-        float4 rv[2], kv[2];
+      for (int cc = 0; cc < CPT; ++cc) tot[cc] = cp[cc] = 0.f;
 #pragma unroll
-        for (int i = 0; i < 2; ++i) rv[i] = *reinterpret_cast<const float4*>(&R[(ty + 16 * i) * LD + d]);
+      for (int q = 0; q < RW_WARPS; ++q) {
+        float x[CPT];
+        load_n<CPT>(x, SEGT + q * HD + dcol);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) kv[j] = *reinterpret_cast<const float4*>(&K[(tx + 16 * j) * LD + d]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            float x = acc[i][j];
-            x = fmaf(rv[i].x, kv[j].x, x);
-            x = fmaf(rv[i].y, kv[j].y, x);
-            x = fmaf(rv[i].z, kv[j].z, x);
-            x = fmaf(rv[i].w, kv[j].w, x);
-            acc[i][j] = x;
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int t = ty + 16 * i, s = tx + 16 * j;
-          if (s != t) A[t * AS + s] = s < t ? acc[i][j] : 0.f;
-        }
-      if (tid < RW_Q) {
-        float dg = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) dg += P[tid * LD + d];
-        A[tid * AS + tid] = dg;
-      }
-    }
-    __syncthreads();
-
-    // y[t][e] = sum_{s <= t} A[t][s] v[s][e] + sum_d r_t exp(cum_prev_t)[d] S[d][e];
-    // row t = tid / 8, columns e, e + 1 with e = 2 (tid % 8)
-    {
-      const int t = tid >> 3, e = (tid & 7) * 2;
-      float y0 = 0.f, y1 = 0.f;
-      for (int s = 0; s <= t; s += 4) {
-        const float4 av = *reinterpret_cast<const float4*>(&A[t * AS + s]);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float2 vv = *reinterpret_cast<const float2*>(&V[(s + u) * RW_E + e]);
-          const float c = comp(av, u);
-          y0 = fmaf(c, vv.x, y0);
-          y1 = fmaf(c, vv.y, y1);
+        for (int cc = 0; cc < CPT; ++cc) {
+          tot[cc] += x[cc];
+          cp[cc] += q < warp ? x[cc] : 0.f;  // cum_prev at the warp's first step
         }
       }
-#pragma unroll 4
-      for (int d = 0; d < HD; d += 4) {
-        const float4 wv = *reinterpret_cast<const float4*>(&W[t * LD + d]);
+      float dg[STEPS];
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float2 sv = *reinterpret_cast<const float2*>(&St[(d + u) * RW_E + e]);
-          const float c = comp(wv, u);
-          y0 = fmaf(c, sv.x, y0);
-          y1 = fmaf(c, sv.y, y1);
+      for (int i = 0; i < STEPS; ++i) {
+        const int idx = (t_lo + i) * LD + dcol;
+        float r[CPT], kk[CPT], rf[CPT], kf[CPT];
+        load_n<CPT>(r, X + idx);
+        load_n<CPT>(kk, X + RW_Q * LD + idx);
+        dg[i] = 0.f;
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) {
+          dg[i] += r[cc] * u[cc] * kk[cc];
+          rf[cc] = r[cc] * expf(cp[cc] - tot[cc]);                 // exponent in [0, 64]
+          kf[cc] = kk[cc] * exp_fast(tot[cc] - (cp[cc] + lw[i][cc]));  // exponent <= 0
+          cp[cc] += lw[i][cc];
+        }
+        store_n<CPT>(RF + idx, rf);
+        store_n<CPT>(KF + idx, kf);
+      }
+      if (warp == 0) {
+        float dt[CPT];
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) dt[cc] = exp_fast(tot[cc]);
+        store_n<CPT>(DT + dcol, dt);
+      }
+      if (c + 1 < n_chunks) load_logw(lw, wp, a.w_ss, (c + 1) * RW_Q + t_lo, a.S, dcol);
+      // reduce-scatter over the warp: each level halves the steps a lane
+      // holds (the halves chosen by a bit mask, not by a conditional index,
+      // which would put dg in local memory); lanes 4 j .. 4 j + 3 end with
+      // step t_lo + j, summed over all of hd by the last two levels
+#pragma unroll
+      for (int half = STEPS / 2; half >= 1; half >>= 1) {
+        const uint32_t up = 0u - (uint32_t)((lane & (4 * half)) != 0);
+#pragma unroll
+        for (int i = 0; i < half; ++i) {
+          const uint32_t lo = __float_as_uint(dg[i]), hi = __float_as_uint(dg[i + half]);
+          const float keep = __uint_as_float((lo & ~up) | (hi & up));
+          const float send = __uint_as_float((hi & ~up) | (lo & up));
+          dg[i] = keep + __shfl_xor_sync(0xffffffffu, send, 4 * half);
         }
       }
-      if (t < valid) {
-        T* yrow = static_cast<T*>(a.y) + (((long long)b * a.S + t0 + t) * a.H + h) * HD + e0 + e;
-        yrow[0] = from_f32<T>(y0);
-        yrow[1] = from_f32<T>(y1);
-      }
+      dg[0] += __shfl_xor_sync(0xffffffffu, dg[0], 2);
+      dg[0] += __shfl_xor_sync(0xffffffffu, dg[0], 1);
+      if ((lane & 3) == 0) DG[t_lo + (lane >> 2)] = dg[0];
     }
     __syncthreads();
 
-    // S[d][e] <- S[d][e] exp(tot_d) + sum_s k_f[s][d] v[s][e]; SPT
-    // consecutive columns of one row d per thread
+    // scores A[t][s] = r_f[t] . k_f[s] for s < t, r_t . (u o k_t) for s = t,
+    // 0 above, stored as the A fragments of A V (keys in the order (2t,
+    // 2t + 1), as flash_attn_kernel hands P over).  Eight tiles, 12 k-steps
+    // a warp at hd = 64: warp w takes key tile w of rows 16-31 over all of
+    // hd, and one half of hd of key tile w % 2 of rows 0-15; A V is linear
+    // in A, so the two halves stay apart (the diagonal in the first) and
+    // rows 0-15 run A V over four tiles, as rows 16-31 do.  Three
+    // accumulators keep three chains of products in flight.
     {
-      const int d = tid / (RW_E / SPT), e = (tid % (RW_E / SPT)) * SPT;
-      float acc[SPT];
-      const float dt = DT[d];
+      constexpr int NH = NKD / 2;
+      const int j0 = warp & 1, hk = warp >> 1;
+      float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f}, s0t[4] = {0.f, 0.f, 0.f, 0.f};
+      auto step = [&](float (&acc)[4], int row0, int key0, int ks) {
+        const float* kr = KF + (key0 + g) * LD + 8 * ks + t;
+        const float* rr = RF + (row0 + g) * LD + 8 * ks + t;
+        const Split kf[2] = {split_tf32(kr[0]), split_tf32(kr[4])};
+        const Split rf[4] = {split_tf32(rr[0]), split_tf32(rr[8 * LD]), split_tf32(rr[4]),
+                             split_tf32(rr[8 * LD + 4])};
+        mma3(acc, rf, kf);
+      };
 #pragma unroll
-      for (int j = 0; j < SPT; ++j) acc[j] = St[d * RW_E + e + j] * dt;
-#pragma unroll 8
-      for (int s = 0; s < RW_Q; ++s) {
-        const float kf = K[s * LD + d];
+      for (int kk = 0; kk < NH; ++kk) {
+        step(sa, 16, 8 * warp, kk);
+        step(sb, 16, 8 * warp, kk + NH);
+        step(s0t, 0, 8 * j0, hk * NH + kk);
+      }
+      float o1[4], o0[4];
 #pragma unroll
-        for (int j = 0; j < SPT; ++j) acc[j] = fmaf(kf, V[s * RW_E + e + j], acc[j]);
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+        const int s1 = 8 * warp + col, tr1 = 16 + r, sk = 8 * j0 + col;
+        const float dg1 = DG[tr1], dg0 = DG[r];
+        o1[e] = s1 < tr1 ? sa[e] + sb[e] : (s1 == tr1 ? dg1 : 0.f);
+        o0[e] = sk < r ? s0t[e] : (sk == r && hk == 0 ? dg0 : 0.f);
+      }
+      SF[warp * 32 + lane] = make_float4(o1[0], o1[2], o1[1], o1[3]);
+      SF[(4 + 2 * j0 + hk) * 32 + lane] = make_float4(o0[0], o0[2], o0[1], o0[3]);
+    }
+    // the state decays by exp(tot) once a chunk; its mirror feeds the read-out
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 16 * sm + g + 8 * (e >> 1);
+        sacc[i][e] *= DT[d];
+        const Split sp = split_tf32(sacc[i][e]);
+        St[d * RW_LV + 8 * (sn + i) + 2 * t + (e & 1)] = make_uint2(sp.hi, sp.lo);
+      }
+    __syncthreads();
+
+    // y[t][e] = r_f[t] . (exp(tot) S)[:, e] + sum_{s <= t} A[t][s] v[s][e]:
+    // warp w owns rows 16 (w / 2) .. + 15 and columns 8 (w % 2) .. + 7
+    {
+      const int m = warp >> 1, n = warp & 1;
+      float yacc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < NKD; ++ks) {
+        const float* rr = RF + (16 * m + g) * LD + 8 * ks + t;
+        const Split rf[4] = {split_tf32(rr[0]), split_tf32(rr[8 * LD]), split_tf32(rr[4]),
+                             split_tf32(rr[8 * LD + 4])};
+        const uint2 s0v = St[(8 * ks + t) * RW_LV + 8 * n + g];
+        const uint2 s1v = St[(8 * ks + t + 4) * RW_LV + 8 * n + g];
+        const Split sf2[2] = {{s0v.x, s0v.y}, {s1v.x, s1v.y}};
+        mma3(yacc, rf, sf2);
       }
 #pragma unroll
-      for (int j = 0; j < SPT; ++j) St[d * RW_E + e + j] = acc[j];
+      for (int q = 0; q < 4; ++q) {
+        const int j = m ? q : q >> 1;  // rows 0-15: key tile 0's halves, then key tile 1's
+        const float4 p = SF[(m ? q : 4 + q) * 32 + lane];
+        const Split pa[4] = {split_tf32(p.x), split_tf32(p.y), split_tf32(p.z), split_tf32(p.w)};
+        const T* v0 = Vs + (8 * j + 2 * t) * RW_LV + 8 * n + g;
+        const Split vf[2] = {split_tf32(to_f32(v0[0])), split_tf32(to_f32(v0[RW_LV]))};
+        mma3(yacc, pa, vf);
+      }
+      const int valid = min(RW_Q, a.S - c * RW_Q);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int tr = 16 * m + g + 8 * r;
+        if (tr >= valid) continue;
+        T* yrow = static_cast<T*>(a.y) + (((long long)b * a.S + c * RW_Q + tr) * a.H + h) * HD +
+                  e0 + 8 * n + 2 * t;
+        yrow[0] = from_f32<T>(yacc[2 * r]);
+        yrow[1] = from_f32<T>(yacc[2 * r + 1]);
+      }
+    }
+
+    // S[d][e] <- exp(tot_d) S[d][e] + sum_s k_f[s][d] v[s][e], steps of each
+    // k-step in the order (2t, 2t + 1), as ssd_scan_kernel's x^T (B o w)
+#pragma unroll
+    for (int ks = 0; ks < RW_Q / 8; ++ks) {
+      const float* ka = KF + (8 * ks + 2 * t) * LD + 16 * sm + g;
+      const Split kf[4] = {split_tf32(ka[0]), split_tf32(ka[8]), split_tf32(ka[LD]),
+                           split_tf32(ka[LD + 8])};
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const T* v0 = Vs + (8 * ks + 2 * t) * RW_LV + 8 * (sn + i) + g;
+        const Split vf[2] = {split_tf32(to_f32(v0[0])), split_tf32(to_f32(v0[RW_LV]))};
+        mma3(sacc[i], kf, vf);
+      }
     }
   }
-  __syncthreads();
-  for (int i = tid; i < HD * RW_E; i += RW_THREADS) {
-    const int d = i / RW_E, e = i % RW_E;
-    a.s_fin[st_off + d * HD + e0 + e] = St[i];
-  }
+  cp_async_wait<0>();  // no copy outlives the block
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sf[(16 * sm + g + 8 * (e >> 1)) * HD + 8 * (sn + i) + 2 * t + (e & 1)] = sacc[i][e];
 }
 
 template <typename T, int HD>
 cudaError_t launch_rwkv(const RwkvArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = rwkv_smem_bytes<HD>();
+  constexpr size_t smem = rwkv_smem_bytes<T, HD>();
   cudaError_t err = cudaFuncSetAttribute(
       rwkv6_scan_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

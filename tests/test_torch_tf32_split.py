@@ -6,7 +6,9 @@
 operand x is split into hi = tf32(x) and lo = tf32(x - hi), rounded as
 ``cvt.rna.tf32.f32`` rounds, and a.b is taken as a_lo.b_hi + a_hi.b_lo +
 a_hi.b_hi.  These tests pin why: three passes meet the kernels' float32
-tolerance at every inner length they reduce over, one pass does not.
+tolerance at every inner length they reduce over, and through
+``rwkv6_scan_kernel``'s whole chunk algebra at the decay clamp; one pass
+does not.
 They also pin the fragment layouts the kernels rely on.  Only numpy: the kernels themselves
 run on the card in ``chip_smoke.py``.
 """
@@ -34,12 +36,13 @@ def split(x):
     return hi, tf32_rna(x - hi)
 
 
-def mma_product(a, b, passes):
-    """a (M, K) @ b (K, N) in float32 as the kernels take it: k-steps of 8,
-    each pass's tf32 products exact, added to one float32 accumulator."""
+def mma_product(a, b, passes, acc=None):
+    """acc + a (M, K) @ b (K, N) in float32 as the kernels take it: k-steps
+    of 8, each pass's tf32 products exact, added to one float32 accumulator
+    (zeros when acc is None)."""
     (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
     terms = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if passes == 3 else [(a_hi, b_hi)]
-    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32) if acc is None else acc.astype(np.float32)
     for k0 in range(0, a.shape[1], 8):
         for x, y in terms:
             step = x[:, k0:k0 + 8].astype(np.float64) @ y[k0:k0 + 8].astype(np.float64)
@@ -134,3 +137,78 @@ def test_fragment_layouts_of_the_kernels(product):
         b = [(bm[2 * t, g], bm[2 * t + 1, g]) for g, t in lanes]
         want = x.T @ bm
     np.testing.assert_allclose(mma_fragments(a, b), want, rtol=1e-12, atol=1e-12)
+
+
+SCAN_TOL = 5 * TOL               # the scans' float32 tolerance (chip_smoke.py)
+
+
+def rwkv_inputs(hd, decay, n_steps, seed=4):
+    """One block's inputs as chip_smoke.py draws them: r, k, v (16 value
+    columns), logw (-2 everywhere, the clamp, or drawn and clamped), u and
+    a nonzero initial state slice (hd, 16)."""
+    rng = np.random.default_rng([seed, hd])
+    r, k = (0.5 * rng.standard_normal((2, n_steps, hd))).astype(np.float32)
+    v = rng.standard_normal((n_steps, 16)).astype(np.float32)
+    if decay == "clamp":
+        logw = np.full((n_steps, hd), -2.0, np.float32)
+    else:
+        logw = np.maximum(-np.exp(0.5 * rng.standard_normal((n_steps, hd)) - 1.5), -2.0)
+    u = 0.3 * rng.standard_normal(hd)
+    s0 = 0.1 * rng.standard_normal((hd, 16))
+    return r, k, v, logw.astype(np.float32), u.astype(np.float32), s0.astype(np.float32)
+
+
+def rwkv_sequential(r, k, v, logw, u, s0):
+    """y_t = r_t (S + diag(u) k_t^T v_t), S <- diag(exp(logw_t)) S + k_t^T v_t,
+    in float64, one step at a time."""
+    state, ys = s0.astype(np.float64), []
+    for t in range(r.shape[0]):
+        kv = np.outer(k[t], v[t]).astype(np.float64)
+        ys.append(r[t].astype(np.float64) @ (state + u[:, None] * kv))
+        state = np.exp(logw[t].astype(np.float64))[:, None] * state + kv
+    return np.stack(ys), state
+
+
+def rwkv_kernel_chunks(r, k, v, logw, u, s0, passes, q=32):
+    """rwkv6_scan_kernel's chunk algebra in float32, every product through
+    mma_product: r_f = r exp(cum_prev - tot) (up to e^64 at the clamp), k_f
+    = k exp(tot - cum); scores r_f k_f^T over each half of hd, masked below
+    the diagonal, r_t . (u o k_t) on it; rows 16-31 add the halves, rows
+    0-15 keep them apart as partial tiles of A V; y = r_f (exp(tot) S) + A V
+    in one accumulator; S <- exp(tot) S + k_f^T V."""
+    f32, hd = np.float32, r.shape[1]
+    state, ys = s0.astype(f32), []
+    below = np.tril(np.ones((q, q), bool), -1)
+    for c0 in range(0, r.shape[0], q):
+        rc, kc, vc, lw = (x[c0:c0 + q] for x in (r, k, v, logw))
+        cum = np.cumsum(lw, axis=0, dtype=f32)
+        tot = cum[-1]
+        r_f = (rc * np.exp(cum - lw - tot)).astype(f32)
+        k_f = (kc * np.exp(tot - cum)).astype(f32)
+        diag = np.diag((rc * u * kc).sum(1, dtype=f32))
+        halves = [np.where(below, mma_product(r_f[:, d], k_f[:, d].T, passes), 0)
+                  for d in (slice(0, hd // 2), slice(hd // 2, hd))]
+        top = [halves[0][:16] + diag[:16], halves[1][:16]]          # rows 0-15, keys 0-15
+        low = (halves[0][16:] + halves[1][16:]).astype(f32) + diag[16:]
+        sdec = (state * np.exp(tot)[:, None]).astype(f32)
+        read = mma_product(r_f, sdec, passes)
+        a_top = np.concatenate([top[h][:, 8 * j:8 * j + 8] for j in (0, 1) for h in (0, 1)], 1)
+        v_top = np.concatenate([vc[8 * j:8 * j + 8] for j in (0, 1) for _ in (0, 1)])
+        ys.append(np.concatenate([mma_product(a_top, v_top, passes, acc=read[:16]),
+                                  mma_product(low, vc, passes, acc=read[16:])]))
+        state = mma_product(k_f.T, vc, passes, acc=sdec)
+    return np.concatenate(ys), state
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("decay", ["clamp", "drawn"])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_rwkv_chunk_on_3xtf32_at_the_decay_clamp(hd, decay, passes):
+    """Three chunks of 32 from a nonzero state against the float64
+    recurrence: three passes meet the scans' tolerance, one pass misses."""
+    inputs = rwkv_inputs(hd, decay, 3 * 32)
+    y_ref, s_ref = rwkv_sequential(*inputs)
+    y, s = rwkv_kernel_chunks(*inputs, passes)
+    worst = max(float(np.max(np.abs(out - ref) - SCAN_TOL - SCAN_TOL * np.abs(ref)))
+                for out, ref in ((y, y_ref), (s, s_ref)))
+    assert (worst <= 0) == (passes == 3), worst
