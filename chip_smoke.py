@@ -11,7 +11,9 @@ Phases (any failure raises and exits non-zero):
                  (cuobjdump -sass) of every instantiation of the three
                  tensor-core kernels (flash_attn_kernel, ssd_scan_kernel,
                  rwkv6_scan_kernel) must hold tensor-core products (HGMMA /
-                 HMMA ... TF32), and TF32 stays off in torch
+                 HMMA ... TF32), every decode_attn_kernel asynchronous
+                 copies (LDGSTS, or TMA's UBLKCP / UTMALDG), and no
+                 decode_attn_combine is left; TF32 stays off in torch
   3. kernels  -- each CUDA kernel against its plain PyTorch version on the
                  card: the shape grid of tests/test_kernels.py in f32 and
                  bf16 (attention 2e-5 / 2e-2, the two scans 5x that), a
@@ -23,9 +25,14 @@ Phases (any failure raises and exits non-zero):
                  the tensor-core tiling (flash: S = 1, 63, 65, 513, windows
                  of 1 and longer than S, 1/2/4/8 query heads per kv head at
                  every head_dim; ssd: S = 1, 40, 2048 and every (hd, N);
-                 rwkv6: S = 1, 31, 33 at hd 32 and 64, S = 33 from a state),
-                 and each kernel at its served model's own shapes; inputs no
-                 kernel is built for raise
+                 rwkv6: S = 1, 31, 33 at hd 32 and 64, S = 33 from a state;
+                 decode: S = 1, 63, 65, 1, 4 and 16 query heads per kv
+                 head at every head_dim, windows of 1 and 20, and at the
+                 served shape valid
+                 slots only in the cluster's last block and a row with no
+                 valid slot, f32 and bf16), and each kernel at its served
+                 model's own shapes; decode's cluster size at both served
+                 shapes fills the card; inputs no kernel is built for raise
   4. slices   -- for each served model (qwen3-4b, rwkv6-1.6b, zamba2-2.7b)
                  at full width (full depth but for qwen3-4b: see MODELS;
                  f32, random weights from a torch.Generator on the card):
@@ -50,7 +57,7 @@ Phases (any failure raises and exits non-zero):
                  the served shapes, beside the least time the card could
                  take (bound_ms at the 3xTF32 rate, bound_f32_cores_ms at
                  the CUDA cores' float32 rate); attention also at zamba2's
-                 head_dim 80
+                 head_dim 80; one decode call launches exactly one kernel
 Prints one {"kernels": [...]} line, one {"slice": {...}} line per model,
 and last {"ok": true, "device": {...}}.
 """
@@ -70,7 +77,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+PORT_TREE = Path(__file__).resolve().parent / "src" / "repro_torch"
+sys.path.insert(0, str(PORT_TREE.parent))
 
 # H100 SXM peaks (NVIDIA data sheet): float32 FMA on the CUDA cores, TF32
 # on the tensor cores, HBM3 rate.  The fastest float32-accurate route is
@@ -132,7 +140,7 @@ def device_kernels_us(prof):
     return out
 
 
-def device_ms(fn, n_inputs, iters=20, attempts=6, warmup=3):
+def device_ms(fn, n_inputs, iters=20, attempts=6, warmup=3, per_call=None):
     """Mean device time per call of fn(i), cycling over n_inputs input sets:
     the summed durations of the kernels it launched, read with
     torch.profiler, so host time between small launches does not count.
@@ -141,7 +149,8 @@ def device_ms(fn, n_inputs, iters=20, attempts=6, warmup=3):
     card busy for about 10 ms and makes one call, and times only the
     kernels that start inside the "timed" range after them.  Every call
     launches the same kernels: a run whose count of some kernel is no
-    multiple of iters lost records there too and is measured again."""
+    multiple of iters lost records there too and is measured again.
+    per_call, a dict, receives {kernel name: launches per call}."""
     for i in range(warmup):
         fn(i % n_inputs)
     torch.cuda.synchronize()
@@ -165,6 +174,8 @@ def device_ms(fn, n_inputs, iters=20, attempts=6, warmup=3):
             counts[e.name] = counts.get(e.name, 0) + 1
         lost = [(name[:60], n) for name, n in counts.items() if n % iters]
         if timed and not lost:
+            if per_call is not None:
+                per_call.update({name: n // iters for name, n in counts.items()})
             return sum(e.time_range.elapsed_us() for e in timed) / iters / 1e3
         log(f"timing: torch.profiler kept {lost or 'no kernel'} for {iters} calls; "
             "measuring again")
@@ -230,10 +241,17 @@ def check_flash(dev, rng):
     return err
 
 
-# the kernels redesigned for the tensor cores, and their instantiations
-# (dtype x head_dim, dtype x head_dim x state size in the C dispatch)
-TENSOR_CORE_KERNELS = {"flash_attn_kernel": 2 * 4, "ssd_scan_kernel": 2 * 2 * 3,
-                       "rwkv6_scan_kernel": 2 * 2}
+# what the SASS of every instantiation of a redesigned kernel must hold
+# (instantiations: dtype x head_dim, dtype x head_dim x state size in the
+# C dispatch): tensor-core products, or asynchronous global -> shared
+# copies (LDGSTS is cp.async; UBLKCP / UTMALDG are TMA bulk copies)
+TENSOR_CORE = (r"\bHMMA\.\S*TF32|\bHGMMA\.", "tensor-core products (HMMA ... TF32 / HGMMA)")
+ASYNC_COPY = (r"\bLDGSTS\b|\bUBLKCP\b|\bUTMALDG\b", "asynchronous copies (LDGSTS / UBLKCP / UTMALDG)")
+SASS_CHECKS = {"flash_attn_kernel": (2 * 4, *TENSOR_CORE),
+               "ssd_scan_kernel": (2 * 2 * 3, *TENSOR_CORE),
+               "rwkv6_scan_kernel": (2 * 2, *TENSOR_CORE),
+               "decode_attn_kernel": (2 * 4 * 3, *ASYNC_COPY)}   # x G = 1, <= 4, <= 16
+GONE_KERNELS = ("decode_attn_combine",)   # decode attention is one launch
 
 
 def find_cuobjdump():
@@ -250,24 +268,27 @@ def find_cuobjdump():
     raise RuntimeError(f"cuobjdump not found in {candidates}")
 
 
-def check_tensor_cores(lib_path):
-    """Disassemble the built library (cuobjdump -sass) and require
-    tensor-core products (HMMA ... TF32, or HGMMA) in every instantiation
-    of the redesigned kernels; returns {kernel: [tensor-core instructions
-    per instantiation]}."""
+def check_sass(lib_path):
+    """Disassemble the built library (cuobjdump -sass) and require, in every
+    instantiation of each kernel of SASS_CHECKS, the instructions it names;
+    no kernel of GONE_KERNELS may be left.  Returns {kernel: [matching
+    instructions per instantiation]}."""
     sass = subprocess.run([find_cuobjdump(), "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    found = {k: [] for k in TENSOR_CORE_KERNELS}
+    found = {k: [] for k in SASS_CHECKS}
     for chunk in sass.split("Function : ")[1:]:
         name, body = chunk.split("\n", 1)
-        kernel = next((k for k in TENSOR_CORE_KERNELS if k in name), None)
+        gone = next((k for k in GONE_KERNELS if k in name), None)
+        if gone:
+            raise AssertionError(f"{name.strip()}: {gone} is still in the library")
+        kernel = next((k for k in SASS_CHECKS if k in name), None)
         if kernel is None:
             continue
-        n_tc = len(re.findall(r"\bHMMA\.\S*TF32|\bHGMMA\.", body))
-        if n_tc == 0:
-            raise AssertionError(f"{name.strip()}: no tensor-core instruction in its SASS")
-        found[kernel].append(n_tc)
-    for kernel, n in TENSOR_CORE_KERNELS.items():
+        n = len(re.findall(SASS_CHECKS[kernel][1], body))
+        if n == 0:
+            raise AssertionError(f"{name.strip()}: no {SASS_CHECKS[kernel][2]} in its SASS")
+        found[kernel].append(n)
+    for kernel, (n, _, _) in SASS_CHECKS.items():
         if len(found[kernel]) != n:
             raise AssertionError(f"{kernel}: {len(found[kernel])} instantiations in the SASS, "
                                  f"want {n}")
@@ -288,66 +309,123 @@ def expect_refusal(name, fn):
 
 
 def check_decode(dev, rng):
-    from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
+    dts = (torch.float32, torch.bfloat16)
     n = 0
-    # test_kernels.py's grid, a ragged S, one chunk (S=48) and chunks of two tiles (S=2000)
+    # test_kernels.py's grid, a ragged S, one chunk (S=48) and chunks of several tiles (S=2000)
     for S, H, KV, hd in [(512, 4, 2, 64), (1024, 8, 8, 64), (256, 4, 1, 128), (300, 16, 2, 32),
                          (48, 4, 2, 64), (2000, 8, 8, 64), (524, 32, 32, 80)]:
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dts:
             for window in (None, 128):
-                B = 2
-                q = rand(rng, (B, 1, H, hd), dt, dev)
-                k, v = rand(rng, (B, S, KV, hd), dt, dev), rand(rng, (B, S, KV, hd), dt, dev)
-                qpos = torch.tensor([S // 2, S - 1], dtype=torch.int32, device=dev)
-                kvpos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
-                out = decode_attention(q, k, v, qpos, kvpos, window=window)
-                want = ref.decode_attention_ref(q, k, v, qpos, kvpos, window=window)
-                check_close(f"decode {S, H, KV, hd, dt, window}", out, want, TOL[dt])
+                decode_case(dev, rng, 2, S, H, KV, hd, dt, window)
                 n += 1
+    # the edges of the tiling (32 slots): S = 1, a tile - 1 and + 1; every
+    # instantiation (1, 4 and 16 query heads per kv head at every
+    # head_dim); a window of 1 and one shorter than a tile
+    for dt in dts:
+        for S in (1, 63, 65):
+            decode_case(dev, rng, 2, S, 8, 2, 128, dt, None)
+        for hd in (32, 64, 80, 128):
+            for G in (1, 4, 16):
+                decode_case(dev, rng, 2, 300, 16, 16 // G, hd, dt, None)
+        for window in (1, 20):
+            decode_case(dev, rng, 2, 200, 8, 2, 64, dt, window)
+        n += 17
     # rolling slots: -1 never written; row 1 has no valid slot -> mean(V)
     B, S, H, KV, hd = 2, 128, 2, 2, 64
-    q = rand(rng, (B, 1, H, hd), torch.float32, dev)
-    k, v = rand(rng, (B, S, KV, hd), torch.float32, dev), rand(rng, (B, S, KV, hd), torch.float32, dev)
     ar = torch.arange(S, dtype=torch.int32, device=dev)
     kvpos = torch.stack([torch.where(ar < 100, ar, -1), torch.full_like(ar, -1)])
     qpos = torch.tensor([99, 99], dtype=torch.int32, device=dev)
-    out = decode_attention(q, k, v, qpos, kvpos)
-    check_close("decode rolling", out, ref.decode_attention_ref(q, k, v, qpos, kvpos), 2e-5)
-    check_close("decode no valid slot = mean(V)", out[1, 0],
-                v[1].mean(0).repeat_interleave(H // KV, dim=0), 2e-5)
+    decode_case(dev, rng, B, S, H, KV, hd, torch.float32, None, qpos, kvpos, no_valid_row=1)
     q, kv = torch.zeros((1, 1, 32, 64), device=dev), torch.zeros((1, 64, 1, 64), device=dev)
     pos = torch.zeros((1, 64), dtype=torch.int32, device=dev)
     expect_refusal("decode_attention 32 query heads per kv head",
                    lambda: decode_attention(q, kv, kv, pos[:, 0], pos))
-    # the slice's decode shape: the engine's heads-major cache, read as a view
+    # the slice's decode shape, the engine's heads-major cache read as a
+    # view: only the cluster's last block holds valid slots; a row with no
+    # valid slot (mean(V)); in f32 and bf16
+    for dt in dts:
+        decode_last_block_case(dev, rng, dt)
+        decode_slice_case(dev, rng, dt, no_valid_row=True)
+        n += 2
     err = decode_slice_case(dev, rng)
     log(f"kernels: decode_attention matches its plain version on {n + 3} cases; "
         f"slice-shape max_abs_err {err:.3g}")
+    # one launch of clusters; at the served shapes more blocks than SMs
+    from repro_torch.kernels.decode_attention import cluster_room, decode_cluster
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kv_heads = {"qwen3-4b": 8, "zamba2-2.7b": 32}
+    split = {arch: decode_cluster(BATCH, kv, PROMPT + DECODE + 8, dev)
+             for arch, kv in kv_heads.items()}
+    assert all(BATCH * kv_heads[arch] * c >= sms for arch, c in split.items()), (split, sms)
+    log(f"kernels: decode clusters per (batch, kv head) {split}; room for clusters of "
+        f"1..8 at one block per SM {cluster_room(dev.index or 0)}")
     return err
 
 
-def decode_inputs(dev, rng, n_copies=1, H=32, KV=8, hd=128):
+def decode_case(dev, rng, B, S, H, KV, hd, dt, window, qpos=None, kvpos=None, kv=None,
+                q=None, no_valid_row=None, name=""):
+    """decode_attention against its plain version; by default positions
+    0..S-1 and query positions S // 2 and S - 1.  no_valid_row: a row of
+    the batch with no valid slot, which must return mean(V)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    q = rand(rng, (B, 1, H, hd), dt, dev) if q is None else q
+    k, v = kv if kv is not None else (rand(rng, (B, S, KV, hd), dt, dev),
+                                      rand(rng, (B, S, KV, hd), dt, dev))
+    if qpos is None:
+        qpos = torch.tensor([S // 2, S - 1] * (B // 2), dtype=torch.int32, device=dev)
+    if kvpos is None:
+        kvpos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+    case = f"decode {name}{B, S, H, KV, hd, dt, window}"
+    out = decode_attention(q, k, v, qpos, kvpos, window=window)
+    err = check_close(case, out, ref.decode_attention_ref(q, k, v, qpos, kvpos, window=window),
+                      TOL[dt])
+    if no_valid_row is not None:
+        mean_v = v[no_valid_row].float().mean(0).repeat_interleave(H // KV, dim=0)
+        check_close(f"{case}: no valid slot = mean(V)", out[no_valid_row, 0], mean_v, TOL[dt])
+    return err
+
+
+def decode_inputs(dev, rng, n_copies=1, H=32, KV=8, hd=128, dt=torch.float32):
     """A served model's decode call, first step after a 512-token prompt:
     q (4, 1, H, hd) and heads-major caches (4, KV, 524, hd) passed as
     (B, S, KV, hd) views; qwen3-4b's heads by default."""
     B, S_buf = BATCH, PROMPT + DECODE + 8
-    q = rand(rng, (B, 1, H, hd), torch.float32, dev)
-    caches = [(rand(rng, (B, KV, S_buf, hd), torch.float32, dev),
-               rand(rng, (B, KV, S_buf, hd), torch.float32, dev)) for _ in range(n_copies)]
+    q = rand(rng, (B, 1, H, hd), dt, dev)
+    caches = [(rand(rng, (B, KV, S_buf, hd), dt, dev),
+               rand(rng, (B, KV, S_buf, hd), dt, dev)) for _ in range(n_copies)]
     slots = torch.arange(S_buf, dtype=torch.int32, device=dev)[None].expand(B, S_buf)
     kvpos = torch.where(slots < PROMPT + 1, slots, -1)
     qpos = torch.full((B,), PROMPT, dtype=torch.int32, device=dev)
     return q, caches, qpos, kvpos
 
 
-def decode_slice_case(dev, rng):
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
-    q, [(kc, vc)], qpos, kvpos = decode_inputs(dev, rng)
-    out = decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), qpos, kvpos)
-    want = ref.decode_attention_ref(q, kc.transpose(1, 2), vc.transpose(1, 2), qpos, kvpos)
-    return check_close("decode slice shape", out, want, TOL[torch.float32])
+def decode_slice_case(dev, rng, dt=torch.float32, no_valid_row=False):
+    """The slice's decode call; no_valid_row: batch row 1 has no valid slot."""
+    q, [(kc, vc)], qpos, kvpos = decode_inputs(dev, rng, dt=dt)
+    B, H, KV, hd = q.shape[0], q.shape[2], kc.shape[1], q.shape[3]
+    if no_valid_row:
+        kvpos = kvpos.clone()
+        kvpos[1] = -1
+    return decode_case(dev, rng, B, kc.shape[2], H, KV, hd, dt, None, qpos, kvpos,
+                       (kc.transpose(1, 2), vc.transpose(1, 2)), q,
+                       1 if no_valid_row else None, "slice shape ")
+
+
+def decode_last_block_case(dev, rng, dt):
+    """The slice's decode call where only the slots of the cluster's last
+    block are valid (the others never written): every other chunk of the
+    split is fully masked and must weigh nothing."""
+    from repro_torch.kernels.decode_attention import block_slots, decode_cluster
+    q, [(kc, vc)], qpos, kvpos = decode_inputs(dev, rng, dt=dt)
+    B, H, KV, hd, S = q.shape[0], q.shape[2], kc.shape[1], q.shape[3], kc.shape[2]
+    cluster = decode_cluster(B, KV, S, q.device)
+    lo, _ = block_slots(S, cluster, cluster - 1)
+    assert cluster > 1 and lo > 0, (cluster, lo)
+    kvpos = torch.where(torch.arange(S, device=dev)[None] >= lo, kvpos, -1)
+    decode_case(dev, rng, B, S, H, KV, hd, dt, None, qpos, kvpos,
+                (kc.transpose(1, 2), vc.transpose(1, 2)), q, name="last block only ")
 
 
 def rwkv_inputs(rng, B, S, H, hd, dt, dev):
@@ -764,7 +842,11 @@ def time_decode(dev, rng, err, H=32, KV=8, hd=128):
     qh = q.transpose(1, 2)                        # (B, H, 1, hd)
     expanded = [tuple(c.repeat_interleave(H // KV, dim=1) for c in kv) for kv in caches]
     with torch.inference_mode():
-        ms = device_ms(lambda i: decode_attention(q, *views[i], qpos, kvpos), n_copies, 40)
+        per_call = {}
+        ms = device_ms(lambda i: decode_attention(q, *views[i], qpos, kvpos), n_copies, 40,
+                       per_call=per_call)
+        assert list(per_call.values()) == [1] and "decode_attn_kernel" in next(iter(per_call)), \
+            f"decode_attention: one kernel launch per call, got {per_call}"
         plain_ms = device_ms(lambda i: ref.decode_attention_ref(q, *views[i], qpos, kvpos),
                            n_copies, 16)
         lib = library_times(
@@ -862,6 +944,11 @@ def log_timing(k, what=None):
 
 
 def main():
+    if not PORT_TREE.is_dir():
+        print(f"chip_smoke: {PORT_TREE} is missing: this script drives the port "
+              "in src/repro_torch and runs from a checkout of the repository",
+              file=sys.stderr)
+        return 1
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a GPU",
               file=sys.stderr)
@@ -888,14 +975,14 @@ def main():
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must stay off in torch"
     # the disassembly runs on the host while phase 3 runs on the card
     with ThreadPoolExecutor(1) as pool:
-        sass = pool.submit(check_tensor_cores, _build.library_path())
+        sass = pool.submit(check_sass, _build.library_path())
         rng = np.random.default_rng(0)
         errs = {"flash_attention": check_flash(dev, rng),
                 "decode_attention": check_decode(dev, rng),
                 "rwkv6_scan": check_rwkv(dev, rng), "ssd_scan": check_ssd(dev, rng)}
         for kernel, counts in sass.result().items():
-            log(f"sass: every {kernel} instantiation runs on the tensor cores "
-                f"(HMMA ... TF32 / HGMMA instructions: {counts})")
+            log(f"sass: every {kernel} instantiation holds {SASS_CHECKS[kernel][2]}: "
+                f"{counts}")
     # phase 5 before phase 4: the larger the profiler runs before a timing,
     # the more kernel records it drops (see device_ms)
     kernels = []

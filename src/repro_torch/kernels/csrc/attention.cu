@@ -42,25 +42,43 @@
 //   src/repro/kernels/decode_attention.py::decode_attention (_decode_kernel).
 //   Bound on this card: bytes.  One query token reads the whole K/V cache
 //   (2 * B * KV * S * hd * 4 bytes; 17 MB per layer for qwen3-4b at B=4,
-//   S=524) and does 4 * H * S * hd operations on it, float32 FMA on the
-//   CUDA cores.
-//   Design (flash-decoding): B * KV blocks alone (32 for the slice) leave
-//   most of the 132 SMs idle, so each (batch, kv head)'s cache is cut into
-//   chunks of whole 64-slot tiles and one block runs per (kv head, batch,
-//   chunk).  A block streams each K/V tile of its chunk once into shared
-//   memory for the G = H / KV query heads that share it (the TPU grid
-//   re-read it for every q head), keeps an online softmax per head, and
-//   writes its unnormalised sum beside its running max and sum;
-//   decode_attn_combine rescales the chunks to their common max and
-//   divides.  K/V are read through element strides, so the engine passes
-//   its heads-major cache (B, KV, S, hd) as a (B, S, KV, hd) view without
+//   S=524: 5.2 us at 3.35 TB/s) and does 4 * H * S * hd operations on it,
+//   about G / 2 per byte against the CUDA cores' ridge of 20, so no product
+//   goes to the tensor cores.  What costs time is keeping the memory busy
+//   from 32 (batch, kv head) pairs, and every instruction between a tile's
+//   arrival and the next request.
+//   Design (one launch, split-KV): the slots of each (batch, kv head) are
+//   cut into C <= 8 equal chunks, one block each, and the C blocks run as
+//   one thread-block cluster; C is picked on the host from the cluster room
+//   the card reports (decode_attention.py::decode_split).  Inside a block
+//   each warp works alone on 4 rows of every 32-slot step: it issues its
+//   rows' K, V and positions by cp.async into its part of a ring of 2 to 4
+//   stages (in the cache's type, converted at use), K and V as separate
+//   groups so V's wait comes after the scores, and refills a stage as soon
+//   as it has read it; no barrier of the block runs inside the kv loop.
+//   Scores: the warp's lanes share each row (lane l holds 4 elements of the
+//   row and of q), and a reduce-scatter of shuffles leaves each (row, head)
+//   dot product in its own lanes; the G = H / KV query heads of a kv head
+//   share each staged row (the TPU grid re-read it for every q head).  Each
+//   warp keeps its own online softmax over its rows, starting from the
+//   finite NEG_INF, and its own output sums in registers (P V: a lane per
+//   4 output columns, each V row read once).  After the loop the block
+//   combines its warps, and every block stores its (max, sum, sums) slice
+//   by slice into the shared memory of the block of the cluster that owns
+//   the slice (distributed shared memory); after one cluster.sync() each
+//   block combines and writes its 1 / C of the outputs from its own shared
+//   memory.  K/V are read through element strides, so the engine passes its
+//   heads-major cache (B, KV, S, hd) as a (B, S, KV, hd) view without
 //   copying it.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -319,9 +337,14 @@ cudaError_t dispatch_flash(const FlashArgs& a, int hd, cudaStream_t stream) {
 // Decode: one query token per sequence against the KV cache
 // ---------------------------------------------------------------------------
 
-constexpr int DA_BK = 64;
+constexpr int DA_TILE = 32;         // cache slots a block takes per step
+constexpr int DA_ROWS = 4;          // of which each warp takes its own 4
 constexpr int DA_THREADS = 256;
-constexpr int DA_MAXG = 16;  // query heads per kv head
+constexpr int DA_WARPS = DA_THREADS / 32;
+constexpr int DA_MAXG = 16;         // query heads per kv head
+constexpr int DA_MAX_CLUSTER = 8;   // blocks per (batch, kv head): the portable cluster size
+constexpr int DA_RING_BYTES = 66 * 1024;  // the K/V ring's budget: three blocks an SM
+static_assert(DA_ROWS * DA_WARPS == DA_TILE, "a step gives every warp its rows");
 
 struct DecodeArgs {
   const void* q;
@@ -330,185 +353,393 @@ struct DecodeArgs {
   const int* q_pos;   // (B,)
   const int* kv_pos;  // (B, S), row stride kvp_sb
   void* o;            // (B, 1, H, hd), contiguous
-  float* part_o;      // (B, KV, n_split, G, hd): each chunk's unnormalised sum
-  float* part_ml;     // (B, KV, n_split, G, 2): each chunk's running max and sum
   int B, S, H, KV;
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, kvp_sb;  // elements
   int window;  // <= 0: no window
   float sm_scale;
-  int chunk;    // cache slots per chunk, a multiple of DA_BK
-  int n_split;  // chunks per (batch, kv head) = gridDim.z
 };
 
-__host__ __device__ constexpr size_t decode_smem_bytes(int hd, int g) {
-  return sizeof(float) * (size_t)(g * hd + DA_BK * (hd + 1) + DA_BK * hd + g * DA_BK + 3 * g) +
-         sizeof(int) * DA_BK;
+// Stages of the K/V ring: every warp's K and V rows of one step, in the
+// cache's type, as many as fit in DA_RING_BYTES (2 to 4).
+template <typename T, int HD>
+struct DecodeRing {
+  static constexpr int STEP = DA_WARPS * DA_ROWS * HD * (int)sizeof(T) * 2;
+  static constexpr int FIT = DA_RING_BYTES / STEP;
+  static constexpr int NST = FIT < 2 ? 2 : FIT > 4 ? 4 : FIT;
+};
+
+template <typename T, int HD>
+__host__ __device__ constexpr size_t decode_ring_bytes(int g) {
+  // after the kv loop the ring holds the warps' partial sums
+  return (size_t)DecodeRing<T, HD>::NST * DecodeRing<T, HD>::STEP >
+                 (size_t)DA_WARPS * g * HD * sizeof(float)
+             ? (size_t)DecodeRing<T, HD>::NST * DecodeRing<T, HD>::STEP
+             : (size_t)DA_WARPS * g * HD * sizeof(float);
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(DA_THREADS) decode_attn_kernel(DecodeArgs a) {
-  constexpr int KS = HD + 1;  // padded K row: lanes on consecutive keys hit distinct banks
-  constexpr int MAXE = (DA_MAXG * HD + DA_THREADS - 1) / DA_THREADS;
-  constexpr int NWARPS = DA_THREADS / 32;
-  static_assert(DA_BK == 64, "the softmax step gives each lane two keys");
+__host__ __device__ constexpr size_t decode_smem_bytes(int g) {
+  return decode_ring_bytes<T, HD>(g) + sizeof(float4) * (size_t)(g * HD / 4 + DA_MAX_CLUSTER) +
+         sizeof(float2) * (size_t)DA_MAX_CLUSTER * g + sizeof(T) * (size_t)g * HD +
+         sizeof(int) * (size_t)DecodeRing<T, HD>::NST * DA_TILE +
+         sizeof(float) * (size_t)DA_WARPS * g * (DA_ROWS + 3);
+}
 
-  const int G = a.H / a.KV;
+// One block per (kv head, batch, chunk); the chunks of one (batch, kv head)
+// are the blocks of one thread-block cluster (along z).  Block z takes the
+// slots [z S / C, (z + 1) S / C) of the cache (C = gridDim.z <= S: none is
+// empty) in steps of DA_TILE, and warp w the rows [4 w, 4 w + 4) of each
+// step.  GMAX (1, 4 or 16) bounds G = H / KV: the registers of the output
+// sums scale with it.  GMAX <= 4 keeps three blocks an SM, but for hd 80
+// at GMAX = 4, whose 80 registers would spill.
+template <typename T, int HD, int GMAX>
+__global__ void __launch_bounds__(DA_THREADS, GMAX == 16 ? 1 : GMAX == 4 && HD == 80 ? 2 : 3)
+    decode_attn_kernel(DecodeArgs a) {
+  constexpr int NST = DecodeRing<T, HD>::NST, C4 = HD / 4;
+  // Scores: the warp's lanes share each of its rows (RPI rows side by side
+  // where C4 divides 32), lane l holding chunk l % C4 of the row and of q,
+  // and take GH heads a pass; a reduce-scatter of shuffles then leaves
+  // every (row, head) dot product in DUP neighbouring lanes, the rows of a
+  // head in lane bits 3 and 4.
+  constexpr int GH = GMAX == 1 ? 1 : 4, NGM = GMAX / GH;
+  constexpr int RPI = 32 % C4 == 0 ? 32 / C4 : 1, LPR = 32 / RPI, RPL = DA_ROWS / RPI;
+  constexpr int NPART = RPL * GH, DUP = 8 / GH;
+  static_assert(LPR == NPART * DUP, "a reduce-scatter over the lanes of a row");
+  // P V: lane l sums chunk c = l % C4 of heads m HPW + l / C4 (m < MAXO);
+  // HPW heads of C4 chunks side by side fill the warp where C4 divides 32
+  constexpr int HPW = RPI, MAXO = (GMAX + HPW - 1) / HPW;
+  constexpr int CPL = (DA_ROWS * C4 + 31) / 32;  // chunks of 4 a lane copies per K or V step
+  constexpr int SROWS = 2 * DA_ROWS * HD;        // a warp's K and V rows of one stage
+  static_assert(DA_ROWS == 4, "the rows of a head in lane bits 3 and 4");
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = a.H / a.KV, ng = (G + GH - 1) / GH;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [G][HD], pre-scaled
-  float* Ks = Qs + G * HD;                       // [BK][KS]
-  float* Vs = Ks + DA_BK * KS;                   // [BK][HD]
-  float* Ss = Vs + DA_BK * HD;                   // [G][BK] scores, then weights
-  float* m_s = Ss + G * DA_BK;                   // [G] running max
-  float* l_s = m_s + G;                          // [G] running sum
-  float* al_s = l_s + G;                         // [G] rescale of this tile
-  int* kp_s = reinterpret_cast<int*>(al_s + G);  // [BK] slot positions
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+  T* ring = reinterpret_cast<T*>(base);            // [NST][WARPS][K rows, V rows]
+  float4* red4 = reinterpret_cast<float4*>(base);  // [WARPS][G][HD / 4] after the kv loop
+  float4* recv4 = reinterpret_cast<float4*>(base + decode_ring_bytes<T, HD>(G));
+  //                       [C][per] the cluster's partial sums of this block's output chunks
+  float2* recv_ml = reinterpret_cast<float2*>(recv4 + G * HD / 4 + DA_MAX_CLUSTER);
+  //                       [C][G] the cluster's (max, sum) per head
+  T* Qs = reinterpret_cast<T*>(recv_ml + DA_MAX_CLUSTER * G);        // [G][HD]
+  int* kp_s = reinterpret_cast<int*>(Qs + G * HD);                   // [NST][WARPS][ROWS]
+  float* p_s = reinterpret_cast<float*>(kp_s + NST * DA_TILE);       // [WARPS][G][ROWS] weights
+  float* al_s = p_s + DA_WARPS * G * DA_ROWS;                        // [WARPS][G] rescales
+  float* mw_s = al_s + DA_WARPS * G;                                 // [WARPS][G] warp maxima
+  float* lw_s = mw_s + DA_WARPS * G;                                 // [WARPS][G] warp sums
 
-  const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int kvh = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int qpos = a.q_pos[b];
-  const int s_lo = split * a.chunk, s_hi = min(a.S, s_lo + a.chunk);
+  const int lo = (int)((long long)blockIdx.z * a.S / gridDim.z);
+  const int hi = (int)((long long)(blockIdx.z + 1) * a.S / gridDim.z);
+  const int steps = (hi - lo + DA_TILE - 1) / DA_TILE;
 
   const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + (long long)kvh * G * a.q_sh;
   const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
   const int* kvpos = a.kv_pos + b * a.kvp_sb;
 
-  for (int i = tid; i < G * HD; i += DA_THREADS) {
-    const int g = i / HD, d = i % HD;
-    Qs[i] = to_f32(qp[g * a.q_sh + d]) * a.sm_scale;
-  }
-  for (int g = tid; g < G; g += DA_THREADS) {
-    m_s[g] = NEG_INF;
-    l_s[g] = 0.f;
-  }
-  float acc[MAXE];
+  // This lane's chunks of a step's K and V rows: row, offset in the stage,
+  // and offsets in the cache, fixed for the whole loop.
+  int crow[CPL], csm[CPL];
+  long long ckg[CPL], cvg[CPL];
 #pragma unroll
-  for (int e = 0; e < MAXE; ++e) acc[e] = 0.f;
+  for (int i = 0; i < CPL; ++i) {
+    const int idx = min(lane + 32 * i, DA_ROWS * C4 - 1), c = 4 * (idx % C4);
+    crow[i] = lane + 32 * i < DA_ROWS * C4 ? idx / C4 : DA_ROWS;  // DA_ROWS: no chunk
+    csm[i] = (idx / C4) * HD + c;
+    ckg[i] = (idx / C4) * a.k_ss + c;
+    cvg[i] = (idx / C4) * a.v_ss + c;
+  }
 
-  for (int k0 = s_lo; k0 < s_hi; k0 += DA_BK) {
-    __syncthreads();  // Q staged / previous tile consumed
-    stage_rows<DA_BK, HD, KS, DA_THREADS>(Ks, kp, a.k_ss, k0, s_hi, 1.f);
-    stage_rows<DA_BK, HD, HD, DA_THREADS>(Vs, vp, a.v_ss, k0, s_hi, 1.f);
-    for (int r = tid; r < DA_BK; r += DA_THREADS)
-      kp_s[r] = k0 + r < s_hi ? kvpos[k0 + r] : -1;
-    __syncthreads();
-
-    for (int i = tid; i < G * DA_BK; i += DA_THREADS) {
-      const int g = i / DA_BK, j = i % DA_BK;
-      float s;
-      if (k0 + j >= s_hi) {
-        s = -INFINITY;
-      } else {
-        const float* qrow = &Qs[g * HD];
-        const float* krow = &Ks[j * KS];
-        float dot = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) dot = fmaf(qrow[d], krow[d], dot);
-        const int pos = kp_s[j];
-        const bool valid = pos >= 0 && pos <= qpos && (a.window <= 0 || pos > qpos - a.window);
-        s = valid ? dot : NEG_INF;
+  // The next step of this warp into the next stage of the ring: its K rows
+  // and their positions as one group, its V rows as the next, so V's wait
+  // can come after the scores.  Both groups are committed even past the
+  // last step (empty), which keeps the waits' counts fixed.  Rows past the
+  // block's slots are zero-filled.
+  int next = 0, st_in = 0;
+  auto issue = [&]() {
+    const int r0 = lo + next * DA_TILE + warp * DA_ROWS;
+    T* Kst = ring + (st_in * DA_WARPS + warp) * SROWS;
+    const bool live = next < steps;
+    if (live) {
+      const T* kr = kp + (long long)r0 * a.k_ss;
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const bool valid = r0 + crow[i] < hi;
+        if (crow[i] < DA_ROWS) cp_async4(Kst + csm[i], valid ? kr + ckg[i] : kp, valid);
       }
-      Ss[i] = s;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += NWARPS) {
-      const float s0 = Ss[g * DA_BK + lane], s1 = Ss[g * DA_BK + lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float alpha = expf(m_old - m_new);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      Ss[g * DA_BK + lane] = p0;
-      Ss[g * DA_BK + lane + 32] = p1;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        m_s[g] = m_new;
-        l_s[g] = alpha * l_s[g] + sum;
-        al_s[g] = alpha;
+      if (lane < DA_ROWS) {
+        const bool valid = r0 + lane < hi;
+        cp_async1(kp_s + (st_in * DA_WARPS + warp) * DA_ROWS + lane, valid ? kvpos + r0 + lane : kvpos,
+                  valid);
       }
     }
-    __syncthreads();
-
+    cp_async_commit();
+    if (live) {
+      const T* vr = vp + (long long)r0 * a.v_ss;
 #pragma unroll
-    for (int e = 0; e < MAXE; ++e) {
-      const int idx = tid + e * DA_THREADS;
-      if (idx < G * HD) {
-        const int g = idx / HD, c = idx % HD;
-        const float* prow = &Ss[g * DA_BK];
-        float x = acc[e] * al_s[g];
-#pragma unroll 8
-        for (int j = 0; j < DA_BK; ++j) x = fmaf(prow[j], Vs[j * HD + c], x);
-        acc[e] = x;
+      for (int i = 0; i < CPL; ++i) {
+        const bool valid = r0 + crow[i] < hi;
+        if (crow[i] < DA_ROWS) cp_async4(Kst + DA_ROWS * HD + csm[i], valid ? vr + cvg[i] : vp, valid);
       }
+    }
+    cp_async_commit();
+    ++next;
+    st_in = st_in + 1 == NST ? 0 : st_in + 1;
+  };
+
+  // the first wave: q, then NST steps of every warp; only q waits for the block
+  for (int i = tid; i < G * C4; i += DA_THREADS) {
+    const int g = i / C4, c = (i % C4) * 4;
+    cp_async4(Qs + g * HD + c, qp + g * a.q_sh + c, true);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int k = 0; k < NST; ++k) issue();
+  const int qpos = a.q_pos[b];
+
+  // This lane's chunk of K and q rows, and the (row, head) whose score it
+  // holds after the reduce-scatter; it keeps that head's running max and
+  // sum over the warp's rows (the warp's own online softmax).
+  const bool kl = lane < RPI * C4;
+  const int ck = 4 * (lane % C4), krow0 = lane / LPR;
+  const int jr = ((lane % LPR) >> 3) * RPI + lane / LPR;  // a bijection on lane bits 3, 4
+  const int gq = (lane >> (DUP == 2 ? 1 : 3)) & (GH - 1);
+  const bool lead = (lane & (DUP - 1)) == 0;  // the first of the DUP lanes of a (row, head)
+  float m_r[NGM], l_r[NGM];
+#pragma unroll
+  for (int n = 0; n < NGM; ++n) {
+    m_r[n] = NEG_INF;  // finite: a fully masked stretch weighs exp(0) = 1 until
+    l_r[n] = 0.f;      // a valid slot's alpha = exp(NEG_INF - m) = 0 wipes it
+  }
+  const int cpv = 4 * (lane % C4), gpv = lane / C4;
+  const bool pv_lane = lane < HPW * C4;
+  float4 acc[MAXO];
+#pragma unroll
+  for (int m = 0; m < MAXO; ++m) acc[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float* ps = p_s + warp * G * DA_ROWS;
+  float* als = al_s + warp * G;
+  cp_async_wait<2 * NST>();  // q
+  __syncthreads();
+
+  int st = 0;
+  for (int k = 0; k < steps; ++k) {
+    const T* Kst = ring + (st * DA_WARPS + warp) * SROWS;
+    const T* Vst = Kst + DA_ROWS * HD;
+    const int r0 = lo + k * DA_TILE + warp * DA_ROWS;
+    cp_async_wait<2 * NST - 1>();  // this step's K rows and positions
+    __syncwarp();
+
+    float4 kk[RPL];
+#pragma unroll
+    for (int rr = 0; rr < RPL; ++rr)
+      kk[rr] = kl ? load4(Kst + (rr * RPI + krow0) * HD + ck) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int pos = kp_s[(st * DA_WARPS + warp) * DA_ROWS + jr];
+    const bool in_block = r0 + jr < hi;
+    const bool valid = pos >= 0 && pos <= qpos && (a.window <= 0 || pos > qpos - a.window);
+#pragma unroll
+    for (int n = 0; n < NGM; ++n) {
+      if (n < ng) {
+        float v[NPART];
+#pragma unroll
+        for (int gg = 0; gg < GH; ++gg) {
+          const float4 qq = kl ? load4(Qs + min(n * GH + gg, G - 1) * HD + ck)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int rr = 0; rr < RPL; ++rr)
+            v[rr * GH + gg] = qq.x * kk[rr].x + qq.y * kk[rr].y + qq.z * kk[rr].z + qq.w * kk[rr].w;
+        }
+        // reduce-scatter: at mask M the lanes with bit M keep the upper half
+#pragma unroll
+        for (int M = LPR / 2, cnt = NPART; M >= 1; M >>= 1) {
+          if (cnt > 1) {
+            const bool up = lane & M;
+#pragma unroll
+            for (int i = 0; i < NPART / 2; ++i) {
+              if (i < cnt / 2) {
+                const float send = up ? v[i] : v[i + cnt / 2];
+                const float keep = up ? v[i + cnt / 2] : v[i];
+                v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+              }
+            }
+            cnt >>= 1;
+          } else {
+            v[0] += __shfl_xor_sync(0xffffffffu, v[0], M);
+          }
+        }
+        const int g = n * GH + gq;
+        const float s = !in_block || g >= G ? -INFINITY : valid ? v[0] * a.sm_scale : NEG_INF;
+        float mx = fmaxf(s, __shfl_xor_sync(0xffffffffu, s, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m_r[n], mx);
+        const float p = exp_fast(s - m_new);
+        float sum = p + __shfl_xor_sync(0xffffffffu, p, 8);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+        const float alpha = exp_fast(m_r[n] - m_new);
+        l_r[n] = fmaf(alpha, l_r[n], sum);
+        m_r[n] = m_new;
+        if (g < G && lead) {
+          ps[g * DA_ROWS + jr] = p;
+          if (jr == 0) als[g] = alpha;
+        }
+      }
+    }
+    cp_async_wait<2 * NST - 2>();  // this step's V rows
+    __syncwarp();
+
+    // P V: each V row chunk is read once and used for the lane's heads
+    if (pv_lane) {
+      float4 vv[DA_ROWS];
+#pragma unroll
+      for (int r = 0; r < DA_ROWS; ++r) vv[r] = load4(Vst + r * HD + cpv);
+#pragma unroll
+      for (int m = 0; m < MAXO; ++m) {
+        const int g = m * HPW + gpv;
+        if (g < G) {
+          const float al = als[g];
+          const float4 p4 = *reinterpret_cast<const float4*>(ps + g * DA_ROWS);
+          float4 x = acc[m];
+          x.x *= al;
+          x.y *= al;
+          x.z *= al;
+          x.w *= al;
+          const float pr[DA_ROWS] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int r = 0; r < DA_ROWS; ++r) {
+            x.x = fmaf(pr[r], vv[r].x, x.x);
+            x.y = fmaf(pr[r], vv[r].y, x.y);
+            x.z = fmaf(pr[r], vv[r].z, x.z);
+            x.w = fmaf(pr[r], vv[r].w, x.w);
+          }
+          acc[m] = x;
+        }
+      }
+    }
+    __syncwarp();  // the stage and the weights are consumed
+    issue();
+    st = st + 1 == NST ? 0 : st + 1;
+  }
+  cp_async_wait<0>();  // only empty groups remain
+  __syncthreads();     // every warp is done with the ring
+
+  // The block's partial, the warps' (max, sum, output sums) combined, goes
+  // straight to the block of the cluster that owns each output chunk
+  // (distributed shared memory stores): block r owns chunks [r per, (r +
+  // 1) per) and receives every block's (max, sum) per head.
+#pragma unroll
+  for (int m = 0; m < MAXO; ++m) {
+    const int g = m * HPW + gpv;
+    if (pv_lane && g < G) red4[(warp * G + g) * C4 + cpv / 4] = acc[m];
+  }
+#pragma unroll
+  for (int n = 0; n < NGM; ++n) {
+    const int g = n * GH + gq;
+    if (n < ng && g < G && lead && jr == 0) {
+      mw_s[warp * G + g] = m_r[n];
+      lw_s[warp * G + g] = l_r[n];
     }
   }
   __syncthreads();
-
-  // this chunk's partial result; a fully masked chunk keeps m = NEG_INF and
-  // so weighs exp(NEG_INF - m) = 0 beside any chunk with a valid slot
-  const long long row = ((long long)b * a.KV + kvh) * a.n_split + split;
-  float* po = a.part_o + row * G * HD;
+  const int C = gridDim.z, rank = blockIdx.z, per = (G * C4 + C - 1) / C;
+  for (int o = tid; o < G * C4; o += DA_THREADS) {
+    const int g = o / C4;
+    float mw[DA_WARPS], mx = NEG_INF;
 #pragma unroll
-  for (int e = 0; e < MAXE; ++e) {
-    const int idx = tid + e * DA_THREADS;
-    if (idx < G * HD) po[idx] = acc[e];
+    for (int w = 0; w < DA_WARPS; ++w) {
+      mw[w] = mw_s[w * G + g];
+      mx = fmaxf(mx, mw[w]);
+    }
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < DA_WARPS; ++w) {
+      const float e = exp_fast(mw[w] - mx);
+      const float4 y = red4[w * G * C4 + o];
+      x.x = fmaf(e, y.x, x.x);
+      x.y = fmaf(e, y.y, x.y);
+      x.z = fmaf(e, y.z, x.z);
+      x.w = fmaf(e, y.w, x.w);
+      l = fmaf(e, lw_s[w * G + g], l);
+    }
+    const int owner = o / per;
+    *cluster.map_shared_rank(recv4 + rank * per + o - owner * per, owner) = x;
+    if (o % C4 == 0) {
+      for (int p = 0; p < C; ++p)
+        *cluster.map_shared_rank(recv_ml + rank * G + g, p) = make_float2(mx, l);
+    }
   }
-  float* pml = a.part_ml + row * G * 2;
-  for (int g = tid; g < G; g += DA_THREADS) {
-    pml[2 * g] = m_s[g];
-    pml[2 * g + 1] = l_s[g];
+  cluster.sync();  // every block's partial has reached its owners
+
+  // The combine of this block's chunks, from its own shared memory: chunk
+  // p weighs exp(m_p - max m); a fully masked chunk keeps m_p = NEG_INF, so
+  // it weighs 0 beside any valid slot and 1 when no chunk has one (mean V).
+  // No block reads another's shared memory from here on.
+  T* op = static_cast<T*>(a.o) + ((long long)b * a.H + (long long)kvh * G) * HD;
+  for (int o = rank * per + tid; o < min(G * C4, (rank + 1) * per); o += DA_THREADS) {
+    const int g = o / C4;
+    float mx = NEG_INF;
+    for (int p = 0; p < C; ++p) mx = fmaxf(mx, recv_ml[p * G + g].x);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    float l = 0.f;
+    for (int p = 0; p < C; ++p) {
+      const float2 ml = recv_ml[p * G + g];
+      const float e = exp_fast(ml.x - mx);
+      const float4 y = recv4[p * per + o - rank * per];
+      x.x = fmaf(e, y.x, x.x);
+      x.y = fmaf(e, y.y, x.y);
+      x.z = fmaf(e, y.z, x.z);
+      x.w = fmaf(e, y.w, x.w);
+      l = fmaf(e, ml.y, l);
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    T* dst = op + 4 * o;
+    dst[0] = from_f32<T>(x.x * inv);
+    dst[1] = from_f32<T>(x.y * inv);
+    dst[2] = from_f32<T>(x.z * inv);
+    dst[3] = from_f32<T>(x.w * inv);
   }
 }
 
-// One block per (q head, batch), one thread per output element: rescale
-// each chunk's sum to the largest chunk max and divide by the summed weight.
-template <typename T>
-__global__ void decode_attn_combine(DecodeArgs a) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x, hd = blockDim.x;
-  const int G = a.H / a.KV, kvh = h / G, g = h % G;
-  const long long row0 = ((long long)b * a.KV + kvh) * a.n_split;
-  float m = NEG_INF;
-  for (int s = 0; s < a.n_split; ++s) m = fmaxf(m, a.part_ml[((row0 + s) * G + g) * 2]);
-  float l = 0.f, acc = 0.f;
-  for (int s = 0; s < a.n_split; ++s) {
-    const float* ml = &a.part_ml[((row0 + s) * G + g) * 2];
-    const float w = expf(ml[0] - m);
-    l = fmaf(w, ml[1], l);
-    acc = fmaf(w, a.part_o[((row0 + s) * G + g) * hd + d], acc);
-  }
-  T* op = static_cast<T*>(a.o) + ((long long)b * a.H + h) * hd;
-  op[d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
-}
-
-template <typename T, int HD>
-cudaError_t launch_decode(const DecodeArgs& a, cudaStream_t stream) {
-  const int G = a.H / a.KV;
-  const size_t smem = decode_smem_bytes(HD, G);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)decode_smem_bytes(HD, DA_MAXG));
+template <typename T, int HD, int GMAX>
+cudaError_t launch_decode_g(const DecodeArgs& a, int cluster, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<T, HD, GMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)decode_smem_bytes<T, HD>(GMAX));
   if (err != cudaSuccess) return err;
-  decode_attn_kernel<T, HD><<<dim3(a.KV, a.B, a.n_split), DA_THREADS, smem, stream>>>(a);
-  err = cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.KV, a.B, cluster);
+  cfg.blockDim = dim3(DA_THREADS);
+  cfg.dynamicSmemBytes = decode_smem_bytes<T, HD>(a.H / a.KV);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, decode_attn_kernel<T, HD, GMAX>, a);
   if (err != cudaSuccess) return err;
-  decode_attn_combine<T><<<dim3(a.H, a.B), HD, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <typename T, int HD>
+cudaError_t launch_decode(const DecodeArgs& a, int cluster, cudaStream_t stream) {
+  const int g = a.H / a.KV;
+  return g == 1   ? launch_decode_g<T, HD, 1>(a, cluster, stream)
+         : g <= 4 ? launch_decode_g<T, HD, 4>(a, cluster, stream)
+                  : launch_decode_g<T, HD, DA_MAXG>(a, cluster, stream);
+}
+
 template <typename T>
-cudaError_t dispatch_decode(const DecodeArgs& a, int hd, cudaStream_t stream) {
+cudaError_t dispatch_decode(const DecodeArgs& a, int hd, int cluster, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_decode<T, 32>(a, stream);
-    case 64: return launch_decode<T, 64>(a, stream);
-    case 80: return launch_decode<T, 80>(a, stream);
-    case 128: return launch_decode<T, 128>(a, stream);
+    case 32: return launch_decode<T, 32>(a, cluster, stream);
+    case 64: return launch_decode<T, 64>(a, cluster, stream);
+    case 80: return launch_decode<T, 80>(a, cluster, stream);
+    case 128: return launch_decode<T, 128>(a, cluster, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -537,25 +768,50 @@ extern "C" int repro_flash_attention(int dtype, int hd, const void* q, const voi
   return cudaErrorInvalidValue;
 }
 
-// work: float32 scratch of B * KV * max_split * (H / KV) * (hd + 2) elements.
-// The cache is cut into at most max_split chunks of whole DA_BK-slot tiles.
+// cluster: blocks per (batch, kv head), 1..DA_MAX_CLUSTER and at most S;
+// they run as one thread-block cluster and combine their chunks in
+// distributed shared memory (one launch).
 extern "C" int repro_decode_attention(int dtype, int hd, const void* q, const void* k,
                                       const void* v, const int* q_pos, const int* kv_pos,
-                                      void* o, float* work, int max_split,
-                                      int B, int S, int H, int KV,
+                                      void* o, int cluster, int B, int S, int H, int KV,
                                       const long long* strides,  // q b,h  k b,s,h  v b,s,h  kv_pos b
                                       int window, float sm_scale, void* stream) {
-  if (S < 1 || max_split < 1 || H % KV != 0 || H / KV > DA_MAXG) return cudaErrorInvalidValue;
-  const int per_split = (S + max_split - 1) / max_split;
-  const int chunk = (per_split + DA_BK - 1) / DA_BK * DA_BK;
-  const int n_split = (S + chunk - 1) / chunk;  // <= max_split, none empty
-  float* part_ml = work + (long long)B * KV * n_split * (H / KV) * hd;
-  DecodeArgs a{q, k, v, q_pos, kv_pos, o, work, part_ml, B, S, H, KV,
+  if (S < 1 || KV < 1 || H % KV != 0 || H / KV > DA_MAXG) return cudaErrorInvalidValue;
+  if (cluster < 1 || cluster > DA_MAX_CLUSTER || cluster > S) return cudaErrorInvalidValue;
+  DecodeArgs a{q, k, v, q_pos, kv_pos, o, B, S, H, KV,
                strides[0], strides[1], strides[2], strides[3], strides[4],
                strides[5], strides[6], strides[7], strides[8],
-               window, sm_scale, chunk, n_split};
+               window, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_decode<float>(a, hd, st);
-  if (dtype == 1) return dispatch_decode<__nv_bfloat16>(a, hd, st);
+  if (dtype == 0) return dispatch_decode<float>(a, hd, cluster, st);
+  if (dtype == 1) return dispatch_decode<__nv_bfloat16>(a, hd, cluster, st);
   return cudaErrorInvalidValue;
+}
+
+// room: clusters of `cluster` blocks the card holds at once when each SM
+// takes at most one block (a footprint of over half an SM's shared memory),
+// which decode_attention.py::decode_split plans the grid by.
+extern "C" int repro_decode_cluster_room(int cluster, int* room) {
+  if (cluster < 1 || cluster > DA_MAX_CLUSTER) return cudaErrorInvalidValue;
+  int dev = 0, smem_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err != cudaSuccess) return err;
+  const int one_per_sm = smem_sm / 2 + 1024;
+  auto kernel = decode_attn_kernel<float, 128, 4>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, one_per_sm);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 1, cluster);
+  cfg.blockDim = dim3(DA_THREADS);
+  cfg.dynamicSmemBytes = one_per_sm;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(room, kernel, &cfg);
 }

@@ -1,5 +1,5 @@
-// Helpers shared by the kernel sources: float32 / bfloat16 conversion, tile
-// staging, asynchronous tile copies and the float32-accurate tensor-core
+// Helpers shared by the kernel sources: float32 / bfloat16 conversion,
+// asynchronous tile copies and the float32-accurate tensor-core
 // products (3xTF32, through mma.sync and wgmma).  Included by attention.cu,
 // scan.cu and peak.cu; each translation unit keeps its own copy (anonymous
 // namespace).
@@ -40,34 +40,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// Stage rows [r0, r0 + ROWS) of a (S, HD) matrix with row stride ld_src
-// (elements) into shared memory as float32 with row stride LD, times scale;
-// rows at or past S become 0.  Each thread issues all its vector loads
-// before its first store, so ROWS * HD / (4 * NT) loads are in flight at
-// once instead of one at a time.
-template <int ROWS, int HD, int LD, int NT, typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, long long ld_src,
-                                           int r0, int S, float scale) {
-  constexpr int VPR = HD / 4;  // vectors per row
-  constexpr int ITERS = ROWS * VPR / NT;
-  static_assert(ROWS * VPR % NT == 0, "tile must split evenly over the threads");
-  float4 buf[ITERS];
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int idx = threadIdx.x + it * NT, r = idx / VPR, c = (idx % VPR) * 4;
-    buf[it] = r0 + r < S ? load4(src + (r0 + r) * ld_src + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int idx = threadIdx.x + it * NT, r = idx / VPR, c = (idx % VPR) * 4;
-    float* d = dst + r * LD + c;
-    d[0] = buf[it].x * scale;
-    d[1] = buf[it].y * scale;
-    d[2] = buf[it].z * scale;
-    d[3] = buf[it].w * scale;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Asynchronous tile copies, global -> shared (cp.async, sm_80 and later)
 // ---------------------------------------------------------------------------
@@ -88,8 +60,11 @@ __device__ __forceinline__ void cp_async4(T* dst, const T* src, bool valid) {
   }
 }
 
-// One 4-byte element (a strided float32 such as dA), zero-filled if !valid.
-__device__ __forceinline__ void cp_async1(float* dst, const float* src, bool valid) {
+// One 4-byte element (a strided float32 such as dA, an int32 position),
+// zero-filled if !valid.
+template <typename U>
+__device__ __forceinline__ void cp_async1(U* dst, const U* src, bool valid) {
+  static_assert(sizeof(U) == 4, "one 4-byte element");
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 4 : 0)

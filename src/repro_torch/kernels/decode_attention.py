@@ -3,19 +3,22 @@
 Replaces the Pallas TPU kernel ``repro.kernels.decode_attention``: one
 query token per sequence against a KV cache, GQA, absolute kv positions
 (-1 = never-written slot) and an optional sliding window.  On a CUDA
-tensor it launches the CUDA kernels in ``csrc/attention.cu`` (one pass
-over the cache cut into chunks, then a pass that combines the chunks);
-on a CPU tensor it runs the plain ``ref.decode_attention_ref``.  There
-is no other path.
+tensor it launches the CUDA kernel in ``csrc/attention.cu`` once: each
+(batch, kv head)'s cache is cut into ``decode_split`` chunks, one block
+each, and the blocks of a (batch, kv head) form one thread-block cluster
+that combines their chunks in distributed shared memory.  On a CPU
+tensor it runs the plain ``ref.decode_attention_ref``.  There is no
+other path.
 
 k and v may be any strided view whose head dimension is contiguous, so
 the engine hands over its heads-major cache ``(B, KV, S, hd)`` as
 ``cache.k.transpose(1, 2)`` without a copy.
 
-``decode_attention.launches`` counts the calls that launched the kernels.
+``decode_attention.launches`` counts the calls that launched the kernel.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Optional
@@ -25,18 +28,54 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import DTYPES
 
-TILE = 64                 # cache slots per kernel tile: no chunk is shorter
+TILE = 32                 # cache slots a block takes per step (DA_TILE in csrc/attention.cu)
+MAX_CLUSTER = 8           # blocks of a thread-block cluster that any sm_90 card schedules
 
 
-def n_split(batch: int, kv_heads: int, slots: int, sms: int) -> int:
-    """Chunks to cut each (batch, kv head)'s cache into: enough blocks for
-    two per SM, and no more chunks than tiles."""
-    return max(1, min(-(-slots // TILE), -(-2 * sms // (batch * kv_heads))))
+def decode_split(batch: int, kv_heads: int, slots: int, room) -> int:
+    """Blocks per (batch, kv head), which run as one cluster.
+
+    ``room[c - 1]`` is how many clusters of c blocks the card holds at once
+    with one block on each SM (``cluster_room``): the SMs of a GPC take
+    whole clusters, so clusters of 4 find room on 120 of an H100's 132
+    SMs, not 128.  The busiest SM then runs ceil(pairs / room[c - 1])
+    blocks of slots / c slots each; the choice minimises that, the larger
+    c on a tie (more SMs busy), with at most ``MAX_CLUSTER`` blocks and at
+    most one per ``TILE`` slots, so that no block is short.  A longer
+    cache runs more steps per block."""
+    pairs, tiles = batch * kv_heads, -(-slots // TILE)
+    best = 1
+    for c in range(2, min(MAX_CLUSTER, tiles) + 1):
+        if room[c - 1] > 0 and (-(-pairs // room[c - 1]) * best
+                                <= -(-pairs // room[best - 1]) * c):
+            best = c
+    return best
+
+
+def block_slots(slots: int, cluster: int, rank: int) -> tuple:
+    """Cache slots [lo, hi) of block ``rank`` of a cluster of ``cluster``,
+    as the kernel cuts them: S / cluster slots each, rounded down at both
+    ends."""
+    return rank * slots // cluster, (rank + 1) * slots // cluster
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def cluster_room(device_index: int) -> tuple:
+    """(room for clusters of 1, 2, ..., MAX_CLUSTER blocks) on a CUDA card,
+    from cudaOccupancyMaxActiveClusters at a footprint of one block per SM."""
+    lib = _build.load()
+    room = ctypes.c_int()
+    out = []
+    with torch.cuda.device(device_index):
+        for c in range(1, MAX_CLUSTER + 1):
+            _build.check(lib.repro_decode_cluster_room(c, ctypes.byref(room)), "decode_attention")
+            out.append(room.value)
+    return tuple(out)
+
+
+def decode_cluster(batch: int, kv_heads: int, slots: int, device: torch.device) -> int:
+    """The cluster size ``decode_attention`` launches with on ``device``."""
+    return decode_split(batch, kv_heads, slots, cluster_room(device.index or 0))
 
 
 def _validate(q, k, v, q_positions, kv_positions, window):
@@ -79,19 +118,19 @@ def decode_attention(q, k, v, q_positions, kv_positions, *,
     q_positions = q_positions.contiguous()
     if kv_positions.stride(1) != 1:
         kv_positions = kv_positions.contiguous()
+    _build.check_vector_aligned("decode_attention", q, (0, 2))
     for t in (k, v):
         _build.check_vector_aligned("decode_attention", t, (0, 1, 2))
     lib = _build.load()
     out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
-    splits = n_split(B, KV, S, _sm_count(q.device))
-    work = torch.empty(B * H * splits * (hd + 2), dtype=torch.float32, device=q.device)
+    cluster = decode_cluster(B, KV, S, q.device)
     strides = _build.strides_arg((q, (0, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
                                  (kv_positions, (0,)))
     with torch.cuda.device(q.device):
         err = lib.repro_decode_attention(
             DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             q_positions.data_ptr(), kv_positions.data_ptr(), out.data_ptr(),
-            work.data_ptr(), splits, B, S, H, KV, strides,
+            cluster, B, S, H, KV, strides,
             0 if window is None else window, 1.0 / math.sqrt(hd),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention")

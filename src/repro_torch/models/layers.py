@@ -69,7 +69,8 @@ def apply_norm(p, x, eps=1e-5):
 def init_mlp(generator, d, ff, device, act_fn: str = "silu"):
     if act_fn != "silu":
         raise NotImplementedError(
-            "the GELU MLP (whisper) arrives with the encoder slice")
+            f"the {act_fn.upper()} MLP with b_up / b_down (minitron-4b, whisper) "
+            "is not ported yet; only SwiGLU runs")
     return {
         "w_gate": _dense_init((d, ff), generator, device),
         "w_up": _dense_init((d, ff), generator, device),
@@ -80,7 +81,8 @@ def init_mlp(generator, d, ff, device, act_fn: str = "silu"):
 def apply_mlp(p, x, act_fn: str = "silu"):
     if act_fn != "silu":
         raise NotImplementedError(
-            "the GELU MLP (whisper) arrives with the encoder slice")
+            f"the {act_fn.upper()} MLP with b_up / b_down (minitron-4b, whisper) "
+            "is not ported yet; only SwiGLU runs")
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
 

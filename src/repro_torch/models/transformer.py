@@ -43,6 +43,10 @@ def check_supported(cfg: ArchConfig):
         raise NotImplementedError(
             f"{cfg.name}: encoders, cross-attention, frontends and M-RoPE "
             "arrive with the encoder/vision slice")
+    if kinds == {"attn"} and cfg.act_fn != "silu":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.act_fn.upper()} MLP with b_up / b_down arrives "
+            "with the dense-family slice (ROADMAP Queue 1, item 9)")
 
 
 def _kind(cfg: ArchConfig) -> str:

@@ -63,12 +63,17 @@ def test_build_targets_hopper():
     assert _build.BUILD_DIR == Path(__file__).resolve().parents[1] / "build" / "kernels"
 
 
+# cudaOccupancyMaxActiveClusters on an H100 SXM (132 SMs) for clusters of
+# 1..8 blocks at one block per SM (decode_attention.cluster_room)
+H100_ROOM = (132, 66, 39, 30, 22, 17, 15, 15)
+
+
 @pytest.mark.parametrize("batch, kv_heads, slots, want", [
-    (4, 8, 524, 9),       # the slice's decode: 9 tiles, 288 blocks on 132 SMs
-    (2, 8, 2000, 17),     # long cache: chunks of two tiles
-    (2, 2, 48, 1),        # one ragged tile: one chunk
-    (64, 8, 4096, 1),     # 512 (batch, kv head) pairs fill the card alone
+    (4, 8, 524, 6),       # qwen3-4b's decode: 192 blocks; clusters of 8 would put 3 on some SMs
+    (2, 8, 2000, 6),      # long cache: 16 clusters of 6 find room one block per SM
+    (2, 2, 48, 2),        # one ragged tile and a bit: no block shorter than a tile
+    (64, 8, 4096, 2),     # 512 (batch, kv head) pairs: several blocks per SM whatever the size
 ])
 def test_decode_split_fills_the_card(batch, kv_heads, slots, want):
-    from repro_torch.kernels.decode_attention import n_split
-    assert n_split(batch, kv_heads, slots, sms=132) == want
+    from repro_torch.kernels.decode_attention import decode_split
+    assert decode_split(batch, kv_heads, slots, H100_ROOM) == want

@@ -89,7 +89,8 @@ def test_unported_blocks_name_their_slice():
     for arch, slice_name in [("mixtral-8x22b", "MoE slice"),
                              ("dbrx-132b", "MoE slice"),
                              ("whisper-large-v3", "encoder/vision slice"),
-                             ("qwen2-vl-7b", "encoder/vision slice")]:
+                             ("qwen2-vl-7b", "encoder/vision slice"),
+                             ("minitron-4b", "dense-family slice")]:
         with pytest.raises(NotImplementedError, match=slice_name):
             build_model(reduced(REGISTRY[arch]), "cpu")
     for arch in ("qwen3-4b", "rwkv6-1.6b", "zamba2-2.7b"):   # served since slice 2
