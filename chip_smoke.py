@@ -58,8 +58,27 @@ Phases (any failure raises and exits non-zero):
                  take (bound_ms at the 3xTF32 rate, bound_f32_cores_ms at
                  the CUDA cores' float32 rate); attention also at zamba2's
                  head_dim 80; one decode call launches exactly one kernel
-Prints one {"kernels": [...]} line, one {"slice": {...}} line per model,
-and last {"ok": true, "device": {...}}.
+  6. planner  -- (run after phase 5, before phase 4) the Alg. 2 grant loop,
+                 alloc_all_kernel (csrc/planner.cu, float64), against its
+                 plain version on the card and against the port's numpy
+                 VecCluster.alloc_all on 200 seeded random clusters (d = 1 to
+                 100 and 1100 rows; N = 1, 2, 4, 8, 16 resident slots; rows
+                 past R_MAX; a newcomer that fits nowhere): identical
+                 feasibility and grid points, r_inter within rtol 1e-6 /
+                 atol 1e-9, and the count of rows bit-identical to numpy;
+                 then provision() on the fitted tpu-v5e profiles with
+                 PlannerConfig(backend="torch") on the card against
+                 backend="numpy" for the 12-workload App study and
+                 synthetic_workloads(1000, 0) under both budgets: identical
+                 plans, 11 / 6 / 766 / 460 devices, one alloc_all launch per
+                 placement (counts read over each provision alone);
+                 provision's wall time at m = 1000 for both backends (median
+                 of 3, in turns); at that run's final cluster the kernel's
+                 and the plain version's device time, and the copies and
+                 launches of one whole torch-backend call (torch.profiler)
+Prints one {"kernels": [...]} line (the four kernels and alloc_all), one
+{"slice": {...}} line per model, one {"planner": {...}} line, and last
+{"ok": true, "device": {...}}.
 """
 import gc
 import importlib.util
@@ -182,6 +201,31 @@ def device_ms(fn, n_inputs, iters=20, attempts=6, warmup=3, per_call=None):
     raise RuntimeError(f"torch.profiler lost device records in {attempts} runs")
 
 
+def call_device_events(fn, must, attempts=6):
+    """Names of the device events (kernels and copies) of one call of fn,
+    read with torch.profiler as device_ms reads them: the card kept busy
+    first and one call made before the one that counts; measured again
+    while the profiler drops records (no event named ``must``)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=ACTIVITIES) as prof:
+            torch.cuda._sleep(20_000_000)        # cycles: about 10 ms
+            fn()
+            torch.cuda.synchronize()
+            with torch.profiler.record_function("timed"):
+                fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        t0 = next(e.time_range.start for e in events
+                  if e.name == "timed" and e.device_type != cuda)
+        names = [e.name for e in events if e.device_type == cuda and e.name != "timed"
+                 and e.time_range.start >= t0]
+        if any(must in name for name in names):
+            return names
+        log(f"profile: torch.profiler kept {names} of one call; measuring again")
+    raise RuntimeError(f"torch.profiler lost device records in {attempts} runs")
+
+
 def bound(flops, nbytes):
     """The least time the card could take for ``flops`` float32-accurate
     operations and ``nbytes`` of traffic: bound_ms and bound_by at the
@@ -250,7 +294,9 @@ ASYNC_COPY = (r"\bLDGSTS\b|\bUBLKCP\b|\bUTMALDG\b", "asynchronous copies (LDGSTS
 SASS_CHECKS = {"flash_attn_kernel": (2 * 4, *TENSOR_CORE),
                "ssd_scan_kernel": (2 * 2 * 3, *TENSOR_CORE),
                "rwkv6_scan_kernel": (2 * 2, *TENSOR_CORE),
-               "decode_attn_kernel": (2 * 4 * 3, *ASYNC_COPY)}   # x G = 1, <= 4, <= 16
+               "decode_attn_kernel": (2 * 4 * 3, *ASYNC_COPY),   # x G = 1, <= 4, <= 16
+               # the planner's grant loop, N = 1 .. 32: float64 arithmetic
+               "alloc_all_kernel": (6, r"\bD(ADD|MUL)\b", "float64 arithmetic (DADD / DMUL)")}
 GONE_KERNELS = ("decode_attn_combine",)   # decode attention is one launch
 
 
@@ -557,7 +603,8 @@ def want_launches(cfg):
     return {"flash_attention": n_attn * PUMPS,
             "decode_attention": n_attn * (DECODE - 1) * PUMPS,
             "rwkv6_scan": cfg.n_layers * PUMPS if kind == "rwkv6" else 0,
-            "ssd_scan": cfg.n_layers * PUMPS if kind == "mamba2" else 0}
+            "ssd_scan": cfg.n_layers * PUMPS if kind == "mamba2" else 0,
+            "alloc_all": 0}
 
 
 def run_slice(dev, arch, layers=None):
@@ -943,6 +990,302 @@ def log_timing(k, what=None):
         f"{k['bound_ms'] / k['ms']:.1%} of bound")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the planner (Alg. 1/2 behind PlannerConfig(backend="torch"))
+# ---------------------------------------------------------------------------
+
+PLANNER_TOL = dict(rtol=1e-6, atol=1e-9)   # the reference's JAX contract
+PEAK_F64_FLOPS = 34e12                      # H100 SXM float64, CUDA cores (data sheet)
+PLANNER_CLUSTERS = 200
+# devices the numpy oracle opens for (m, budget) on the fitted tpu-v5e profiles
+PLANNER_DEVICES = {(12, "queueing"): 11, (12, "half"): 6,
+                   (1000, "queueing"): 766, (1000, "half"): 460}
+
+
+def random_planner_coeffs(rng):
+    """tests/test_perf_model_vec.py's random_coeffs over
+    tests/test_perf_model.py's make_coeffs, with the port's types."""
+    from repro_torch.core.types import WorkloadCoefficients
+    k1, k2, k3 = rng.uniform(0.001, 0.03), rng.uniform(0.2, 6.0), rng.uniform(0.5, 9.0)
+    k4, k5, alpha_cache = rng.uniform(0.01, 0.5), rng.uniform(0.01, 0.5), rng.uniform(0.0, 0.6)
+    return WorkloadCoefficients(
+        model="m", hardware="hw", d_load=0.5, d_feedback=0.01, n_kernels=400, k_sch=0.005,
+        k1=k1, k2=k2, k3=k3, k4=k4, k5=k5, alpha_power=500.0, beta_power=5.0,
+        alpha_cacheutil=1.2, beta_cacheutil=0.02, alpha_cache=alpha_cache)
+
+
+def random_planner_workload(rng, name, theorem1):
+    """A random spec and coefficients; the batch and r from Theorem 1
+    (appropriate_batch, resource_lower_bound) when ``theorem1``, else drawn
+    as tests/test_perf_model_vec.py's random_device draws them (batch
+    1..32, r in [0.05, 1)).  None when Theorem 1 finds it infeasible."""
+    from repro_torch.core import provisioner as prov
+    from repro_torch.core.types import V5E, WorkloadSpec
+    spec = WorkloadSpec(name, "m", float(rng.uniform(60.0, 400.0)),
+                        float(rng.uniform(5.0, 80.0)))
+    c = random_planner_coeffs(rng)
+    if not theorem1:
+        return spec, c, int(rng.integers(1, 33)), float(rng.uniform(0.05, 1.0))
+    try:
+        b = prov.appropriate_batch(spec, c, V5E)
+        return spec, c, b, prov.resource_lower_bound(spec, c, V5E, b)
+    except prov.InfeasibleError:
+        return None
+
+
+def planner_cases(rng):
+    """PLANNER_CLUSTERS random numpy-backend VecClusters and their newcomers:
+    d = 1 to 100 and one of 1100 rows; N = 1, 2, 4, 8 and 16 resident
+    slots; residents and newcomers sized by Theorem 1, and in every fourth
+    cluster drawn raw (rows past R_MAX from the start); one newcomer that
+    fits nowhere (r_lower 0.975 against raw residents)."""
+    from repro_torch.core import perf_model_vec as pmv
+    from repro_torch.core.types import V5E
+    for i in range(PLANNER_CLUSTERS):
+        budget = ("queueing", "half")[i % 2]
+        if i == 0:
+            d, max_res, cap_n = 1100, 6, 4
+        elif i % 10 == 9:
+            d, max_res, cap_n = 1 + i % 3, 2, 1           # N = 1 or 2
+        elif i % 10 == 7:
+            d, max_res, cap_n = 8, 12, 4                  # N = 16
+        else:
+            d, max_res, cap_n = (1, 3, 8, 32, 100)[i % 5], (4, 6)[i % 2], 4
+        raw = i % 4 == 3 or i == 5
+        cl = pmv.VecCluster(V5E, cap_n=cap_n, budget=budget)
+        for q in range(d):
+            cl.add_device()
+            for j in range(int(rng.integers(1, max_res + 1))):
+                w = random_planner_workload(rng, f"R{q}_{j}", not raw)
+                if w is not None:
+                    cl.add_entry(q, *w)
+        new = None
+        while new is None:
+            new = random_planner_workload(rng, "NEW", True)
+        if i == 5:
+            new = new[:3] + (0.975,)
+        yield cl, new
+
+
+def check_planner(dev, rng):
+    """alloc_all_kernel against its plain version on the card and against
+    the port's numpy VecCluster.alloc_all: identical feasibility, identical
+    grid points on every feasible row, r_inter within PLANNER_TOL; counts
+    the rows whose every output is bit-identical to numpy's."""
+    from repro_torch.core import perf_model_torch as pmt
+    from repro_torch.kernels import grant_loop
+    stats = {"clusters": 0, "rows": 0, "rows_feasible": 0, "rows_bit_identical_kernel": 0,
+             "rows_bit_identical_plain": 0, "fits_nowhere": 0, "N": set(), "max_d": 0}
+    err = 0.0
+    for cl, new in planner_cases(rng):
+        d, n = cl.d, cl.mask.shape[1]
+        want = cl.alloc_all(*new)
+        packed = torch.from_numpy(pmt.pack(cl, *new)).to(dev)
+        outs = {"kernel": grant_loop.alloc_all(packed, d, n),
+                "plain": grant_loop.alloc_all_plain(packed, d, n)}
+        fa = want[0]
+        for name, out in outs.items():
+            got = grant_loop.split_out(out.cpu().numpy(), d, n)
+            np.testing.assert_array_equal(got[0], fa, err_msg=f"{name}: feasibility")
+            np.testing.assert_array_equal(got[1][fa], want[1][fa], err_msg=f"{name}: rr")
+            np.testing.assert_array_equal(got[2][fa], want[2][fa], err_msg=f"{name}: rn")
+            np.testing.assert_allclose(got[3][fa], want[3][fa], err_msg=f"{name}: r_inter",
+                                       **PLANNER_TOL)
+            assert np.isinf(got[3][~fa]).all(), f"{name}: r_inter of infeasible rows"
+            same = ((got[1] == want[1]).all(axis=1) & (got[2] == want[2])
+                    & (got[3] == want[3]))
+            stats[f"rows_bit_identical_{name}"] += int(same.sum())
+        diff = (outs["kernel"] - outs["plain"]).abs()
+        err = max(err, float(diff[torch.isfinite(diff)].max()))
+        stats["clusters"] += 1
+        stats["rows"] += d
+        stats["rows_feasible"] += int(fa.sum())
+        stats["fits_nowhere"] += int(not fa.any())
+        stats["N"].add(n)
+        stats["max_d"] = max(stats["max_d"], d)
+    stats["N"] = sorted(stats["N"])
+    assert stats["fits_nowhere"] >= 1 and stats["max_d"] >= 1024 and 8 in stats["N"], stats
+    assert 0 < stats["rows_feasible"] < stats["rows"], stats
+    log(f"planner: alloc_all_kernel and its plain version match numpy on "
+        f"{stats['clusters']} clusters ({stats['rows']} rows, {stats['rows_feasible']} "
+        f"feasible, N {stats['N']}, d up to {stats['max_d']}, {stats['fits_nowhere']} "
+        f"newcomer(s) fitting nowhere); bit-identical rows: kernel "
+        f"{stats['rows_bit_identical_kernel']}, plain {stats['rows_bit_identical_plain']}; "
+        f"kernel vs plain max_abs_err {err:.3g}")
+    return stats, err
+
+
+def planner_breakdown(provision):
+    """Where provision's time goes at m = 1000 (queueing budget): the wall
+    seconds inside VecCluster.alloc_all for each backend (host clock, one
+    unprofiled run each), and, over one profiled torch-backend run, the
+    device ms of the grant-loop kernels and of the copies, and the share
+    of that run's wall time in which the card was idle."""
+    from repro_torch.core import perf_model_vec as pmv
+    alloc_all = pmv.VecCluster.alloc_all
+    spent = {"numpy": 0.0, "torch": 0.0}
+
+    def timed(self, *args):
+        t0 = time.perf_counter()
+        try:
+            return alloc_all(self, *args)
+        finally:
+            spent[self.backend] += time.perf_counter() - t0
+
+    out = {}
+    pmv.VecCluster.alloc_all = timed
+    try:
+        for backend in spent:
+            _, wall = provision(1000, "queueing", backend)
+            out[backend] = {"wall_s": wall, "alloc_all_s": spent[backend],
+                            "alloc_all_share": spent[backend] / wall}
+    finally:
+        pmv.VecCluster.alloc_all = alloc_all
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
+        _, wall = provision(1000, "queueing", "torch")
+    groups = {"alloc_all_kernel": 0.0, "memcpy_htod": 0.0, "memcpy_dtoh": 0.0, "other": 0.0}
+    kernels = 0
+    for key, us in device_kernels_us(prof):
+        group = ("alloc_all_kernel" if "alloc_all_kernel" in key else "memcpy_htod"
+                 if "HtoD" in key else "memcpy_dtoh" if "DtoH" in key else "other")
+        groups[group] += us / 1e3
+    for evt in prof.key_averages():
+        if "alloc_all_kernel" in evt.key and evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += evt.count
+    out["torch_profiled"] = {"wall_s": wall, "device_ms": groups,
+                             "alloc_all_kernels_recorded": kernels,
+                             "idle_share": max(0.0, 1.0 - sum(groups.values()) / (wall * 1e3))}
+    log(f"planner: breakdown at m=1000: {out}")
+    return out
+
+
+def run_planner(dev):
+    """provision() through PlannerConfig(backend="torch") on the card
+    against backend="numpy": the 12-workload App study and
+    synthetic_workloads(1000, 0) on the fitted tpu-v5e profiles, under both
+    budgets; identical plans, the oracle's device counts, one kernel launch
+    per placement.  Then provision's wall time at m = 1000 (queueing
+    budget) for both backends, median of 3 in turns, and the grant loop at
+    the final cluster of that run: kernel and plain device time, copies and
+    launches per call, and the bound."""
+    from repro_torch.core import perf_model_torch as pmt
+    from repro_torch.core import provisioner as prov
+    from repro_torch.core.fitted import fitted_context
+    from repro_torch.core.types import PlannerConfig
+    from repro_torch.kernels import grant_loop, ops
+    from repro_torch.serving.workload import synthetic_workloads, twelve_workloads
+    ctx = fitted_context("tpu-v5e")
+    workloads = {12: twelve_workloads(), 1000: synthetic_workloads(1000, 0)}
+
+    def key(plan):
+        return ([(p.workload.name, p.gpu, round(p.r, 9), p.batch)
+                 for p in plan.placements], plan.n_gpus)
+
+    def provision(m, budget, backend):
+        cfg = PlannerConfig(backend=backend, budget=budget,
+                            device=str(dev) if backend == "torch" else None)
+        t0 = time.perf_counter()
+        plan = prov.provision(workloads[m], ctx.profiles, ctx.hw, config=cfg)
+        if backend == "torch":
+            torch.cuda.synchronize()
+        return plan, time.perf_counter() - t0
+
+    # record the cluster and the newcomer of the last grant-loop call
+    last = {}
+    alloc_all_torch = pmt.alloc_all_torch
+
+    def recording(cl, *args):
+        last["cl"], last["args"] = cl, args
+        return alloc_all_torch(cl, *args)
+
+    plans, refs, launches_m1000 = [], {}, None
+    for m, budget in PLANNER_DEVICES:
+        ref, _ = provision(m, budget, "numpy")
+        refs[(m, budget)] = key(ref)
+        pmt.alloc_all_torch = recording if (m, budget) == (1000, "queueing") else alloc_all_torch
+        ops.reset_launch_counts()
+        try:
+            plan, _ = provision(m, budget, "torch")
+        finally:
+            pmt.alloc_all_torch = alloc_all_torch
+        launches = ops.launch_counts()
+        assert key(plan) == key(ref), f"m={m} {budget}: torch and numpy plans differ"
+        assert plan.n_gpus == PLANNER_DEVICES[(m, budget)], (m, budget, plan.n_gpus)
+        want = {k: (m if k == "alloc_all" else 0) for k in launches}
+        assert launches == want, (m, budget, launches)
+        if (m, budget) == (1000, "queueing"):
+            launches_m1000 = launches["alloc_all"]
+        plans.append({"m": m, "budget": budget, "devices": plan.n_gpus, "identical": True,
+                      "alloc_all_launches": launches["alloc_all"]})
+        log(f"planner: m={m} {budget}: {plan.n_gpus} devices, plans identical, "
+            f"{launches['alloc_all']} alloc_all launches")
+
+    walls = {"torch": [], "numpy": []}
+    for _ in range(3):
+        for backend in walls:
+            plan, wall = provision(1000, "queueing", backend)
+            assert key(plan) == refs[(1000, "queueing")], backend
+            walls[backend].append(wall)
+    wall_median = {b: float(np.median(w)) for b, w in walls.items()}
+    log(f"planner: provision at m=1000 (queueing), wall s torch {walls['torch']} "
+        f"numpy {walls['numpy']}; medians {wall_median}")
+    breakdown = planner_breakdown(provision)
+
+    cl, args = last["cl"], last["args"]
+    d, n = cl.d, cl.mask.shape[1]
+    packed = torch.from_numpy(pmt.pack(cl, *args)).to(dev)
+    per_call = {}
+    ms = device_ms(lambda i: grant_loop.alloc_all(packed, d, n), 1, iters=20, per_call=per_call)
+    assert list(per_call.values()) == [1] and "alloc_all_kernel" in next(iter(per_call)), \
+        f"alloc_all: one kernel launch per call, got {per_call}"
+    # thousands of small kernels a call: the profiler's own cost grows with them
+    plain_ms = device_ms(lambda i: grant_loop.alloc_all_plain(packed, d, n), 1, iters=1,
+                         warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = grant_loop.alloc_all_plain(packed, d, n)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    # the whole torch path of one call: pack, copies, kernel, read-back
+    names = call_device_events(lambda: pmt.alloc_all_torch(cl, *args), "alloc_all_kernel")
+    copies = {"htod": sum("HtoD" in x for x in names), "dtoh": sum("DtoH" in x for x in names),
+              "kernels": sum("alloc_all_kernel" in x for x in names)}
+    assert copies["htod"] + copies["dtoh"] == pmt.COPIES_PER_CALL and copies["kernels"] == 1, \
+        f"alloc_all_torch: {pmt.COPIES_PER_CALL} copies and one launch per call, got {names}"
+
+    # the least work: each input read once, each output written once; and
+    # per row at least 1 + its most grants iterations of the eval, plus the grants
+    nbytes = 8 * (grant_loop.pack_size(d, n) + grant_loop.out_size(d, n))
+    _, planes, rows = grant_loop.unpack(packed.cpu(), d, n)
+    feasible, rr, rn, _ = grant_loop.split_out(out.cpu().numpy(), d, n)
+    r_unit, r_lower = ctx.hw.r_unit, args[3]
+    mask = planes["mask"].numpy() != 0
+    grants = np.where(mask, np.rint((rr - planes["r"].numpy()) / r_unit), 0)
+    grants_new = np.rint((rn - r_lower) / r_unit)
+    iters = 1 + np.maximum(grants.max(axis=1), grants_new)
+    flops = float((iters * (15 * n + 17)).sum() + 22 * (grants.sum() + grants_new.sum()))
+    t_ops, t_bytes = flops / PEAK_F64_FLOPS, nbytes / PEAK_BYTES_S
+    entry = {"name": "alloc_all", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/planner.cu",
+             "replaces": "src/repro/core/perf_model_jax.py:177",
+             "launches": launches_m1000, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(t_ops, t_bytes) * 1e3,
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+    stats = {"plans": plans, "provision_wall_s_m1000": walls,
+             "provision_wall_s_m1000_median": wall_median, "breakdown_m1000": breakdown,
+             "final_cluster": {"d": d, "n": n, "feasible_rows": int(feasible.sum()),
+                               "row_iterations_lower_bound": int(iters.sum())},
+             "alloc_all_kernel_ms": ms, "alloc_all_plain_ms": plain_ms,
+             "alloc_all_plain_wall_ms": plain_wall_ms, "per_call": copies,
+             "bytes_per_call": nbytes, "flops_lower_bound": flops,
+             "bound_bytes_ms": t_bytes * 1e3, "bound_ops_ms": t_ops * 1e3}
+    log(f"timing: alloc_all {ms:.4f} ms at the final cluster (d {d}, N {n}; plain "
+        f"{plain_ms:.4f} device ms, {plain_wall_ms:.1f} wall ms; bound {entry['bound_ms']:.6f} "
+        f"by {entry['bound_by']}: {nbytes} bytes, {flops:.0f} float64 operations); "
+        f"per call {copies}")
+    return entry, stats
+
+
 def main():
     if not PORT_TREE.is_dir():
         print(f"chip_smoke: {PORT_TREE} is missing: this script drives the port "
@@ -995,13 +1338,17 @@ def main():
             time_decode(dev, rng, errs["decode_attention"], 32, 32, 80)]
     for k in hd80:
         log_timing(k, f"{k['name']} (zamba2-2.7b, head_dim 80)")
+    # phase 6, the planner, before the pumps' large profiler runs as well
+    clusters, planner_err = check_planner(dev, np.random.default_rng(17))
+    planner_kernel, planner = run_planner(dev)
+    planner_kernel["max_abs_err"] = planner_err
     launches, slices = dict.fromkeys(errs, 0), []
     for arch, layers in MODELS:
         check_small_against_cpu(dev, arch)
         counts, stats = run_slice(dev, arch, layers)
         launches = {k: n + counts[k] for k, n in launches.items()}
         slices.append(stats)
-    kernels = [{**k, "launches": launches[k["name"]]} for k in kernels]
+    kernels = [{**k, "launches": launches[k["name"]]} for k in kernels] + [planner_kernel]
     zamba = next(st for st in slices if st["arch"] == "zamba2-2.7b")
     zamba["attention_hd80"] = {k["name"]: {key: k[key] for key in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms")}
@@ -1010,6 +1357,8 @@ def main():
     print(json.dumps({"kernels": kernels}), flush=True)
     for stats in slices:
         print(json.dumps({"slice": {**stats, "gpu": smi}}), flush=True)
+    print(json.dumps({"planner": {"random_clusters": clusters, **planner, "gpu": smi}}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0

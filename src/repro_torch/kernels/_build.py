@@ -1,7 +1,8 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-The sources in ``csrc/`` (``attention.cu``, ``scan.cu``, sharing
-``common.cuh``) have a plain C interface and include no PyTorch header.
+The sources in ``csrc/`` (``attention.cu`` and ``scan.cu``, sharing
+``common.cuh``, and ``planner.cu``) have a plain C interface and include no
+PyTorch header.
 ``nvcc`` compiles each source to an object file, all of them at once in
 parallel processes, and links the objects into one shared library, which
 is loaded with ``ctypes`` and called with raw device pointers and
@@ -28,13 +29,16 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "attention.cu", CSRC / "scan.cu")
+SOURCES = (CSRC / "attention.cu", CSRC / "scan.cu", CSRC / "planner.cu")
 HEADERS = (CSRC / "common.cuh",)
 ROOT = Path(__file__).resolve().parents[3]       # <root>/src/repro_torch/kernels
 BUILD_DIR = ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas=-v",
               "--split-compile=4")      # each nvcc optimises its kernels on 4 threads
+# Flags of one source only.  The planner's float64 grant loop must round as
+# numpy does: no a*b + c contracted into one fused multiply-add.
+SOURCE_FLAGS = {"planner.cu": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _lib = None
@@ -55,7 +59,8 @@ def nvcc_path() -> str:
 
 
 def compile_command(src: Path, obj: Path) -> list:
-    return [nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    return [nvcc_path(), *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c", "-o",
+            str(obj), str(src)]
 
 
 def link_command(objs, out: Path) -> list:
@@ -67,6 +72,7 @@ def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES + HEADERS:
         h.update(src.name.encode())
+        h.update(" ".join(SOURCE_FLAGS.get(src.name, ())).encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libreprokernels-{h.hexdigest()[:16]}.so"
 
@@ -87,6 +93,8 @@ def _bind(lib):
     lib.repro_ssd_scan.argtypes = [
         i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i64p, vp]
     lib.repro_ssd_scan.restype = i32
+    lib.repro_alloc_all.argtypes = [vp, vp, i32, i32, vp]
+    lib.repro_alloc_all.restype = i32
     return lib
 
 
@@ -163,8 +171,9 @@ def strides_arg(*tensors_dims):
 
 
 def compare_build_times():
-    """Wall seconds of this module's parallel build and of one serial
-    ``nvcc -shared`` over every source, each into a fresh directory.
+    """Wall seconds of this module's parallel build and of the same
+    compiles run one after another and linked, each into a fresh
+    directory.
     Run on a machine with nvcc: ``PYTHONPATH=src python -m
     repro_torch.kernels._build``."""
     times = {}
@@ -173,8 +182,11 @@ def compare_build_times():
         _build(Path(tmp) / "parallel.so")
         times["parallel_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        subprocess.run([nvcc_path(), *NVCC_FLAGS, "-shared", "-o", str(Path(tmp) / "serial.so"),
-                        *map(str, SOURCES)], check=True, capture_output=True)
+        objs = [Path(tmp) / f"serial-{src.stem}.o" for src in SOURCES]
+        for src, obj in zip(SOURCES, objs):
+            subprocess.run(compile_command(src, obj), check=True, capture_output=True)
+        subprocess.run(link_command(objs, Path(tmp) / "serial.so"), check=True,
+                       capture_output=True)
         times["serial_s"] = time.perf_counter() - t0
     return times
 

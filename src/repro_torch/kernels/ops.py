@@ -9,13 +9,15 @@ from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.grant_loop import alloc_all
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 KERNELS = {"flash_attention": flash_attention,
            "decode_attention": decode_attention,
            "rwkv6_scan": rwkv6_scan,
-           "ssd_scan": ssd_scan}
+           "ssd_scan": ssd_scan,
+           "alloc_all": alloc_all}
 
 
 def reset_launch_counts():
@@ -28,4 +30,4 @@ def launch_counts() -> dict:
 
 
 __all__ = ["flash_attention", "decode_attention", "rwkv6_scan", "ssd_scan",
-           "reset_launch_counts", "launch_counts"]
+           "alloc_all", "reset_launch_counts", "launch_counts"]

@@ -11,8 +11,9 @@ RWKV6 (rwkv6-1.6b) and Mamba2 with shared attention (zamba2-2.7b).  On the
 card the prompt goes through the CUDA kernels (flash attention, or the
 rwkv6 / SSD scan) and each decode step through flash-decode attention
 where the model has attention; ``--device cpu`` runs their plain
-versions.  Cluster mode (provision + simulate) arrives with the planner
-slices of the port.
+versions.  Cluster mode (provision + simulate) waits for the simulator
+slice of the port; the planner it provisions with is
+``repro_torch.core.provisioner``.
 """
 import argparse
 import time

@@ -41,7 +41,11 @@ def test_port_imports_no_jax_and_no_repro():
     for mod in ("device.py", "configs/base.py", "kernels/ops.py",
                 "kernels/rwkv6_scan.py", "kernels/ssd_scan.py",
                 "models/attention.py", "models/rwkv.py", "models/ssm.py",
-                "serving/engine.py", "launch/serve.py"):
+                "serving/engine.py", "launch/serve.py", "core/types.py",
+                "core/queueing.py", "core/perf_model.py", "core/replication.py",
+                "core/perf_model_vec.py", "core/perf_model_torch.py",
+                "core/provisioner.py", "core/fitted.py", "kernels/grant_loop.py",
+                "profiling/metrics.py", "serving/workload.py"):
         assert mod in found
     bad = {str(p.relative_to(REPO)): _reaches_jax_or_repro(ast.parse(p.read_text()))
            for p in files}
