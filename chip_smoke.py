@@ -76,10 +76,33 @@ Phases (any failure raises and exits non-zero):
                  of 3, in turns); at that run's final cluster the kernel's
                  and the plain version's device time, and the copies and
                  launches of one whole torch-backend call (torch.profiler)
-Prints one {"kernels": [...]} line (the four kernels and alloc_all), one
-{"slice": {...}} line per model, one {"planner": {...}} line, and last
-{"ok": true, "device": {...}}.
+  7. simulator -- (run after phase 6, before phase 4) the latency-table build,
+                 tables_kernel (csrc/physics.cu, float64), against its plain
+                 version on the card and against the port's numpy
+                 physics.device_state_arrays on seeded grids (the reference
+                 test's ranges; n = 1, 2, 3, 5, 8, 16 with R up to a full
+                 _BULK_CHUNK, rows over-subscribed, over the power cap and
+                 past the bandwidth knee) within rtol 1e-6 / atol 1e-9, with
+                 the count of values bit-identical to numpy; n = 17 refused;
+                 then synthetic_workloads(1000, 0) provisioned on the card
+                 (766 devices) and simulate_full for 10 s, seed 0, with
+                 backend="torch" on the card against backend="numpy":
+                 identical violations, requests and passes, streams within
+                 the tolerance, one tables launch per table chunk (counts
+                 read over that run alone); the 12-workload App study with
+                 shadows, Poisson arrivals, an outage, a straggler and a spike
+                 trace against the numpy vec and scalar engines (identical
+                 violations, one launch per shadow-activated device's
+                 rebuild); simulate_full's wall time for both backends
+                 (median of 3, in turns), the table build's split (staging,
+                 packing, copies, kernel, unpacking) and share, one profiled
+                 run's idle share, and the kernel's and the plain version's
+                 device time at the served chunks and at a full chunk
+Prints one {"kernels": [...]} line (the four kernels, alloc_all and
+tables_kernel), one {"slice": {...}} line per model, one {"planner": {...}}
+line, one {"simulator": {...}} line, and last {"ok": true, "device": {...}}.
 """
+import functools
 import gc
 import importlib.util
 import json
@@ -604,7 +627,7 @@ def want_launches(cfg):
             "decode_attention": n_attn * (DECODE - 1) * PUMPS,
             "rwkv6_scan": cfg.n_layers * PUMPS if kind == "rwkv6" else 0,
             "ssd_scan": cfg.n_layers * PUMPS if kind == "mamba2" else 0,
-            "alloc_all": 0}
+            "alloc_all": 0, "tables": 0}
 
 
 def run_slice(dev, arch, layers=None):
@@ -1170,7 +1193,7 @@ def run_planner(dev):
     launches per call, and the bound."""
     from repro_torch.core import perf_model_torch as pmt
     from repro_torch.core import provisioner as prov
-    from repro_torch.core.fitted import fitted_context
+    from repro_torch.core.experiments import fitted_context
     from repro_torch.core.types import PlannerConfig
     from repro_torch.kernels import grant_loop, ops
     from repro_torch.serving.workload import synthetic_workloads, twelve_workloads
@@ -1286,6 +1309,375 @@ def run_planner(dev):
     return entry, stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the simulator (the latency tables behind backend="torch")
+# ---------------------------------------------------------------------------
+
+SIM_DEVICES = 766              # the m = 1000 plan (queueing budget), as phase 6 finds
+SIM_DURATION_S = 10.0          # benchmarks/scale_sweep.py:87's simulated seconds
+# float64 operations of the table build: per element (the solo terms, cache
+# and power, the inflated t_act) and per row (the sums' tails, the
+# frequency; each pow counted as one)
+TABLE_OPS_PER_ELEMENT, TABLE_OPS_PER_ROW = 46, 12
+
+
+def table_inputs(rng, rows, n, ranges="reference"):
+    """The eight (rows, n) inputs of physics.device_state_arrays: the
+    reference test's ranges (tests/test_perf_model_jax.py:161), or those
+    ranges with a third of the rows over-subscribed (shares x 2.5) and a
+    third weight-heavy (weights x 50, past the bandwidth knee)."""
+    shape = (rows, n)
+    args = [rng.uniform(1e6, 1e8, shape), rng.uniform(1e5, 1e7, shape),
+            rng.uniform(1e9, 1e12, shape), rng.uniform(1e7, 1e9, shape),
+            rng.uniform(1e5, 1e7, shape), rng.integers(20, 400, shape).astype(float),
+            rng.integers(1, 33, shape).astype(float), rng.uniform(0.05, 0.6, shape)]
+    if ranges != "reference":
+        kind = rng.integers(0, 3, size=(rows, 1))
+        args[7] = args[7] * np.where(kind == 1, 2.5, 1.0)
+        args[3] = args[3] * np.where(kind == 2, 50.0, 1.0)
+    return args
+
+
+def table_cases(rng):
+    """(label, inputs, n): the reference test's four widths at its row
+    counts, then seeded mixed grids at n = 1, 2, 3, 5, 8 and 16 with R = 1,
+    37, 4099 and one full _BULK_CHUNK of elements."""
+    from repro_torch.serving import simulator
+    for n in (1, 2, 3, 5):
+        yield f"reference n={n}", table_inputs(rng, int(rng.integers(4, 64)), n), n
+    for n in (1, 2, 3, 5, 8, 16):
+        for rows in (1, 37, 4099, simulator._BULK_CHUNK // n):
+            yield f"mixed n={n} R={rows}", table_inputs(rng, rows, n, "mixed"), n
+
+
+def check_tables(dev, rng):
+    """tables_kernel against its plain version on the card and against the
+    port's numpy physics.device_state_arrays, within PLANNER_TOL (the
+    reference's contract for its JAX twin); counts the values bit-identical
+    to numpy, and the rows over-subscribed, over the power cap and past the
+    bandwidth knee (both pow branches run).  A width of 17 must be
+    refused."""
+    from repro_torch.core.types import V5E
+    from repro_torch.kernels import tables
+    from repro_torch.serving import physics, physics_torch
+    stats = {"cases": 0, "values": 0, "bit_identical_kernel": 0, "bit_identical_plain": 0,
+             "rows": 0, "rows_oversubscribed": 0, "rows_over_power_cap": 0,
+             "rows_past_knee": 0, "widths": set(), "max_rows": 0}
+    err = 0.0
+    for label, args, n in table_cases(rng):
+        ref = physics.device_state_arrays(*args, n, V5E)
+        want = (ref.t_load, ref.t_sched, ref.t_act, ref.t_feedback, ref.freq)
+        buf, rows = physics_torch.pack(*args, n, V5E)
+        packed = torch.from_numpy(buf).to(dev)
+        outs = {"kernel": tables.tables(packed, rows, n),
+                "plain": tables.tables_plain(packed, rows, n)}
+        for name, out in outs.items():
+            got = tables.split_out(out.cpu().numpy(), rows, n)
+            for field, g, a in zip(tables.OUTPUTS + ("freq",), got, want):
+                np.testing.assert_allclose(g, a, err_msg=f"{label} {name} {field}",
+                                           **PLANNER_TOL)
+                stats[f"bit_identical_{name}"] += int((g == a).sum())
+        err = max(err, float((outs["kernel"] - outs["plain"]).abs().max()))
+        stats["cases"] += 1
+        stats["values"] += sum(a.size for a in want)
+        stats["rows"] += rows
+        stats["rows_oversubscribed"] += int((args[7].sum(axis=1) > 1.0).sum())
+        stats["rows_over_power_cap"] += int((ref.device_power > V5E.power_cap).sum())
+        stats["rows_past_knee"] += int((ref.cache_util.sum(axis=1) > physics.BW_KNEE).sum())
+        stats["widths"].add(n)
+        stats["max_rows"] = max(stats["max_rows"], rows)
+    stats["widths"] = sorted(stats["widths"])
+    assert min(stats[k] for k in ("rows_oversubscribed", "rows_over_power_cap",
+                                  "rows_past_knee")) > 0, stats
+    wide = tables.CAPACITY + 1
+    buf, rows = physics_torch.pack(*table_inputs(rng, 3, wide), wide, V5E)
+    expect_refusal(f"tables at n = {wide}",
+                   lambda: tables.tables(torch.from_numpy(buf).to(dev), rows, wide))
+    log(f"simulator: tables_kernel and its plain version match numpy on {stats['cases']} "
+        f"grids ({stats['rows']} rows, {stats['values']} values, widths "
+        f"{stats['widths']}, up to {stats['max_rows']} rows; "
+        f"{stats['rows_oversubscribed']} rows over-subscribed, "
+        f"{stats['rows_over_power_cap']} over the power cap, {stats['rows_past_knee']} "
+        f"past the knee); bit-identical values: kernel {stats['bit_identical_kernel']}, "
+        f"plain {stats['bit_identical_plain']} of {stats['values']}; kernel vs plain "
+        f"max_abs_err {err:.3g}; n = {wide} refused")
+    return stats, err
+
+
+def compare_runs(label, ref, got, specs):
+    """The torch backend's contract against numpy: identical violations and
+    request and pass counts, every stream of the same shape and within
+    PLANNER_TOL.  Returns the count of latencies bit-identical to numpy's."""
+    assert got.violations(specs) == ref.violations(specs), label
+    for k in ("n_requests", "n_passes"):
+        assert got.stats[k] == ref.stats[k], (label, k)
+    assert list(got.request_latencies) == list(ref.request_latencies), label
+    same = 0
+    for w, lat in ref.request_latencies.items():
+        g = got.request_latencies[w]
+        assert g.shape == lat.shape, (label, w)
+        np.testing.assert_allclose(g, lat, err_msg=f"{label} {w}", **PLANNER_TOL)
+        np.testing.assert_allclose(got.request_waits[w], ref.request_waits[w],
+                                   err_msg=f"{label} {w} waits", **PLANNER_TOL)
+        same += int((g == lat).sum())
+    return same
+
+
+class Spy:
+    """Wraps module functions for one block: counts each one's calls and
+    sums its host seconds (with the card synchronised around it for the
+    keys in ``sync``), and hands each call's arguments to ``seen[key]``."""
+
+    def __init__(self, targets, sync=(), seen=None):
+        self.targets, self.sync, self.seen = targets, set(sync), seen or {}
+        self.calls = {k: 0 for k in targets}
+        self.seconds = {k: 0.0 for k in targets}
+
+    def __enter__(self):
+        self.saved = {k: getattr(m, a) for k, (m, a) in self.targets.items()}
+        for key, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self._wrap(key, self.saved[key]))
+        return self
+
+    def _wrap(self, key, fn):
+        @functools.wraps(fn)      # with its attributes: a wrapper counts launches too
+        def wrapped(*args, **kw):
+            if key in self.seen:
+                self.seen[key](*args, **kw)
+            if key in self.sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                if key in self.sync:
+                    torch.cuda.synchronize()
+                self.seconds[key] += time.perf_counter() - t0
+                self.calls[key] += 1
+        return wrapped
+
+    def __exit__(self, *exc):
+        for key, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.saved[key])
+
+
+def table_build_breakdown(simulate):
+    """Where one torch-backend simulate_full's time goes, host clock: the
+    table builds (the bulk builds' wall time) and inside them the staging
+    of the inputs, the packing, the kernel (the card synchronised around
+    it), the copies (the rest of physics_torch.table_values) and the
+    .tolist() unpacking, and the builds' share of the run; the numpy
+    backend's build time beside it.  Then one profiled torch run: the
+    device ms of the kernels and copies, and the card's idle share of the
+    wall time."""
+    from repro_torch.kernels import tables
+    from repro_torch.serving import physics_torch, simulator
+    targets = {"build": (simulator, "_build_tables_bulk"),
+               "stage": (simulator, "_stage_chunk"), "pack": (physics_torch, "pack"),
+               "kernel": (tables, "tables"), "table_values": (physics_torch, "table_values"),
+               "unpack": (simulator, "_unpack_chunk")}
+    out = {}
+    with Spy(targets, sync=("kernel",)) as spy:
+        _, wall = simulate("torch")
+    s = spy.seconds
+    out["torch"] = {"wall_s": wall, "table_build_s": s["build"],
+                    "table_build_share": s["build"] / wall, "stage_s": s["stage"],
+                    "pack_s": s["pack"], "kernel_s": s["kernel"],
+                    "copies_s": s["table_values"] - s["pack"] - s["kernel"],
+                    "unpack_s": s["unpack"], "builds": spy.calls["build"],
+                    "chunks": spy.calls["kernel"]}
+    with Spy({"build": targets["build"]}) as spy:
+        _, wall = simulate("numpy")
+    out["numpy"] = {"wall_s": wall, "table_build_s": spy.seconds["build"],
+                    "table_build_share": spy.seconds["build"] / wall}
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
+        _, wall = simulate("torch")
+    groups = {"tables_kernel": 0.0, "memcpy_htod": 0.0, "memcpy_dtoh": 0.0, "other": 0.0}
+    kernels = 0
+    for key, us in device_kernels_us(prof):
+        group = ("tables_kernel" if "tables_kernel" in key else "memcpy_htod"
+                 if "HtoD" in key else "memcpy_dtoh" if "DtoH" in key else "other")
+        groups[group] += us / 1e3
+    for evt in prof.key_averages():
+        if "tables_kernel" in evt.key and evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += evt.count
+    out["torch_profiled"] = {"wall_s": wall, "device_ms": groups,
+                             "tables_kernels_recorded": kernels,
+                             "idle_share": max(0.0, 1.0 - sum(groups.values()) / (wall * 1e3))}
+    log(f"simulator: breakdown at m=1000: {out}")
+    return out
+
+
+def time_tables(dev, chunks):
+    """Device ms of tables_kernel and its plain version on the served
+    chunks (the packed inputs of one simulate_full, one call each, summed)
+    and at one full _BULK_CHUNK (n = 2, 2^18 rows), each beside its bound:
+    every input read once and every output written once over the HBM rate,
+    or the float64 operations over the CUDA cores' float64 rate."""
+    from repro_torch.core.types import V5E
+    from repro_torch.kernels import tables
+    from repro_torch.serving import physics_torch, simulator
+
+    def bound_of(rows, n):
+        nbytes = 8 * (tables.pack_size(rows, n) + tables.out_size(rows, n))
+        n_ops = TABLE_OPS_PER_ELEMENT * rows * n + TABLE_OPS_PER_ROW * rows
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S, n_ops / PEAK_F64_FLOPS
+        return {"bytes": nbytes, "ops": n_ops, "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    def timed(packed, rows, n):
+        per_call = {}
+        ms = device_ms(lambda i: tables.tables(packed, rows, n), 1, iters=20,
+                       per_call=per_call)
+        assert list(per_call.values()) == [1] and "tables_kernel" in next(iter(per_call)), \
+            f"tables: one kernel launch per call, got {per_call}"
+        plain_ms = device_ms(lambda i: tables.tables_plain(packed, rows, n), 1, iters=5)
+        return {"rows": rows, "n": n, "ms": ms, "plain_ms": plain_ms, **bound_of(rows, n)}
+
+    served = [timed(torch.from_numpy(buf).to(dev), rows, n) for buf, rows, n in chunks]
+    n = 2
+    rows = simulator._BULK_CHUNK // n
+    buf, _ = physics_torch.pack(*table_inputs(np.random.default_rng(23), rows, n, "mixed"),
+                                n, V5E)
+    full = timed(torch.from_numpy(buf).to(dev), rows, n)
+    total = {k: sum(c[k] for c in served) for k in ("ms", "plain_ms", "bytes", "ops")}
+    t_bytes, t_ops = total["bytes"] / PEAK_BYTES_S, total["ops"] / PEAK_F64_FLOPS
+    total["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    total["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    for label, t in [*((f"served chunk n={c['n']} R={c['rows']}", c) for c in served),
+                     ("served build (sum)", total), (f"full chunk n={n} R={rows}", full)]:
+        log(f"timing: tables_kernel {label}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}; "
+            f"bound {t['bound_ms']:.6f} by {t['bound_by']}: {t['bytes']} bytes, "
+            f"{t['ops']} float64 operations)")
+    return {"served_chunks": served, "served_build": total, "full_chunk": full}
+
+
+def run_simulator(dev):
+    """The simulator on the card.  synthetic_workloads(1000, 0) provisioned
+    on the card (queueing budget: 766 devices) and simulated for 10 s, seed
+    0, with backend="torch" on the card against backend="numpy": identical
+    violations and request and pass counts, streams within PLANNER_TOL, one
+    tables_kernel launch per table chunk (the counts read over that run
+    alone).  The 12-workload App study with shadows, Poisson arrivals, an
+    outage and a straggler (tests/test_faults.py's scenario) and a spike
+    trace: torch against the numpy vec and scalar engines, identical
+    violations, and one launch per shadow-activated device's rebuild.
+    The kernel's times on that run's chunks and at a full chunk; then
+    simulate_full's wall time for both backends (median of 3, in turns),
+    and the breakdown."""
+    from repro_torch.core import provisioner as prov
+    from repro_torch.core.experiments import fitted_context
+    from repro_torch.core.types import PlannerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import faults, physics_torch, simulator, traces
+    from repro_torch.serving.workload import (models, specs_by_name, synthetic_workloads,
+                                              twelve_workloads)
+    ctx = fitted_context("tpu-v5e")
+    mods = models()
+    specs = synthetic_workloads(1000, 0)
+    plan = prov.provision(specs, ctx.profiles, ctx.hw, config=PlannerConfig(device=str(dev)))
+    assert plan.n_gpus == SIM_DEVICES, plan.n_gpus
+    widths = {}
+    for pls in plan.by_gpu().values():
+        widths[len(pls)] = widths.get(len(pls), 0) + 1
+    sb = {s.name: s for s in specs}
+
+    def simulate(backend, **kw):
+        t0 = time.perf_counter()
+        res = simulator.simulate_full(
+            plan, mods, ctx.hw, duration_s=SIM_DURATION_S, seed=0, backend=backend,
+            device=str(dev) if backend == "torch" else None, **kw)
+        if backend == "torch":
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # the main path: every launch count read over this run alone
+    chunks = []
+    with Spy({"pack": (physics_torch, "pack")},
+             seen={"pack": lambda *a: chunks.append(a)}) as spy:
+        ops.reset_launch_counts()
+        res_t, wall_t = simulate("torch")
+        launches = ops.launch_counts()
+    want = {k: (spy.calls["pack"] if k == "tables" else 0) for k in launches}
+    assert launches == want, (launches, want)
+    # the kernel's times on that run's chunks, before the long profiled run
+    # below (a profiler run after a long one drops records: see device_ms)
+    times = time_tables(dev, [(*physics_torch.pack(*a), a[8]) for a in chunks])
+    res_n, wall_n = simulate("numpy")
+    same = compare_runs("m=1000", res_n, res_t, sb)
+    n_lat = sum(a.size for a in res_n.request_latencies.values())
+    viol = res_n.violations(sb)
+    log(f"simulator: m=1000, {plan.n_gpus} devices (widths {widths}), {SIM_DURATION_S} s: "
+        f"{res_t.stats['n_requests']} requests, {res_t.stats['n_passes']} passes, "
+        f"{len(viol)} violations, identical; {launches['tables']} tables launches "
+        f"({spy.calls['pack']} chunks); {same} of {n_lat} latencies bit-identical to numpy")
+
+    # the App study with shadows, faults and a trace
+    app = prov.provision(twelve_workloads(), ctx.profiles, ctx.hw,
+                         config=PlannerConfig(device=str(dev)))
+    g_w3 = next(p.gpu for p in app.placements if p.workload.name == "W3")
+    g_w5 = next(p.gpu for p in app.placements if p.workload.name == "W5")
+    fs = faults.merge(faults.FaultSchedule(down={g_w3: [[1500.0, 4000.0]]}),
+                      faults.FaultSchedule(slow={g_w5: 2.0}))
+    names = [s.name for s in twelve_workloads()]
+    tr = traces.step_spike(names, 8000.0, at_ms=3000.0, duration_ms=2000.0, scale=2.0)
+    kw = dict(duration_s=8.0, shadow=True, poisson=True, seed=11, faults=fs, trace=tr,
+              record_timeline=True)
+    with Spy({"chunk": (simulator, "_build_tables_chunk")}) as spy:
+        ops.reset_launch_counts()
+        app_t = simulator.simulate_plan(app, mods, ctx.hw, device=str(dev), **kw)
+        app_launches = ops.launch_counts()["tables"]
+    app_n = simulator.simulate_plan(app, mods, ctx.hw, backend="numpy", **kw)
+    app_s = simulator.simulate_plan(app, mods, ctx.hw, backend="numpy", engine="scalar", **kw)
+    asb = specs_by_name()
+    compare_runs("app study, scalar", app_s, app_n, asb)
+    app_same = compare_runs("app study", app_n, app_t, asb)
+    gpu_of = {p.workload.name: p.gpu for p in app.placements}
+    first = {}
+    for row in app_t.timeline:
+        if row["shadow"]:
+            first.setdefault(row["workload"], row["t_s"])
+    activations = {(t, gpu_of[w]) for w, t in first.items()}
+    initial = len({len(p) for p in app.by_gpu().values()})
+    assert activations, "app study: no shadow activated"
+    assert app_launches == spy.calls["chunk"] == initial + len(activations), \
+        (app_launches, spy.calls, initial, activations)
+    app_stats = {"devices": app.n_gpus, "violations": app_n.violations(asb),
+                 "n_requests": app_t.stats["n_requests"], "shadow_activations": len(first),
+                 "activated_device_ticks": len(activations), "tables_launches": app_launches,
+                 "initial_chunks": initial, "latencies_bit_identical": app_same,
+                 "n_failures": app_t.stats.get("n_failures")}
+    log(f"simulator: app study (shadows, outage, straggler, spike): {app_stats}")
+
+    walls = {"torch": [wall_t], "numpy": [wall_n]}
+    for _ in range(2):
+        for backend in walls:
+            res, wall = simulate(backend)
+            assert res.violations(sb) == viol, backend
+            walls[backend].append(wall)
+    wall_median = {b: float(np.median(w)) for b, w in walls.items()}
+    log(f"simulator: simulate_full at m=1000, wall s torch {walls['torch']} numpy "
+        f"{walls['numpy']}; medians {wall_median}")
+    breakdown = table_build_breakdown(simulate)
+
+    total = times["served_build"]
+    entry = {"name": "tables_kernel", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/physics.cu",
+             "replaces": "src/repro/serving/physics_jax.py:35",
+             "launches": launches["tables"], "ms": total["ms"], "plain_ms": total["plain_ms"],
+             "bound_ms": total["bound_ms"], "bound_by": total["bound_by"], "library_ms": None}
+    stats = {"m": 1000, "devices": plan.n_gpus, "widths": widths,
+             "duration_s": SIM_DURATION_S, "seed": 0,
+             "n_requests": res_t.stats["n_requests"], "n_passes": res_t.stats["n_passes"],
+             "violations": len(viol), "identical_violations": True,
+             "latencies_bit_identical": same, "latencies": n_lat,
+             "tables_launches": launches["tables"], "table_chunks": len(chunks),
+             "app_study": app_stats, "simulate_full_wall_s": walls,
+             "simulate_full_wall_s_median": wall_median, "breakdown": breakdown,
+             "tables_kernel": times}
+    return entry, stats
+
+
 def main():
     if not PORT_TREE.is_dir():
         print(f"chip_smoke: {PORT_TREE} is missing: this script drives the port "
@@ -1342,13 +1734,18 @@ def main():
     clusters, planner_err = check_planner(dev, np.random.default_rng(17))
     planner_kernel, planner = run_planner(dev)
     planner_kernel["max_abs_err"] = planner_err
+    # phase 7, the simulator, before the pumps as well
+    grids, tables_err = check_tables(dev, np.random.default_rng(29))
+    tables_kernel, simulator_stats = run_simulator(dev)
+    tables_kernel["max_abs_err"] = tables_err
     launches, slices = dict.fromkeys(errs, 0), []
     for arch, layers in MODELS:
         check_small_against_cpu(dev, arch)
         counts, stats = run_slice(dev, arch, layers)
         launches = {k: n + counts[k] for k, n in launches.items()}
         slices.append(stats)
-    kernels = [{**k, "launches": launches[k["name"]]} for k in kernels] + [planner_kernel]
+    kernels = ([{**k, "launches": launches[k["name"]]} for k in kernels]
+               + [planner_kernel, tables_kernel])
     zamba = next(st for st in slices if st["arch"] == "zamba2-2.7b")
     zamba["attention_hd80"] = {k["name"]: {key: k[key] for key in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms")}
@@ -1358,6 +1755,8 @@ def main():
     for stats in slices:
         print(json.dumps({"slice": {**stats, "gpu": smi}}), flush=True)
     print(json.dumps({"planner": {"random_clusters": clusters, **planner, "gpu": smi}}),
+          flush=True)
+    print(json.dumps({"simulator": {"table_grids": grids, **simulator_stats, "gpu": smi}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,8 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
 The sources in ``csrc/`` (``attention.cu`` and ``scan.cu``, sharing
-``common.cuh``, and ``planner.cu``) have a plain C interface and include no
-PyTorch header.
+``common.cuh``, ``planner.cu`` and ``physics.cu``) have a plain C interface
+and include no PyTorch header.
 ``nvcc`` compiles each source to an object file, all of them at once in
 parallel processes, and links the objects into one shared library, which
 is loaded with ``ctypes`` and called with raw device pointers and
@@ -29,16 +29,18 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "attention.cu", CSRC / "scan.cu", CSRC / "planner.cu")
+SOURCES = (CSRC / "attention.cu", CSRC / "scan.cu", CSRC / "planner.cu",
+           CSRC / "physics.cu")
 HEADERS = (CSRC / "common.cuh",)
 ROOT = Path(__file__).resolve().parents[3]       # <root>/src/repro_torch/kernels
 BUILD_DIR = ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas=-v",
               "--split-compile=4")      # each nvcc optimises its kernels on 4 threads
-# Flags of one source only.  The planner's float64 grant loop must round as
-# numpy does: no a*b + c contracted into one fused multiply-add.
-SOURCE_FLAGS = {"planner.cu": ("--fmad=false",)}
+# Flags of one source only.  The planner's float64 grant loop and the
+# simulator's latency tables must round as numpy does: no a*b + c
+# contracted into one fused multiply-add.
+SOURCE_FLAGS = {"planner.cu": ("--fmad=false",), "physics.cu": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _lib = None
@@ -95,6 +97,8 @@ def _bind(lib):
     lib.repro_ssd_scan.restype = i32
     lib.repro_alloc_all.argtypes = [vp, vp, i32, i32, vp]
     lib.repro_alloc_all.restype = i32
+    lib.repro_tables.argtypes = [vp, vp, i32, i32, vp]
+    lib.repro_tables.restype = i32
     return lib
 
 

@@ -15,14 +15,20 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")      # the port's optional dependency
-from repro_torch.core import perf_model as pm  # noqa: E402
+from repro_torch.core import coefficients, perf_model as pm  # noqa: E402
 from repro_torch.core import types as T  # noqa: E402
 from repro_torch.core.types import PlannerConfig  # noqa: E402
+from repro_torch.profiling import metrics  # noqa: E402
+from repro_torch.serving import faults, physics, simulator, traces  # noqa: E402
 
 TOL = dict(rtol=1e-6, atol=1e-9)
 # the torch backend's plain version, asked for by name; and the oracle
 BACKENDS = {"torch-cpu": PlannerConfig(backend="torch", device="cpu"),
             "numpy": PlannerConfig(backend="numpy")}
+
+
+# the port's modules that hold the reference's dataclasses, by name
+PORT_TYPES = (T, pm, coefficients, metrics, physics, traces, faults, simulator)
 
 
 def port(obj):
@@ -34,7 +40,7 @@ def port(obj):
         return {k: port(v) for k, v in obj.items()}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         name = type(obj).__name__
-        cls = getattr(T, name, None) or getattr(pm, name)
+        cls = [getattr(m, name) for m in PORT_TYPES if hasattr(m, name)][0]
         return cls(**{f.name: port(getattr(obj, f.name))
-                      for f in dataclasses.fields(obj)})
+                      for f in dataclasses.fields(obj) if f.init})
     return obj

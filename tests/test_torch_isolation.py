@@ -44,8 +44,11 @@ def test_port_imports_no_jax_and_no_repro():
                 "serving/engine.py", "launch/serve.py", "core/types.py",
                 "core/queueing.py", "core/perf_model.py", "core/replication.py",
                 "core/perf_model_vec.py", "core/perf_model_torch.py",
-                "core/provisioner.py", "core/fitted.py", "kernels/grant_loop.py",
-                "profiling/metrics.py", "serving/workload.py"):
+                "core/provisioner.py", "core/experiments.py", "core/baselines.py",
+                "core/coefficients.py", "kernels/grant_loop.py", "kernels/tables.py",
+                "profiling/metrics.py", "serving/workload.py", "serving/traces.py",
+                "serving/faults.py", "serving/physics.py", "serving/physics_torch.py",
+                "serving/telemetry.py", "serving/simulator.py"):
         assert mod in found
     bad = {str(p.relative_to(REPO)): _reaches_jax_or_repro(ast.parse(p.read_text()))
            for p in files}

@@ -47,7 +47,8 @@ def test_cpu_path_counts_no_launch():
     ops.decode_attention(x[:, :1], x, x, torch.zeros(1, dtype=torch.int32),
                          torch.zeros(1, 8, dtype=torch.int32))
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "rwkv6_scan": 0, "ssd_scan": 0, "alloc_all": 0}
+                                   "rwkv6_scan": 0, "ssd_scan": 0, "alloc_all": 0,
+                                   "tables": 0}
 
 
 def test_build_targets_hopper():
@@ -56,10 +57,13 @@ def test_build_targets_hopper():
     the sources' hash (built on the card's machine)."""
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-O3" in _build.NVCC_FLAGS
-    assert {p.name for p in _build.SOURCES} == {"attention.cu", "scan.cu", "planner.cu"}
+    assert {p.name for p in _build.SOURCES} == {"attention.cu", "scan.cu", "planner.cu",
+                                                "physics.cu"}
     assert all(p.exists() for p in _build.SOURCES + _build.HEADERS)
-    # only the planner's float64 loop is built without fused multiply-adds
-    assert _build.SOURCE_FLAGS == {"planner.cu": ("--fmad=false",)}
+    # only the float64 sources (the planner's grant loop and the simulator's
+    # latency tables) are built without fused multiply-adds
+    assert _build.SOURCE_FLAGS == {"planner.cu": ("--fmad=false",),
+                                   "physics.cu": ("--fmad=false",)}
     assert "--fmad=false" not in _build.NVCC_FLAGS
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.name.startswith("libreprokernels-")

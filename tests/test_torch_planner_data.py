@@ -1,5 +1,6 @@
 """The planner's data and configuration in the port: the fitted profiles
-carried across (``repro_torch.core.fitted``), the served-model table and
+(``repro_torch.core.experiments.fitted_context``, fitted on the port's own
+simulated testbed), the served-model table and
 workload sets, ``PlannerConfig``'s validation, and the torch backend's
 device rule (cuda:0 by default, raising without CUDA, never the CPU
 unless asked for)."""
@@ -15,7 +16,7 @@ from tests.test_perf_model_vec import _profiles
 
 from repro_torch.core import provisioner as prov
 from repro_torch.core import types
-from repro_torch.core.fitted import fitted_context
+from repro_torch.core.experiments import fitted_context
 from repro_torch.core.types import V5E, PlannerConfig, WorkloadSpec, planner_config
 from repro_torch.kernels import grant_loop
 from repro_torch.serving import workload

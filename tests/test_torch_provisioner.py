@@ -15,7 +15,7 @@ from tests.test_perf_model_vec import _profiles, plan_key, random_specs
 
 from repro_torch.core import perf_model as pm
 from repro_torch.core import provisioner as prov
-from repro_torch.core.fitted import fitted_context
+from repro_torch.core.experiments import fitted_context
 from repro_torch.core.types import V5E
 from repro_torch.serving.workload import twelve_workloads
 

@@ -194,4 +194,5 @@ def test_scan_wrappers_refuse_bad_inputs_and_count_no_cpu_launch():
     assert (y.shape, s.shape, y2.shape, h.shape) == (
         (1, 8, 2, 32), (1, 2, 32, 32), (1, 8, 2, 32), (1, 2, 32, 16))
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "rwkv6_scan": 0, "ssd_scan": 0, "alloc_all": 0}
+                                   "rwkv6_scan": 0, "ssd_scan": 0, "alloc_all": 0,
+                                   "tables": 0}
