@@ -98,10 +98,37 @@ Phases (any failure raises and exits non-zero):
                  packing, copies, kernel, unpacking) and share, one profiled
                  run's idle share, and the kernel's and the plain version's
                  device time at the served chunks and at a full chunk
+  8. controller -- (run after phase 7, before phase 4) the closed loop: the
+                 five scenarios of benchmarks/dynamic_sweep.py (no_drift,
+                 diurnal, spike, churn, overload under a device cap and a
+                 priority split; the scenario helpers copied, see
+                 control_trace) on synthetic_workloads(100, 0) provisioned on
+                 tpu-v5e, for CONTROL_HORIZON_S, each simulated with a fresh
+                 Controller on PlannerConfig(backend="torch") on the card and
+                 again on backend="numpy": identical PlanEdit lists (floats
+                 within rtol 1e-6 / atol 1e-9), admission logs, overload
+                 counters, reconfigurations, violations against the
+                 trace-scaled specs and final plans; no_drift edits nothing
+                 and keeps its plan object; one alloc_all launch per
+                 vectorized placement, none for a same-device resize, one
+                 tables launch per table chunk (counts read over each run
+                 alone); tests/test_spike_fixture.py's forecast-on spike run
+                 on the card hashes to its pinned digest (62 / 58 / 0 events,
+                 182 reconfigurations); tests/test_overload.py's two health
+                 runs on both backends (a permanent straggler stays
+                 quarantined, a recovered device is readmitted); the
+                 diurnal run's controller time (reconfig_latency_ms) and wall
+                 time on both backends (median of 3, in turns); alloc_all's
+                 device time at the controller's last placement; the m = 1000
+                 diurnal run on both backends (identical edits) for
+                 CONTROL_M1000_HORIZON_S; one profiled run's idle share; and
+                 launch.serve's cluster mode on the card against numpy's flags
 Prints one {"kernels": [...]} line (the four kernels, alloc_all and
 tables_kernel), one {"slice": {...}} line per model, one {"planner": {...}}
-line, one {"simulator": {...}} line, and last {"ok": true, "device": {...}}.
+line, one {"simulator": {...}} line, one {"controller": {...}} line, and
+last {"ok": true, "device": {...}}.
 """
+import dataclasses
 import functools
 import gc
 import importlib.util
@@ -1200,10 +1227,6 @@ def run_planner(dev):
     ctx = fitted_context("tpu-v5e")
     workloads = {12: twelve_workloads(), 1000: synthetic_workloads(1000, 0)}
 
-    def key(plan):
-        return ([(p.workload.name, p.gpu, round(p.r, 9), p.batch)
-                 for p in plan.placements], plan.n_gpus)
-
     def provision(m, budget, backend):
         cfg = PlannerConfig(backend=backend, budget=budget,
                             device=str(dev) if backend == "torch" else None)
@@ -1224,7 +1247,7 @@ def run_planner(dev):
     plans, refs, launches_m1000 = [], {}, None
     for m, budget in PLANNER_DEVICES:
         ref, _ = provision(m, budget, "numpy")
-        refs[(m, budget)] = key(ref)
+        refs[(m, budget)] = plan_key(ref)
         pmt.alloc_all_torch = recording if (m, budget) == (1000, "queueing") else alloc_all_torch
         ops.reset_launch_counts()
         try:
@@ -1232,7 +1255,7 @@ def run_planner(dev):
         finally:
             pmt.alloc_all_torch = alloc_all_torch
         launches = ops.launch_counts()
-        assert key(plan) == key(ref), f"m={m} {budget}: torch and numpy plans differ"
+        assert plan_key(plan) == plan_key(ref), f"m={m} {budget}: torch and numpy plans differ"
         assert plan.n_gpus == PLANNER_DEVICES[(m, budget)], (m, budget, plan.n_gpus)
         want = {k: (m if k == "alloc_all" else 0) for k in launches}
         assert launches == want, (m, budget, launches)
@@ -1247,7 +1270,7 @@ def run_planner(dev):
     for _ in range(3):
         for backend in walls:
             plan, wall = provision(1000, "queueing", backend)
-            assert key(plan) == refs[(1000, "queueing")], backend
+            assert plan_key(plan) == refs[(1000, "queueing")], backend
             walls[backend].append(wall)
     wall_median = {b: float(np.median(w)) for b, w in walls.items()}
     log(f"planner: provision at m=1000 (queueing), wall s torch {walls['torch']} "
@@ -1678,6 +1701,440 @@ def run_simulator(dev):
     return entry, stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the controller (the closed loop behind PlannerConfig(backend="torch"))
+# ---------------------------------------------------------------------------
+
+CONTROL_M, CONTROL_SEED = 100, 0
+# benchmarks/dynamic_sweep.py runs its scenarios, m = 1000 included, for
+# 10 s; 6 s (the spike fixture's horizon) and, at m = 1000, 2 s (two control
+# ticks) keep the whole script under 200 s
+CONTROL_HORIZON_S = 6.0
+CONTROL_M1000_HORIZON_S = 2.0
+CONTROL_SCENARIOS = ("no_drift", "diurnal", "spike", "churn", "overload")
+# benchmarks/dynamic_sweep.py:96-104: the overload scenario's priority split
+OVERLOAD_HI_EVERY, OVERLOAD_PEAK_LO, OVERLOAD_PEAK_HI, OVERLOAD_RESERVE = 4, 3.0, 1.3, 1.4
+# tests/test_spike_fixture.py's pinned forecast-on spike run: the sha256 of
+# the (t_s, kind, workload, replicas) sequence of its forecast / shadow_arm /
+# shadow_disarm events, their counts and the reconfiguration counter
+SPIKE_SEQUENCE_SHA256 = "e0ebfdbb91e2e76627ddf5c73c99c9946142243f460dbbb1ee5a076d476bd0e7"
+SPIKE_EVENTS = {"forecast": 62, "shadow_arm": 58, "shadow_disarm": 0}
+SPIKE_RECONFIGS = 182
+
+
+def plan_key(plan):
+    """A plan's placements (name, device, r to 1e-9, batch) and device count."""
+    return ([(p.workload.name, p.gpu, round(p.r, 9), p.batch)
+             for p in plan.placements], plan.n_gpus)
+
+
+def control_trace(scenario, names, horizon_ms, seed):
+    """benchmarks/dynamic_sweep.py:120-144 (_make_trace) on the port's
+    traces: (trace, Poisson arrivals)."""
+    from repro_torch.serving import traces
+    if scenario == "no_drift":
+        return traces.constant(names, horizon_ms), False
+    if scenario == "diurnal":
+        return traces.diurnal(names, horizon_ms, peak=2.0), False
+    if scenario == "spike":
+        return traces.step_spike(names, horizon_ms, at_ms=0.4 * horizon_ms,
+                                 duration_ms=0.2 * horizon_ms, scale=2.5), True
+    if scenario == "churn":
+        return traces.random_churn(names, horizon_ms, depart_frac=0.1, arrive_frac=0.1,
+                                   seed=seed), False
+    hi = [n for i, n in enumerate(names) if i % OVERLOAD_HI_EVERY == 0]
+    lo = [n for i, n in enumerate(names) if i % OVERLOAD_HI_EVERY != 0]
+    t_lo = traces.diurnal(lo, horizon_ms, peak=OVERLOAD_PEAK_LO)
+    t_hi = traces.diurnal(hi, horizon_ms, peak=OVERLOAD_PEAK_HI)
+    return traces.Trace(edges=t_lo.edges, scales={**t_lo.scales, **t_hi.scales}), False
+
+
+def overload_fleet(specs, ctx, cfg):
+    """benchmarks/dynamic_sweep.py:147-180 (_overload_specs, _overload_plan)
+    on the port's provisioner: every fourth workload priority 1, the fleet
+    provisioned on tpu-v5e with that tier's rate reserved x
+    OVERLOAD_RESERVE and replication on, then the true rates written back.
+    Returns (specs, plan); the controller may not grow the fleet."""
+    from repro_torch.core import provisioner as prov
+    specs = [dataclasses.replace(s, priority=1) if i % OVERLOAD_HI_EVERY == 0 else s
+             for i, s in enumerate(specs)]
+    prov_specs = [dataclasses.replace(s, rate_rps=s.rate_rps * OVERLOAD_RESERVE)
+                  if s.priority > 0 else s for s in specs]
+    plan, _ = prov.provision_cheapest(prov_specs, {ctx.hw.name: ctx.profiles}, [ctx.hw],
+                                      config=cfg.replace(replicate=True))
+    placements = [dataclasses.replace(p, workload=dataclasses.replace(
+        p.workload, rate_rps=p.workload.rate_rps / OVERLOAD_RESERVE))
+        if p.workload.priority > 0 else p for p in plan.placements]
+    return specs, dataclasses.replace(plan, placements=placements)
+
+
+def scaled_specs(specs, tr, horizon_ms):
+    """benchmarks/dynamic_sweep.py:183-190 (_scaled_specs): each rate times
+    its trace-mean scale, so violations are judged against what the trace
+    offered."""
+    return {s.name: dataclasses.replace(s, rate_rps=s.rate_rps * tr.mean_scale(s.name,
+                                                                           horizon_ms))
+            for s in specs}
+
+
+def compare_edits(label, ref, got):
+    """Two PlanEdit lists field for field: strings and counts equal, floats
+    within PLANNER_TOL.  Returns the count of edits bit-identical to numpy's."""
+    assert len(got) == len(ref), f"{label}: {len(got)} edits against numpy's {len(ref)}"
+    same = 0
+    for a, b in zip(ref, got):
+        exact = True
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(x, float):
+                np.testing.assert_allclose(y, x, err_msg=f"{label}: {a} {f.name}",
+                                           **PLANNER_TOL)
+                exact &= x == y
+            else:
+                assert x == y, f"{label}: {a} against numpy's {b} ({f.name})"
+        same += exact
+    return same
+
+
+def controlled_run(dev, backend, plan, ctx, horizon_s, cfg_kw=None, telemetry=None,
+                   record=None, **sim_kw):
+    """One closed-loop simulate_full of ``plan`` with a fresh Controller whose
+    planner (and the simulator's tables) run on ``backend``: torch on the card,
+    or the numpy oracle.  Every launch count is read over this run alone:
+    on torch one alloc_all launch per PlanState._place and one tables launch
+    per table chunk, and none on numpy; a same-device resize (Alg. 2 against
+    its own device, pmv.alloc_gpus_vec) runs on the host and launches
+    nothing.  ``record``, a dict, receives the PlanState and arguments of the
+    last placement.  Returns (controller, result, wall s, counts)."""
+    from repro_torch.core import perf_model_vec as pmv
+    from repro_torch.core.types import PlannerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import controller, simulator
+    from repro_torch.serving.workload import models
+    on_card = backend == "torch"
+    config = PlannerConfig(backend=backend, batch="joint",
+                           device=str(dev) if on_card else None)
+    ctl = controller.Controller(plan, ctx.profiles, ctx.hw, config=config,
+                                cfg=controller.ControllerConfig(**(cfg_kw or {})),
+                                telemetry=telemetry)
+    seen = {} if record is None else {
+        "place": lambda state, *a: record.update(state=state, args=a)}
+    targets = {"place": (controller.PlanState, "_place"),
+               "same_device": (pmv, "alloc_gpus_vec"),
+               "chunk": (simulator, "_build_tables_chunk"),
+               "build": (simulator, "_build_tables_bulk")}
+    mods = models()
+    with Spy(targets, seen=seen) as spy:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = simulator.simulate_full(
+            plan, mods, ctx.hw, duration_s=horizon_s, seed=CONTROL_SEED, adjust_fn=ctl,
+            adjust_scope="cluster", adjust_period_s=1.0, backend=backend,
+            device=str(dev) if on_card else None, telemetry=telemetry, **sim_kw)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    calls = spy.calls
+    want = {k: 0 for k in launches}
+    if on_card:
+        want.update(alloc_all=calls["place"], tables=calls["chunk"])
+    assert launches == want, (backend, launches, want)
+    counts = {"alloc_all_launches": launches["alloc_all"],
+              "tables_launches": launches["tables"], "placements": calls["place"],
+              "same_device_resizes": calls["same_device"],
+              "table_chunks": calls["chunk"], "table_rebuilds": calls["build"] - 1,
+              "placement_s": spy.seconds["place"],
+              "same_device_s": spy.seconds["same_device"]}
+    return ctl, res, wall, counts
+
+
+def scenario_pair(dev, name, specs, plan, ctx, horizon_s, cfg_kw=None, record=None):
+    """One scenario on both backends, torch first: identical edits (floats
+    within PLANNER_TOL), admission log and counters, reconfigurations,
+    violations against the trace-scaled specs, and final plan."""
+    horizon_ms = horizon_s * 1000.0
+    tr, poisson = control_trace(name, [s.name for s in specs], horizon_ms, CONTROL_SEED)
+    kw = dict(trace=tr, poisson=poisson)
+    runs = {b: controlled_run(dev, b, plan, ctx, horizon_s, cfg_kw,
+                              record=record if b == "torch" else None, **kw)
+            for b in ("torch", "numpy")}
+    (ct, rt, wt, nt), (cn, rn, wn, nn) = runs["torch"], runs["numpy"]
+    label = f"controller {name} m={len(specs)}"
+    same = compare_edits(label, cn.edits, ct.edits)
+    assert ct.reconciler.admission_log == cn.reconciler.admission_log, label
+    assert ct.overload_stats() == cn.overload_stats(), label
+    assert rt.stats["n_reconfigs"] == rn.stats["n_reconfigs"], label
+    sb = scaled_specs(specs, tr, horizon_ms)
+    viol = rn.violations(sb)
+    assert rt.violations(sb) == viol, label
+    assert plan_key(ct.plan) == plan_key(cn.plan), label
+    out = {"edits": len(cn.edits), "edits_bit_identical": same,
+           "n_reconfigs": rn.stats["n_reconfigs"], "violations": len(viol),
+           "devices_final": cn.plan.n_gpus, "overload_stats": cn.overload_stats(),
+           "wall_s": {"torch": wt, "numpy": wn},
+           "reconfig_latency_ms": {"torch": rt.stats["reconfig_latency_ms"],
+                                   "numpy": rn.stats["reconfig_latency_ms"]},
+           "placement_s": {"torch": nt["placement_s"], "numpy": nn["placement_s"]},
+           "same_device_s": {"torch": nt["same_device_s"], "numpy": nn["same_device_s"]},
+           **{k: v for k, v in nt.items() if not k.endswith("_s")}}
+    if name == "no_drift":
+        for ctl, res in ((ct, rt), (cn, rn)):
+            assert ctl.edits == [] and res.stats["n_reconfigs"] == 0, label
+            assert ctl.plan is plan, f"{label}: the plan was replaced"
+    else:
+        assert rn.stats["n_reconfigs"] > 0, label
+    log(f"controller: {name} (m={len(specs)}, {horizon_s} s): torch and numpy agree: "
+        f"{out['edits']} edits ({same} bit-identical), {out['n_reconfigs']} reconfigurations, "
+        f"{out['violations']} violations, {nt['alloc_all_launches']} alloc_all launches for "
+        f"{nt['placements']} placements, none for {nt['same_device_resizes']} same-device "
+        f"resizes on the host, {nt['tables_launches']} tables launches "
+        f"({nt['table_rebuilds']} rebuilds); wall s torch {wt:.3f} numpy {wn:.3f}; "
+        f"controller ms torch {rt.stats['reconfig_latency_ms']:.1f} numpy "
+        f"{rn.stats['reconfig_latency_ms']:.1f}")
+    return out
+
+
+def spike_fixture_run(dev, specs, plan, ctx):
+    """tests/test_spike_fixture.py's run on the card: m = 100, 6 s, Poisson,
+    a 2.5x step at 2.4 s for 1.2 s, ControllerConfig(forecast=True),
+    Telemetry(retention=600), the torch backend; its predictive events must
+    hash to the pinned digest."""
+    import hashlib
+    from repro_torch.serving import telemetry, traces
+    tr = traces.step_spike([s.name for s in specs], 6000.0, at_ms=2400.0,
+                           duration_ms=1200.0, scale=2.5)
+    tel = telemetry.Telemetry(retention=600)
+    _, _, wall, counts = controlled_run(dev, "torch", plan, ctx, 6.0, {"forecast": True},
+                                        telemetry=tel, trace=tr, poisson=True)
+    pred = [e.to_dict() for e in tel.events
+            if e.kind in ("forecast", "shadow_arm", "shadow_disarm")]
+    sig = "|".join(f"{e['t_s']}:{e['kind']}:{e['workload']}:{e['replicas']}" for e in pred)
+    digest = hashlib.sha256(sig.encode()).hexdigest()
+    kinds = {k: sum(e["kind"] == k for e in pred) for k in SPIKE_EVENTS}
+    out = {"sha256": digest, "events": kinds,
+           "reconfig_events": tel.counters.get("reconfig_events"), "wall_s": wall, **counts}
+    assert digest == SPIKE_SEQUENCE_SHA256 and kinds == SPIKE_EVENTS \
+        and out["reconfig_events"] == SPIKE_RECONFIGS, out
+    log(f"controller: forecast spike run reproduces tests/test_spike_fixture.py: {out}")
+    return out
+
+
+def health_pair(dev, ctx):
+    """tests/test_overload.py's two health runs on the App study (14 s,
+    Poisson, health_readmit_s = 2) on both backends: a permanent 2.5x
+    straggler on W3's device is never readmitted, the same device after an
+    outage that ends is readmitted by the canary probe; identical edits."""
+    from repro_torch.core import provisioner as prov
+    from repro_torch.core.types import PlannerConfig
+    from repro_torch.serving import faults
+    from repro_torch.serving.workload import twelve_workloads
+    plan = prov.provision(twelve_workloads(), ctx.profiles, ctx.hw,
+                          config=PlannerConfig(device=str(dev)))
+    g = next(p.gpu for p in plan.placements if p.workload.name == "W3")
+    out = {}
+    for kind, fs in (("straggler", faults.FaultSchedule(slow={g: 2.5})),
+                     ("outage", faults.FaultSchedule(down={g: [[2000.0, 5000.0]]}))):
+        runs = {b: controlled_run(dev, b, plan, ctx, 14.0, {"health_readmit_s": 2.0},
+                                  faults=fs, poisson=True) for b in ("torch", "numpy")}
+        ct, cn = runs["torch"][0], runs["numpy"][0]
+        compare_edits(f"health {kind}", cn.edits, ct.edits)
+        for ctl in (ct, cn):
+            readmitted = any(e.action == "readmit" and e.workload == f"device:{g}"
+                             for e in ctl.edits)
+            quarantined = g in ctl.reconciler.quarantined
+            assert (quarantined, readmitted) == ((True, False) if kind == "straggler"
+                                                 else (False, True)), (kind, ctl.edits)
+        out[kind] = {"device": g, "edits": len(ct.edits),
+                     "quarantined_final": sorted(ct.reconciler.quarantined),
+                     "readmitted": kind == "outage", **runs["torch"][3]}
+    log(f"controller: health runs: {out}")
+    return out
+
+
+def launcher_cluster(dev, ctx):
+    """`python -m repro_torch.launch.serve --mode cluster --duration 5` through
+    its function on the card, against the numpy backend's plan and
+    simulation of the same study: the same devices, cost and per-workload
+    ok / VIOLATION flags."""
+    import contextlib
+    import io
+    from repro_torch.core import provisioner as prov
+    from repro_torch.core.types import PlannerConfig
+    from repro_torch.launch import serve
+    from repro_torch.serving import simulator
+    from repro_torch.serving.workload import models, specs_by_name, twelve_workloads
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.cluster("iGniter", 5.0, False, device=str(dev))
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    head = re.search(r"^devices=(\d+) cost=\$(\S+)/h", text, re.M)
+    flags = dict(re.findall(r"^  (W\d+)\s.* (ok|VIOLATION)$", text, re.M))
+    plan = prov.provision(twelve_workloads(), ctx.profiles, ctx.hw,
+                          config=PlannerConfig(budget="half", backend="numpy"))
+    res = simulator.simulate_plan(plan, models(), ctx.hw, duration_s=5.0, shadow=True,
+                                  backend="numpy")
+    sb = specs_by_name()
+    want = {w: "VIOLATION" if (m["p99_ms"] > sb[w].slo_ms or m["rps"] < 0.95 * sb[w].rate_rps)
+            else "ok" for w, m in res.per_workload.items()}
+    out = {"devices": int(head.group(1)), "cost_per_hour": float(head.group(2)),
+           "flags": flags, "wall_s": wall}
+    assert out["devices"] == plan.n_gpus and flags == want and len(flags) == 12, (out, want)
+    assert f"{plan.cost_per_hour():.2f}" == head.group(2), (out, plan.cost_per_hour())
+    log(f"controller: launch.serve --mode cluster on the card: {out['devices']} devices, "
+        f"${head.group(2)}/h, flags equal to numpy's ({sum(f == 'ok' for f in flags.values())} "
+        f"ok of 12), {wall:.1f} s")
+    return out
+
+
+def control_breakdown(dev, name, specs, plan, ctx):
+    """One profiled torch-backend run of scenario ``name``: the device ms of
+    the two kernels and the copies, and the card's idle share of the wall
+    time."""
+    tr, poisson = control_trace(name, [s.name for s in specs], CONTROL_HORIZON_S * 1000.0,
+                                CONTROL_SEED)
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
+        _, _, wall, counts = controlled_run(dev, "torch", plan, ctx, CONTROL_HORIZON_S,
+                                            trace=tr, poisson=poisson)
+    groups = {"alloc_all_kernel": 0.0, "tables_kernel": 0.0, "memcpy_htod": 0.0,
+              "memcpy_dtoh": 0.0, "other": 0.0}
+    for key, us in device_kernels_us(prof):
+        group = next((k for k in ("alloc_all_kernel", "tables_kernel") if k in key),
+                     "memcpy_htod" if "HtoD" in key else "memcpy_dtoh" if "DtoH" in key
+                     else "other")
+        groups[group] += us / 1e3
+    recorded = {k: 0 for k in ("alloc_all_kernel", "tables_kernel")}
+    for evt in prof.key_averages():
+        for k in recorded:
+            if k in evt.key and evt.device_type == torch.autograd.DeviceType.CUDA:
+                recorded[k] += evt.count
+    # a dropped record would hide device time: the idle share is an upper
+    # bound then, and the recorded counts say by how much
+    out = {"scenario": name, "wall_s": wall, "device_ms": groups,
+           "idle_share": max(0.0, 1.0 - sum(groups.values()) / (wall * 1e3)),
+           "alloc_all_launches": counts["alloc_all_launches"],
+           "tables_launches": counts["tables_launches"], "kernels_recorded": recorded}
+    log(f"controller: profiled {name} run: {out}")
+    return out
+
+
+def event_ms(fn, iters=200, sleep_cycles=100_000_000):
+    """Device ms per call of fn over ``iters`` back-to-back calls, read with
+    CUDA events (after phase 7's long profiled run torch.profiler drops the
+    records of small kernels: see device_ms).  The card sleeps while the
+    host enqueues the calls, so the events time the kernels and the gaps
+    between them on the card, not the host's launch rate; the sleep must
+    outlast the enqueueing.  Returns (ms per call, host enqueue ms, sleep ms)."""
+    for _ in range(5):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(sleep_cycles)
+    end.record()
+    torch.cuda.synchronize()
+    sleep_ms = start.elapsed_time(end)
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    assert enqueue_ms < 0.8 * sleep_ms, \
+        f"event_ms: enqueueing took {enqueue_ms:.2f} ms, the sleep {sleep_ms:.2f} ms"
+    return start.elapsed_time(end) / iters, enqueue_ms, sleep_ms
+
+
+def time_alloc_all_call(dev, record):
+    """alloc_all_kernel's device time per call at the last placement of a
+    controlled m = 100 run (the controller's typical d and N; CUDA events
+    over 200 calls), beside its bound: each input read once and each output
+    written once."""
+    from repro_torch.core import perf_model_torch as pmt
+    from repro_torch.kernels import grant_loop
+    cl, args = record["state"].cl, record["args"]
+    d, n = cl.d, cl.mask.shape[1]
+    packed = torch.from_numpy(pmt.pack(cl, *args)).to(dev)
+    ms, enqueue_ms, sleep_ms = event_ms(lambda: grant_loop.alloc_all(packed, d, n))
+    nbytes = 8 * (grant_loop.pack_size(d, n) + grant_loop.out_size(d, n))
+    out = {"d": d, "n": n, "ms": ms, "timer": "cuda events, 200 calls", "bytes": nbytes,
+           "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "enqueue_ms": enqueue_ms,
+           "sleep_ms": sleep_ms}
+    log(f"timing: alloc_all at the controller's last placement (d {d}, N {n}): {ms:.4f} ms "
+        f"a call over 200 (bytes bound {out['bound_ms']:.6f} ms; enqueued in "
+        f"{enqueue_ms:.2f} ms behind a {sleep_ms:.2f} ms sleep)")
+    return out
+
+
+def run_controller(dev):
+    """The closed loop on the card: dynamic_sweep's five scenarios on
+    synthetic_workloads(100, 0) (tpu-v5e), each with a fresh Controller on
+    backend="torch" on the card and again on "numpy"; the spike fixture's
+    forecast run; the two health runs; then the diurnal run's timing (median
+    of 3 in turns), alloc_all's device time at the controller's shapes, the
+    m = 1000 diurnal run on both backends, one profiled run's idle share,
+    and the launcher's cluster mode."""
+    from repro_torch.core import provisioner as prov
+    from repro_torch.core.experiments import fitted_context
+    from repro_torch.core.types import PlannerConfig
+    from repro_torch.serving.workload import synthetic_workloads
+    ctx = fitted_context("tpu-v5e")
+    specs = synthetic_workloads(CONTROL_M, CONTROL_SEED)
+    plan = prov.provision(specs, ctx.profiles, ctx.hw, config=PlannerConfig(device=str(dev)))
+    assert plan_key(plan) == plan_key(prov.provision(
+        specs, ctx.profiles, ctx.hw, config=PlannerConfig(backend="numpy")))
+    record = {}
+    scenarios = {}
+    for name in CONTROL_SCENARIOS:
+        s, p, cfg_kw = specs, plan, None
+        if name == "overload":
+            s, p = overload_fleet(specs, ctx, PlannerConfig(device=str(dev)))
+            cfg_kw = {"max_devices": p.n_gpus, "headroom": 0.35}
+        scenarios[name] = scenario_pair(dev, name, s, p, ctx, CONTROL_HORIZON_S, cfg_kw,
+                                        record=record if name == "diurnal" else None)
+    assert sum(sc["alloc_all_launches"] for sc in scenarios.values()) > 0, \
+        "no controlled run launched alloc_all"
+    assert all(sc["tables_launches"] > 0 for sc in scenarios.values()), scenarios
+    spike = spike_fixture_run(dev, specs, plan, ctx)
+    health = health_pair(dev, ctx)
+    alloc_call = time_alloc_all_call(dev, record)
+
+    # the diurnal run's timing: two more runs a backend, in turns
+    d0 = scenarios["diurnal"]
+    walls = {b: [d0["wall_s"][b]] for b in ("torch", "numpy")}
+    ctl_ms = {b: [d0["reconfig_latency_ms"][b]] for b in walls}
+    tr, _ = control_trace("diurnal", [s.name for s in specs], CONTROL_HORIZON_S * 1000.0,
+                          CONTROL_SEED)
+    for _ in range(2):
+        for b in walls:
+            _, res, wall, _ = controlled_run(dev, b, plan, ctx, CONTROL_HORIZON_S, trace=tr)
+            assert res.stats["n_reconfigs"] == d0["n_reconfigs"], b
+            walls[b].append(wall)
+            ctl_ms[b].append(res.stats["reconfig_latency_ms"])
+    timing = {"wall_s": walls, "reconfig_latency_ms": ctl_ms,
+              "wall_s_median": {b: float(np.median(w)) for b, w in walls.items()},
+              "reconfig_latency_ms_median": {b: float(np.median(w))
+                                             for b, w in ctl_ms.items()}}
+    log(f"controller: diurnal m={CONTROL_M} timing: {timing}")
+
+    # the Sec. 5.5 overhead run: m = 1000 diurnal, one run a backend
+    specs_k = synthetic_workloads(1000, CONTROL_SEED)
+    plan_k = prov.provision(specs_k, ctx.profiles, ctx.hw, config=PlannerConfig(device=str(dev)))
+    m1000 = scenario_pair(dev, "diurnal", specs_k, plan_k, ctx, CONTROL_M1000_HORIZON_S)
+    m1000["devices"] = plan_k.n_gpus
+    profiled = control_breakdown(dev, "diurnal", specs, plan, ctx)
+    launcher = launcher_cluster(dev, ctx)
+    stats = {"m": CONTROL_M, "seed": CONTROL_SEED, "horizon_s": CONTROL_HORIZON_S,
+             "devices": plan.n_gpus, "scenarios": scenarios, "spike_fixture": spike,
+             "health": health, "diurnal_timing": timing, "alloc_all_call": alloc_call,
+             "m1000_diurnal": {"horizon_s": CONTROL_M1000_HORIZON_S, **m1000},
+             "profiled": profiled, "launcher_cluster": launcher}
+    return stats
+
 def main():
     if not PORT_TREE.is_dir():
         print(f"chip_smoke: {PORT_TREE} is missing: this script drives the port "
@@ -1738,6 +2195,8 @@ def main():
     grids, tables_err = check_tables(dev, np.random.default_rng(29))
     tables_kernel, simulator_stats = run_simulator(dev)
     tables_kernel["max_abs_err"] = tables_err
+    # phase 8, the controller, before the pumps as well
+    controller_stats = run_controller(dev)
     launches, slices = dict.fromkeys(errs, 0), []
     for arch, layers in MODELS:
         check_small_against_cpu(dev, arch)
@@ -1758,6 +2217,7 @@ def main():
           flush=True)
     print(json.dumps({"simulator": {"table_grids": grids, **simulator_stats, "gpu": smi}}),
           flush=True)
+    print(json.dumps({"controller": {**controller_stats, "gpu": smi}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0

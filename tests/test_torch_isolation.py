@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_no_repro():
                 "core/coefficients.py", "kernels/grant_loop.py", "kernels/tables.py",
                 "profiling/metrics.py", "serving/workload.py", "serving/traces.py",
                 "serving/faults.py", "serving/physics.py", "serving/physics_torch.py",
-                "serving/telemetry.py", "serving/simulator.py"):
+                "serving/telemetry.py", "serving/simulator.py",
+                "serving/controller.py"):
         assert mod in found
     bad = {str(p.relative_to(REPO)): _reaches_jax_or_repro(ast.parse(p.read_text()))
            for p in files}
