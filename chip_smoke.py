@@ -31,18 +31,29 @@ Phases (any failure raises and exits non-zero):
                  served shape valid
                  slots only in the cluster's last block and a row with no
                  valid slot, f32 and bf16), and each kernel at its served
-                 model's own shapes; decode's cluster size at both served
-                 shapes fills the card; inputs no kernel is built for raise
-  4. slices   -- for each served model (qwen3-4b, rwkv6-1.6b, zamba2-2.7b)
-                 at full width (full depth but for qwen3-4b: see MODELS;
-                 f32, random weights from a torch.Generator on the card):
-                 a reduced model on the card
+                 model's own shapes (flash and decode at every served
+                 model's query heads per kv head at head_dim 128: G = 1, 3,
+                 4, 6, 8, f32 and bf16); decode's cluster size at the served
+                 shapes fills the card, but for yi-6b's 16 (batch, kv head)
+                 pairs (logged); inputs no kernel is built for raise
+  4. slices   -- for each served model (qwen3-4b, rwkv6-1.6b, zamba2-2.7b,
+                 yi-6b, qwen1.5-4b, minitron-4b, mixtral-8x22b, dbrx-132b)
+                 at full width (depth cut for the last five and qwen3-4b:
+                 see MODELS; f32, random weights from a torch.Generator on
+                 the card): a reduced model on the card
                  must match the same model's plain CPU path (rel. err <=
-                 1e-4); ServingEngine answers 16 requests in 4 pumps; the
+                 1e-4; an MoE model's routed experts equal, the smallest
+                 top-k / (k+1) probability gap logged); ServingEngine answers
+                 16 requests in 4 pumps; the
                  kernels' launch counters are read over those pumps alone
-                 and must be exactly what the model runs; the first decode
+                 and must be exactly what the model runs, and so are the
+                 MoE layers' dropped assignments; the first decode
                  step's logits must equal a prefill over prompt + that token
-                 (rel. err <= 1e-3); a reset cache must give a fresh cache's
+                 (rel. err <= 1e-3; for an MoE model on a model sharing the
+                 weights whose capacity factor drops nothing); apply_moe
+                 must match moe_plain on the first MoE layer's prefill input
+                 at the published capacity, drops included; a reset cache
+                 must give a fresh cache's
                  logits bit for bit, and a fifth pump of the first pump's
                  prompts the first pump's tokens; one prefill and one decode
                  step alone, on the host clock and under torch.profiler.
@@ -57,7 +68,8 @@ Phases (any failure raises and exits non-zero):
                  the served shapes, beside the least time the card could
                  take (bound_ms at the 3xTF32 rate, bound_f32_cores_ms at
                  the CUDA cores' float32 rate); attention also at zamba2's
-                 head_dim 80; one decode call launches exactly one kernel
+                 head_dim 80 and at mixtral's 48 / 8 heads; one decode call
+                 launches exactly one kernel
   6. planner  -- (run after phase 5, before phase 4) the Alg. 2 grant loop,
                  alloc_all_kernel (csrc/planner.cu, float64), against its
                  plain version on the card and against the port's numpy
@@ -128,6 +140,7 @@ tables_kernel), one {"slice": {...}} line per model, one {"planner": {...}}
 line, one {"simulator": {...}} line, one {"controller": {...}} line, and
 last {"ok": true, "device": {...}}.
 """
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -163,8 +176,15 @@ SSD_SHAPE = (4, 512, 80, 64, 64)         # zamba2-2.7b prefill: B, S, H, hd, N
 
 BATCH, PROMPT, DECODE, PUMPS = 4, 512, 4, 4
 # (arch, layers): every model the port serves, at full width; None = full
-# depth.  qwen3-4b runs 12 of its 36 layers to keep the script near 90 s.
-MODELS = [("qwen3-4b", 12), ("rwkv6-1.6b", None), ("zamba2-2.7b", None)]
+# depth.  Depth is cut to keep the script near 200 s: qwen3-4b runs 12 of
+# its 36 layers, the other dense models 8, the MoE models 2 (9.66 and
+# 12.68 GB of float32 experts a layer).
+MODELS = [("qwen3-4b", 12), ("rwkv6-1.6b", None), ("zamba2-2.7b", None),
+          ("yi-6b", 8), ("qwen1.5-4b", 8), ("minitron-4b", 8),
+          ("mixtral-8x22b", 2), ("dbrx-132b", 2)]
+# (query heads, kv heads) at head_dim 128 of the served attention models
+SERVED_HEADS = {"qwen3-4b": (32, 8), "yi-6b": (32, 4), "qwen1.5-4b": (20, 20),
+                "minitron-4b": (24, 8), "mixtral-8x22b": (48, 8)}   # dbrx: mixtral's
 REL_TOL_FULL, REL_TOL_SMALL = 1e-3, 1e-4
 
 
@@ -316,6 +336,12 @@ def check_flash(dev, rng):
               for dt in dts]
     cases += [(2, 100, 4, 2, hd, dt, causal, w) for w in (1, 1000) for hd in (64, 80)
               for dt in dts for causal in (True, False)]
+    # the served models' query heads per kv head at head_dim 128 (SERVED_HEADS),
+    # at a ragged prompt, mixtral's also under a window shorter than it
+    served = [(2, PROMPT + 1, H, KV, 128, dt, True, None) for H, KV in SERVED_HEADS.values()
+              for dt in dts]
+    served += [(2, PROMPT + 1, 48, 8, 128, dt, True, 64) for dt in dts]
+    cases += served
     for B, S, H, KV, hd, dt, causal, window in cases:
         q = rand(rng, (B, S, H, hd), dt, dev)
         k, v = rand(rng, (B, S, KV, hd), dt, dev), rand(rng, (B, S, KV, hd), dt, dev)
@@ -329,7 +355,8 @@ def check_flash(dev, rng):
     err = check_close("flash slice shape", flash_attention(q, k, v),
                       ref.attention_ref(q, k, v), TOL[torch.float32])
     log(f"kernels: flash_attention matches its plain version on {len(cases) + 1} "
-        f"cases; slice-shape max_abs_err {err:.3g}")
+        f"cases ({len(served)} at the served group sizes G = "
+        f"{sorted({H // KV for H, KV in SERVED_HEADS.values()})}); slice-shape max_abs_err {err:.3g}")
     x = torch.zeros((1, 64, 2, 96), device=dev)          # head_dim 96: no kernel
     expect_refusal("flash_attention head_dim 96", lambda: flash_attention(x, x, x))
     return err
@@ -444,18 +471,31 @@ def check_decode(dev, rng):
         decode_last_block_case(dev, rng, dt)
         decode_slice_case(dev, rng, dt, no_valid_row=True)
         n += 2
+    # the served models' query heads per kv head at head_dim 128, at their
+    # first decode step's cache (mixtral's is rolling: the same slots)
+    served = 0
+    for H, KV in SERVED_HEADS.values():
+        for dt in dts:
+            q, [(kc, vc)], qpos, kvpos = decode_inputs(dev, rng, H=H, KV=KV, dt=dt)
+            decode_case(dev, rng, BATCH, kc.shape[2], H, KV, 128, dt, None, qpos, kvpos,
+                        (kc.transpose(1, 2), vc.transpose(1, 2)), q, name="served ")
+            served += 1
     err = decode_slice_case(dev, rng)
-    log(f"kernels: decode_attention matches its plain version on {n + 3} cases; "
-        f"slice-shape max_abs_err {err:.3g}")
-    # one launch of clusters; at the served shapes more blocks than SMs
+    log(f"kernels: decode_attention matches its plain version on {n + served + 3} cases "
+        f"({served} at the served group sizes); slice-shape max_abs_err {err:.3g}")
+    # one launch of clusters; at the served shapes more blocks than SMs, but
+    # for yi-6b: 4 x 4 (batch, kv head) pairs in clusters of at most 8
     from repro_torch.kernels.decode_attention import cluster_room, decode_cluster
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    kv_heads = {"qwen3-4b": 8, "zamba2-2.7b": 32}
+    kv_heads = {"qwen3-4b": 8, "zamba2-2.7b": 32, "qwen1.5-4b": 20, "mixtral-8x22b": 8,
+                "dbrx-132b": 8, "yi-6b": 4}
     split = {arch: decode_cluster(BATCH, kv, PROMPT + DECODE + 8, dev)
              for arch, kv in kv_heads.items()}
-    assert all(BATCH * kv_heads[arch] * c >= sms for arch, c in split.items()), (split, sms)
-    log(f"kernels: decode clusters per (batch, kv head) {split}; room for clusters of "
-        f"1..8 at one block per SM {cluster_room(dev.index or 0)}")
+    assert all(BATCH * kv_heads[arch] * c >= sms for arch, c in split.items()
+               if arch != "yi-6b"), (split, sms)
+    log(f"kernels: decode clusters per (batch, kv head) {split}; yi-6b's grid "
+        f"{BATCH * 4 * split['yi-6b']} blocks, {BATCH * 4 * split['yi-6b'] / sms:.3f} a SM; "
+        f"room for clusters of 1..8 at one block per SM {cluster_room(dev.index or 0)}")
     return err
 
 
@@ -661,6 +701,8 @@ def run_slice(dev, arch, layers=None):
     """Serve ``arch`` at full width (``layers``: cut depth) on the card."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.zoo import build_model
     from repro_torch.serving.engine import Request, ServingEngine
     cfg = get_config(arch)
     if layers is not None:
@@ -679,6 +721,7 @@ def run_slice(dev, arch, layers=None):
                for _ in range(BATCH * PUMPS)]
     done = []
     ops.reset_launch_counts()
+    moe.reset_drop_counts()
     t_start = time.perf_counter()
     for p in range(PUMPS):
         for i in range(BATCH):
@@ -687,6 +730,7 @@ def run_slice(dev, arch, layers=None):
         done += eng.pump()
     wall = time.perf_counter() - t_start
     launches = ops.launch_counts()
+    drops = moe.drop_counts()
 
     assert len(done) == BATCH * PUMPS, len(done)
     for c in done:
@@ -696,17 +740,40 @@ def run_slice(dev, arch, layers=None):
     assert launches == want, (launches, want)
     log(f"slice: {arch}: {len(done)} completions in {PUMPS} pumps, launches {launches}")
 
-    # consistency at full width: decode step 1 == prefill over prompt + token
+    moe_stats = None
+    if cfg.is_moe:
+        moe_stats = {"drop_share_per_layer": [d / n for d, n in drops.values()],
+                     "dropped_per_layer": [d for d, _ in drops.values()],
+                     "assignments_per_layer": [n for _, n in drops.values()]}
+        log(f"slice: {arch}: MoE drop share per layer over the pumps (decode never "
+            f"drops) {[f'{x:.4f}' for x in moe_stats['drop_share_per_layer']]}")
+
+    # consistency at full width: decode step 1 == prefill over prompt + token;
+    # an MoE model drops by capacity in the prefill, so that check runs on a
+    # second model sharing the weights whose capacity factor expert_shards·E/K
+    # drops nothing
     model, params = eng.model, eng.params
+    check = model
+    if cfg.is_moe:
+        dropless = cfg.expert_shards * cfg.n_experts / cfg.top_k
+        check = build_model(cfg.replace(capacity_factor=dropless), dev)
     toks = torch.from_numpy(np.stack(prompts[:BATCH])).to(dev)
     buf = PROMPT + DECODE + 8
     with torch.inference_mode():
         cache = model.init_cache(BATCH, buf, dtype=torch.float32)
-        lg0, cache = model.prefill(params, {"tokens": toks}, cache)
+        with capture_moe_input() as moe_in:
+            lg0, cache = model.prefill(params, {"tokens": toks}, cache)
         tok = lg0.argmax(-1).to(torch.int32)[:, None]
-        lg1, _ = model.decode_step(params, tok, cache)
-        full, _ = model.prefill(params, {"tokens": torch.cat([toks, tok], 1)},
-                                model.init_cache(BATCH, buf, dtype=torch.float32))
+        if check is not model:
+            moe.reset_drop_counts()
+            _, cache = check.prefill(params, {"tokens": toks}, cache)
+        lg1, _ = check.decode_step(params, tok, cache)
+        full, _ = check.prefill(params, {"tokens": torch.cat([toks, tok], 1)},
+                                check.init_cache(BATCH, buf, dtype=torch.float32))
+        if check is not model:
+            assert all(d == 0 for d, _ in moe.drop_counts().values()), moe.drop_counts()
+            moe_stats.update(dropless_capacity_factor=dropless,
+                             **moe_against_plain(cfg, *moe_in))
         # the same prompt from the used cache, without and with reset_cache
         stale, _ = model.prefill(params, {"tokens": toks}, cache)
         again, _ = model.prefill(params, {"tokens": toks}, model.reset_cache(cache))
@@ -743,16 +810,63 @@ def run_slice(dev, arch, layers=None):
              "prefill_ms": (t1 - t0) * 1e3, "decode_step_ms": (t2 - t1) * 1e3,
              "decode_vs_prefill_rel_err": rel, "unreset_cache_rel_err": stale_rel,
              "alone": profile_alone(model, params, cfg, toks, tok, buf)}
+    if moe_stats:
+        stats["moe"] = moe_stats
     # a pump of the first pump's prompts again: the engine's cache, reset,
     # must give the same tokens (a state left from the last pass would not)
     stats["profile"], again = profile_pump(eng, prompts[:BATCH], wall * 1e3 / PUMPS)
     assert all(np.array_equal(a.tokens, c.tokens) for a, c in zip(again, done[:BATCH])), \
         "a repeated pump gave other tokens"
     log(f"slice: {arch}: a repeated pump returns the first pump's tokens")
-    del eng, model, params, cache
+    del eng, model, check, params, cache
     gc.collect()
     torch.cuda.empty_cache()
     return launches, stats
+
+
+@contextlib.contextmanager
+def capture_moe_input():
+    """Inside the block, the first MoE layer's call keeps its weights and
+    input in the list it yields."""
+    from repro_torch.models import moe
+    apply_moe, seen = moe.apply_moe, []
+
+    def keep(p, x, cfg, **kw):
+        if not seen:
+            seen.extend((p, x))
+        return apply_moe(p, x, cfg, **kw)
+
+    moe.apply_moe = keep
+    try:
+        yield seen
+    finally:
+        moe.apply_moe = apply_moe
+
+
+def moe_against_plain(cfg, p, x):
+    """apply_moe against moe_plain (the reference's one-hot einsums) on one
+    layer's prefill input at the published capacity factor: outputs within
+    REL_TOL_SMALL of max|y|, aux losses and dropped assignments equal."""
+    from repro_torch.models import moe
+    moe.reset_drop_counts()
+    y, aux = moe.apply_moe(p, x, cfg)
+    y_plain, aux_plain = moe.moe_plain(p, x, cfg)
+    dropped, total = moe.drop_counts()[0]
+    n, Sc, C = moe._chunking(x.shape[1], cfg, 512)
+    ids, gates, _ = moe._route(p["router"], x, cfg.top_k)
+    kept = sum(float(moe._dispatch_combine(ids[:, i * Sc:(i + 1) * Sc], gates[:, i * Sc:(i + 1) * Sc],
+                                           cfg.n_experts, C, cfg.expert_shards)[0].sum())
+               for i in range(n)) / cfg.expert_shards
+    rel = rel_err(y, y_plain)
+    log(f"moe: {cfg.name} layer 0, full width: apply_moe vs moe_plain rel. err {rel:.3g} "
+        f"(limit {REL_TOL_SMALL}); dropped {dropped} of {total} assignments "
+        f"({dropped / total:.4f}), the plain version {total - kept:.0f}; capacity {C} a virtual "
+        f"expert, {min(-(-C // cfg.expert_shards), Sc)} fillable")
+    assert rel <= REL_TOL_SMALL, rel
+    assert dropped == total - kept, (dropped, total - kept)
+    assert abs(float(aux) - float(aux_plain)) <= 1e-6 * abs(float(aux_plain)), (aux, aux_plain)
+    return {"apply_moe_vs_plain_rel_err": rel, "layer0_prefill_dropped": dropped,
+            "layer0_prefill_assignments": total, "capacity": C}
 
 
 KERNEL_GROUPS = {"flash_attn_kernel": "flash_attention", "decode_attn": "decode_attention",
@@ -784,14 +898,23 @@ def aten_calls(prof):
 
 def prefill_matmul_flops(cfg, batch, seq):
     """Operations of the prefill's matrix products, from the shapes: every
-    projection of every block (attention QKV/O and SwiGLU; RWKV6 r, k, v,
-    g, o, its low-rank mixes and channel mix; Mamba2 in/out projections),
-    zamba2's shared block once per group, and the head on the last token."""
-    from repro_torch.models import rwkv, ssm
+    projection of every block (attention QKV/O and the MLP: SwiGLU's three
+    products or GELU's two; the MoE layer's router and its three expert
+    products over the slots the port computes, E·ks virtual experts x B x
+    min(ceil(C / ks), Sc) rows a chunk; RWKV6 r, k, v, g, o, its low-rank mixes and
+    channel mix; Mamba2 in/out projections), zamba2's shared block once per
+    group, and the head on the last token."""
+    from repro_torch.models import moe, rwkv, ssm
     T, d, hd, kind = batch * seq, cfg.d_model, cfg.hd, cfg.pattern[0]
-    attn = (2 * T * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
-            + 2 * T * cfg.n_heads * hd * d + 3 * 2 * T * d * cfg.d_ff)
-    if kind == "attn":
+    proj = (2 * T * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+            + 2 * T * cfg.n_heads * hd * d)
+    attn = proj + (3 if cfg.act_fn == "silu" else 2) * 2 * T * d * cfg.d_ff
+    if kind == "attn" and cfg.is_moe:
+        n, Sc, C = moe._chunking(seq, cfg, 512)
+        ks = cfg.expert_shards
+        rows = n * cfg.n_experts * ks * batch * min(-(-C // ks), Sc)
+        per_layer = proj + 2 * T * d * cfg.n_experts + 3 * 2 * rows * d * (cfg.d_ff // ks)
+    elif kind == "attn":
         per_layer = attn
     elif kind == "rwkv6":
         per_layer = 2 * T * (6 * d * d + 2 * d * cfg.d_ff
@@ -852,10 +975,44 @@ def _leaves(tree):
         yield tree
 
 
+@contextlib.contextmanager
+def record_routes():
+    """Inside the block, every MoE routing appends its (top-k ids, probs)
+    to the list it yields."""
+    from repro_torch.models import moe
+    route, seen = moe._route, []
+
+    def keep(router_w, x, top_k):
+        out = route(router_w, x, top_k)
+        seen.append((out[0], out[2]))
+        return out
+
+    moe._route = keep
+    try:
+        yield seen
+    finally:
+        moe._route = route
+
+
+def check_routes(arch, cpu, card, top_k):
+    """The card's routed expert ids equal the CPU's, call for call; the
+    smallest gap between a token's k-th and (k+1)-th probability names how
+    near a tie came to flipping."""
+    assert len(cpu) == len(card) > 0, (len(cpu), len(card))
+    gap = min(float((t[..., top_k - 1] - t[..., top_k]).min())
+              for t in (p.sort(-1, descending=True).values for _, p in cpu))
+    for n, ((ids_cpu, _), (ids_card, _)) in enumerate(zip(cpu, card)):
+        assert torch.equal(ids_cpu, ids_card.cpu()), \
+            f"{arch}: routing call {n} picked other experts on the card (smallest gap {gap:.3g})"
+    log(f"small: reduced {arch}: the card routes every token to the CPU's experts "
+        f"({len(card)} routings); smallest top-{top_k} / {top_k + 1} probability gap {gap:.3g}")
+    return gap
+
+
 def check_small_against_cpu(dev, arch):
     """A reduced ``arch`` on the card against the same weights on the CPU
-    (plain path): logits of prefill and three decode steps.  zamba2 keeps
-    two groups (4 layers)."""
+    (plain path): logits of prefill and three decode steps, and for an MoE
+    model the routed experts.  zamba2 keeps two groups (4 layers)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.zoo import build_model
     cfg = get_config(arch)
@@ -865,18 +1022,25 @@ def check_small_against_cpu(dev, arch):
     params_gpu = _to(params_cpu, dev)
     rng = np.random.default_rng(2)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)))
-    worst = 0.0
     with torch.inference_mode():
-        cc = cpu_model.init_cache(2, 32, dtype=torch.float32)
-        gc_ = gpu_model.init_cache(2, 32, dtype=torch.float32)
-        lc, cc = cpu_model.prefill(params_cpu, {"tokens": tokens}, cc)
-        lg, gc_ = gpu_model.prefill(params_gpu, {"tokens": tokens.to(dev)}, gc_)
-        worst = max(worst, rel_err(lg.cpu(), lc))
-        for _ in range(3):
-            tok = lc.reshape(2, -1).argmax(-1).to(torch.int32)[:, None]
-            lc, cc = cpu_model.decode_step(params_cpu, tok, cc)
-            lg, gc_ = gpu_model.decode_step(params_gpu, tok.to(dev), gc_)
-            worst = max(worst, rel_err(lg.cpu(), lc))
+        with record_routes() as routes_cpu:
+            lc, cc = cpu_model.prefill(params_cpu, {"tokens": tokens},
+                                       cpu_model.init_cache(2, 32, dtype=torch.float32))
+            want, toks = [lc], []
+            for _ in range(3):
+                toks.append(lc.reshape(2, -1).argmax(-1).to(torch.int32)[:, None])
+                lc, cc = cpu_model.decode_step(params_cpu, toks[-1], cc)
+                want.append(lc)
+        with record_routes() as routes_card:
+            lg, gc_ = gpu_model.prefill(params_gpu, {"tokens": tokens.to(dev)},
+                                        gpu_model.init_cache(2, 32, dtype=torch.float32))
+            got = [lg]
+            for tok in toks:
+                lg, gc_ = gpu_model.decode_step(params_gpu, tok.to(dev), gc_)
+                got.append(lg)
+    if cfg.is_moe:
+        check_routes(arch, routes_cpu, routes_card, cfg.top_k)
+    worst = max(rel_err(g.cpu(), w) for g, w in zip(got, want))
     log(f"small: reduced {arch} on the card vs CPU, worst rel. err {worst:.3g} "
         f"(limit {REL_TOL_SMALL})")
     assert worst <= REL_TOL_SMALL, worst
@@ -2187,6 +2351,11 @@ def main():
             time_decode(dev, rng, errs["decode_attention"], 32, 32, 80)]
     for k in hd80:
         log_timing(k, f"{k['name']} (zamba2-2.7b, head_dim 80)")
+    # and at mixtral-8x22b's and dbrx-132b's: 48 query heads on 8 kv heads
+    h48 = [time_flash(dev, rng, errs["flash_attention"], 48, 8, 128),
+           time_decode(dev, rng, errs["decode_attention"], 48, 8, 128)]
+    for k in h48:
+        log_timing(k, f"{k['name']} (mixtral-8x22b / dbrx-132b, 48 / 8 heads)")
     # phase 6, the planner, before the pumps' large profiler runs as well
     clusters, planner_err = check_planner(dev, np.random.default_rng(17))
     planner_kernel, planner = run_planner(dev)
@@ -2205,10 +2374,12 @@ def main():
         slices.append(stats)
     kernels = ([{**k, "launches": launches[k["name"]]} for k in kernels]
                + [planner_kernel, tables_kernel])
-    zamba = next(st for st in slices if st["arch"] == "zamba2-2.7b")
-    zamba["attention_hd80"] = {k["name"]: {key: k[key] for key in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms")}
-        for k in hd80}
+    timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms")
+    for st in slices:
+        extra = {"zamba2-2.7b": ("attention_hd80", hd80), "mixtral-8x22b": ("attention_h48", h48),
+                 "dbrx-132b": ("attention_h48", h48)}.get(st["arch"])
+        if extra:
+            st[extra[0]] = {k["name"]: {key: k[key] for key in timing_keys} for k in extra[1]}
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     for stats in slices:

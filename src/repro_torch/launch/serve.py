@@ -7,6 +7,7 @@ Single-host engine (reduced model, real batched inference on one GPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --mode engine --arch qwen3-4b
   PYTHONPATH=src python -m repro_torch.launch.serve --mode engine --arch rwkv6-1.6b
   PYTHONPATH=src python -m repro_torch.launch.serve --mode engine --arch zamba2-2.7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode engine --arch mixtral-8x22b
 
 Both modes run on ``--device`` (default cuda:0, failing without CUDA;
 ``cpu`` on request), as the JAX launcher's two modes run on its backend.
@@ -16,9 +17,11 @@ grant loop as a CUDA kernel on a card) and simulates the chosen plan
 (`serving.simulator.simulate_plan`, the latency tables as a CUDA kernel),
 printing each workload's p99 and rate against its SLO.  Engine mode serves
 a reduced model (2 layers, d_model 256) of any family the port runs:
-dense attention (qwen3-4b and the other "attn" configs without MoE,
-encoder or M-RoPE), RWKV6 (rwkv6-1.6b) and Mamba2 with shared attention
-(zamba2-2.7b); on the card the prompt goes through the CUDA kernels (flash
+decoder-only attention with a dense MLP (qwen3-4b, yi-6b, qwen1.5-4b,
+minitron-4b's GELU MLP) or top-k routed experts (mixtral-8x22b,
+dbrx-132b), RWKV6 (rwkv6-1.6b) and Mamba2 with shared attention
+(zamba2-2.7b); not yet the encoder and vision models (whisper-large-v3,
+qwen2-vl-7b).  On the card the prompt goes through the CUDA kernels (flash
 attention, or the rwkv6 / SSD scan) and each decode step through
 flash-decode attention where the model has attention; ``--device cpu``
 runs their plain versions.
@@ -79,7 +82,9 @@ def main():
     ap.add_argument("--strategy", default="iGniter")
     ap.add_argument("--duration", type=float, default=20.0)
     ap.add_argument("--poisson", action="store_true")
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="qwen3-4b",
+                    help="engine mode: qwen3-4b, qwen3-4b-swa, yi-6b, qwen1.5-4b, "
+                         "minitron-4b, mixtral-8x22b, dbrx-132b, rwkv6-1.6b or zamba2-2.7b")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--device", default=None,
                     help="default cuda:0 (fails without CUDA); 'cpu' on request")

@@ -3,8 +3,10 @@
 ``params_from_jax`` takes the JAX parameter tree after
 ``jax.tree.map(np.asarray, params)`` and returns the port's tree: the same
 nested dicts and leaf layouts, with the stacked leading layer axis of
-``params["blocks"]`` split into one dict per layer (attention, RWKV6 or
-Mamba2 blocks alike); every other entry, zamba2's unstacked
+``params["blocks"]`` split into one dict per layer (attention blocks
+with a SwiGLU or GELU MLP or with MoE experts, RWKV6 or Mamba2 blocks
+alike; an MoE block's experts keep their virtual-expert axis); every
+other entry, zamba2's unstacked
 ``shared_attn`` block among them, is copied as it is.  Values are copied
 exactly: a float32 leaf stays bit-for-bit the same float32.
 """

@@ -63,28 +63,32 @@ def apply_norm(p, x, eps=1e-5):
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU or GELU)
 # ---------------------------------------------------------------------------
 
 def init_mlp(generator, d, ff, device, act_fn: str = "silu"):
-    if act_fn != "silu":
-        raise NotImplementedError(
-            f"the {act_fn.upper()} MLP with b_up / b_down (minitron-4b, whisper) "
-            "is not ported yet; only SwiGLU runs")
+    if act_fn == "silu":
+        return {
+            "w_gate": _dense_init((d, ff), generator, device),
+            "w_up": _dense_init((d, ff), generator, device),
+            "w_down": _dense_init((ff, d), generator, device),
+        }
     return {
-        "w_gate": _dense_init((d, ff), generator, device),
         "w_up": _dense_init((d, ff), generator, device),
+        "b_up": torch.zeros((ff,), dtype=torch.float32, device=device),
         "w_down": _dense_init((ff, d), generator, device),
+        "b_down": torch.zeros((d,), dtype=torch.float32, device=device),
     }
 
 
 def apply_mlp(p, x, act_fn: str = "silu"):
-    if act_fn != "silu":
-        raise NotImplementedError(
-            f"the {act_fn.upper()} MLP with b_up / b_down (minitron-4b, whisper) "
-            "is not ported yet; only SwiGLU runs")
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    if act_fn == "silu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        return h @ p["w_down"]
+    # jax.nn.gelu, which the JAX package calls, is the tanh approximation
+    # by default; torch's default is the exact erf form
+    h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
+    return h @ p["w_down"] + p["b_down"]
 
 
 # ---------------------------------------------------------------------------

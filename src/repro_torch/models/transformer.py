@@ -1,6 +1,7 @@
-"""Model assembly for the served families: dense decoder-only transformers
-("attn" blocks), RWKV6 ("rwkv6" blocks) and Mamba2 with Zamba2's shared
-attention ("mamba2" blocks, ``shared_attn_every``).
+"""Model assembly for the served families: decoder-only transformers
+("attn" blocks, with a SwiGLU or GELU MLP or a top-k MoE layer), RWKV6
+("rwkv6" blocks) and Mamba2 with Zamba2's shared attention ("mamba2"
+blocks, ``shared_attn_every``).
 
 Counterpart of the JAX package's ``models/transformer.py`` for the
 serving path: ``init_params``, ``init_cache``, ``prefill`` and
@@ -25,6 +26,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 
@@ -37,16 +39,10 @@ def check_supported(cfg: ArchConfig):
     if cfg.shared_attn_every and (kinds != {"mamba2"} or cfg.n_layers % cfg.shared_attn_every):
         raise NotImplementedError(
             f"{cfg.name}: shared attention runs every k Mamba2 layers, k dividing n_layers")
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks arrive with the MoE slice")
     if cfg.encoder_layers or cfg.cross_attention or cfg.frontend or cfg.m_rope:
         raise NotImplementedError(
             f"{cfg.name}: encoders, cross-attention, frontends and M-RoPE "
             "arrive with the encoder/vision slice")
-    if kinds == {"attn"} and cfg.act_fn != "silu":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.act_fn.upper()} MLP with b_up / b_down arrives "
-            "with the dense-family slice (ROADMAP Queue 1, item 9)")
 
 
 def _kind(cfg: ArchConfig) -> str:
@@ -65,12 +61,14 @@ def _groups(cfg: ArchConfig) -> int:
 
 def _init_block(generator, cfg: ArchConfig, device, kind: str):
     if kind == "attn":
-        return {
-            "ln1": L.init_norm(cfg.d_model, device),
-            "attn": attn_lib.init_attention(generator, cfg, device),
-            "ln2": L.init_norm(cfg.d_model, device),
-            "ffn": L.init_mlp(generator, cfg.d_model, cfg.d_ff, device, cfg.act_fn),
-        }
+        p = {"ln1": L.init_norm(cfg.d_model, device),
+             "attn": attn_lib.init_attention(generator, cfg, device),
+             "ln2": L.init_norm(cfg.d_model, device)}
+        if cfg.is_moe:
+            p["moe"] = moe_lib.init_moe(generator, cfg, device)
+        else:
+            p["ffn"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, device, cfg.act_fn)
+        return p
     if kind == "mamba2":
         return {"ln1": L.init_norm(cfg.d_model, device),
                 "mamba": ssm_lib.init_mamba2(generator, cfg, device)}
@@ -147,11 +145,17 @@ def reset_cache(cache):
 # Prefill and decode
 # ---------------------------------------------------------------------------
 
-def _attn_block(bp, x, cfg: ArchConfig, attend):
+def _attn_block(bp, x, cfg: ArchConfig, attend, layer: int = 0):
+    """Attention, then the MLP or the MoE layer (whose aux loss serving
+    discards; the JAX decode step's chunk=1 picks the default's one chunk
+    at S = 1)."""
     h, _ = attend(bp["attn"], L.apply_norm(bp["ln1"], x, cfg.norm_eps))
     x = x + h
-    return x + L.apply_mlp(bp["ffn"], L.apply_norm(bp["ln2"], x, cfg.norm_eps),
-                           cfg.act_fn)
+    xin = L.apply_norm(bp["ln2"], x, cfg.norm_eps)
+    if cfg.is_moe:
+        h, _ = moe_lib.apply_moe(bp["moe"], xin, cfg, layer=layer)
+        return x + h
+    return x + L.apply_mlp(bp["ffn"], xin, cfg.act_fn)
 
 
 def _rwkv_prefill(bp, x, cfg, lc):
@@ -184,7 +188,7 @@ def _run_blocks(params, cfg: ArchConfig, x, cache, attend, mamba, rwkv):
             x = _attn_block(params["shared_attn"], x, cfg,
                             lambda p, xin, sc=cache["shared"][i // every]: attend(p, xin, sc))
         if kind == "attn":
-            x = _attn_block(bp, x, cfg, lambda p, xin, lc=lc: attend(p, xin, lc))
+            x = _attn_block(bp, x, cfg, lambda p, xin, lc=lc: attend(p, xin, lc), i)
         elif kind == "mamba2":
             h, _ = mamba(bp["mamba"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg, lc)
             x = x + h

@@ -40,7 +40,7 @@ def test_port_imports_no_jax_and_no_repro():
     found = {p.relative_to(PORT).as_posix() for p in files if PORT in p.parents}
     for mod in ("device.py", "configs/base.py", "kernels/ops.py",
                 "kernels/rwkv6_scan.py", "kernels/ssd_scan.py",
-                "models/attention.py", "models/rwkv.py", "models/ssm.py",
+                "models/attention.py", "models/rwkv.py", "models/ssm.py", "models/moe.py",
                 "serving/engine.py", "launch/serve.py", "core/types.py",
                 "core/queueing.py", "core/perf_model.py", "core/replication.py",
                 "core/perf_model_vec.py", "core/perf_model_torch.py",

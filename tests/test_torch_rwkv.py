@@ -33,21 +33,22 @@ ARCH, LAYERS = "rwkv6-1.6b", 2
 
 
 @functools.lru_cache(maxsize=None)
-def models(arch, layers):
-    """Reduced ``arch`` at ``layers`` in both packages, sharing the JAX
-    model's weights: (jax cfg, jax model, jax params, cfg, model, params)."""
+def models(arch, layers, **overrides):
+    """Reduced ``arch`` at ``layers`` in both packages, with ``overrides``
+    of config fields, sharing the JAX model's weights: (jax cfg, jax
+    model, jax params, cfg, model, params)."""
     with jax.enable_x64(False):
-        jcfg = jax_reduced(JAX_REGISTRY[arch], layers=layers)
+        jcfg = jax_reduced(JAX_REGISTRY[arch], layers=layers).replace(**overrides)
         jmodel = jax_build_model(jcfg)
         jparams = jmodel.init(jax.random.PRNGKey(7))
-    cfg = reduced(REGISTRY[arch], layers=layers)
+    cfg = reduced(REGISTRY[arch], layers=layers).replace(**overrides)
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
     return jcfg, jmodel, jparams, cfg, build_model(cfg, "cpu"), params
 
 
-def check_params_bit_exact(arch, layers):
-    _, _, jparams, cfg, _, params = models(arch, layers)
-    assert cfg.__dict__ == models(arch, layers)[0].__dict__
+def check_params_bit_exact(arch, layers, **overrides):
+    _, _, jparams, cfg, _, params = models(arch, layers, **overrides)
+    assert cfg.__dict__ == models(arch, layers, **overrides)[0].__dict__
     assert len(params["blocks"]) == cfg.n_layers
     leaves = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jparams))[0]
     for path, leaf in leaves:
@@ -62,8 +63,8 @@ def check_params_bit_exact(arch, layers):
     return leaves
 
 
-def check_logits_match_jax(arch, layers, S=12, steps=3):
-    jcfg, jmodel, jparams, _, model, params = models(arch, layers)
+def check_logits_match_jax(arch, layers, S=12, steps=3, **overrides):
+    jcfg, jmodel, jparams, _, model, params = models(arch, layers, **overrides)
     rng = np.random.default_rng(0)
     B, max_len = 2, 32
     tokens = rng.integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
@@ -84,11 +85,11 @@ def check_logits_match_jax(arch, layers, S=12, steps=3):
     return cache
 
 
-def check_decode_matches_prefill(arch, layers, S=9):
+def check_decode_matches_prefill(arch, layers, S=9, **overrides):
     """chip_smoke.py's full-width check at CPU size: decode after a prompt
     equals a prefill over prompt + token from a fresh cache; and a reused
     cache, reset, gives the fresh cache's logits."""
-    _, _, _, cfg, model, params = models(arch, layers)
+    _, _, _, cfg, model, params = models(arch, layers, **overrides)
     rng = np.random.default_rng(3)
     B = 2
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1)))

@@ -86,12 +86,11 @@ def test_serving_engine_matches_jax_engine():
 
 
 def test_unported_blocks_name_their_slice():
-    for arch, slice_name in [("mixtral-8x22b", "MoE slice"),
-                             ("dbrx-132b", "MoE slice"),
-                             ("whisper-large-v3", "encoder/vision slice"),
-                             ("qwen2-vl-7b", "encoder/vision slice"),
-                             ("minitron-4b", "dense-family slice")]:
-        with pytest.raises(NotImplementedError, match=slice_name):
+    for arch in ("whisper-large-v3", "qwen2-vl-7b"):
+        with pytest.raises(NotImplementedError, match="encoder/vision slice"):
             build_model(reduced(REGISTRY[arch]), "cpu")
-    for arch in ("qwen3-4b", "rwkv6-1.6b", "zamba2-2.7b"):   # served since slice 2
+    for arch in ("qwen3-4b", "rwkv6-1.6b", "zamba2-2.7b",    # served since slice 2
+                 "yi-6b", "qwen1.5-4b", "minitron-4b",       # the rest of the dense family
+                 "mixtral-8x22b", "dbrx-132b"):              # and MoE
         assert build_model(reduced(REGISTRY[arch]), "cpu").cfg.name == arch
+        assert build_model(REGISTRY[arch], "cpu").cfg.name == arch
