@@ -182,9 +182,6 @@ BATCH, PROMPT, DECODE, PUMPS = 4, 512, 4, 4
 MODELS = [("qwen3-4b", 12), ("rwkv6-1.6b", None), ("zamba2-2.7b", None),
           ("yi-6b", 8), ("qwen1.5-4b", 8), ("minitron-4b", 8),
           ("mixtral-8x22b", 2), ("dbrx-132b", 2)]
-# (query heads, kv heads) at head_dim 128 of the served attention models
-SERVED_HEADS = {"qwen3-4b": (32, 8), "yi-6b": (32, 4), "qwen1.5-4b": (20, 20),
-                "minitron-4b": (24, 8), "mixtral-8x22b": (48, 8)}   # dbrx: mixtral's
 REL_TOL_FULL, REL_TOL_SMALL = 1e-3, 1e-4
 
 
@@ -194,6 +191,20 @@ T_START = time.perf_counter()
 def log(msg):
     """A line of the run's log; results (JSON lines) go through print."""
     print(f"[{time.perf_counter() - T_START:6.1f} s] {msg}", flush=True)
+
+
+def model_configs():
+    """{arch: config} of every model in MODELS, from the port's registry."""
+    from repro_torch.configs import get_config
+    return {arch: get_config(arch) for arch, _ in MODELS}
+
+
+def served_attention():
+    """{arch: config} of the served models whose blocks are all attention,
+    each at head_dim 128."""
+    cfgs = {arch: c for arch, c in model_configs().items() if set(c.pattern) == {"attn"}}
+    assert all(c.hd == 128 for c in cfgs.values()), {a: c.hd for a, c in cfgs.items()}
+    return cfgs
 
 
 def rand(rng, shape, dtype, dev):
@@ -336,11 +347,15 @@ def check_flash(dev, rng):
               for dt in dts]
     cases += [(2, 100, 4, 2, hd, dt, causal, w) for w in (1, 1000) for hd in (64, 80)
               for dt in dts for causal in (True, False)]
-    # the served models' query heads per kv head at head_dim 128 (SERVED_HEADS),
-    # at a ragged prompt, mixtral's also under a window shorter than it
-    served = [(2, PROMPT + 1, H, KV, 128, dt, True, None) for H, KV in SERVED_HEADS.values()
-              for dt in dts]
-    served += [(2, PROMPT + 1, 48, 8, 128, dt, True, 64) for dt in dts]
+    # the served attention models' heads at head_dim 128: at the main path's
+    # prompt shape with the model's window, at a ragged prompt, and mixtral's
+    # heads under a window shorter than the prompt
+    heads = sorted({(c.n_heads, c.n_kv_heads, c.sliding_window)
+                    for c in served_attention().values()}, key=str)
+    served = [(B, S, H, KV, 128, dt, True, w) for H, KV, w in heads
+              for B, S in ((BATCH, PROMPT), (2, PROMPT + 1)) for dt in dts]
+    served += [(2, PROMPT + 1, H, KV, 128, dt, True, 64) for H, KV, w in heads if w
+               for dt in dts]
     cases += served
     for B, S, H, KV, hd, dt, causal, window in cases:
         q = rand(rng, (B, S, H, hd), dt, dev)
@@ -356,7 +371,7 @@ def check_flash(dev, rng):
                       ref.attention_ref(q, k, v), TOL[torch.float32])
     log(f"kernels: flash_attention matches its plain version on {len(cases) + 1} "
         f"cases ({len(served)} at the served group sizes G = "
-        f"{sorted({H // KV for H, KV in SERVED_HEADS.values()})}); slice-shape max_abs_err {err:.3g}")
+        f"{sorted({H // KV for H, KV, _ in heads})}); slice-shape max_abs_err {err:.3g}")
     x = torch.zeros((1, 64, 2, 96), device=dev)          # head_dim 96: no kernel
     expect_refusal("flash_attention head_dim 96", lambda: flash_attention(x, x, x))
     return err
@@ -474,7 +489,7 @@ def check_decode(dev, rng):
     # the served models' query heads per kv head at head_dim 128, at their
     # first decode step's cache (mixtral's is rolling: the same slots)
     served = 0
-    for H, KV in SERVED_HEADS.values():
+    for H, KV in sorted({(c.n_heads, c.n_kv_heads) for c in served_attention().values()}):
         for dt in dts:
             q, [(kc, vc)], qpos, kvpos = decode_inputs(dev, rng, H=H, KV=KV, dt=dt)
             decode_case(dev, rng, BATCH, kc.shape[2], H, KV, 128, dt, None, qpos, kvpos,
@@ -487,14 +502,15 @@ def check_decode(dev, rng):
     # for yi-6b: 4 x 4 (batch, kv head) pairs in clusters of at most 8
     from repro_torch.kernels.decode_attention import cluster_room, decode_cluster
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    kv_heads = {"qwen3-4b": 8, "zamba2-2.7b": 32, "qwen1.5-4b": 20, "mixtral-8x22b": 8,
-                "dbrx-132b": 8, "yi-6b": 4}
+    kv_heads = {arch: c.n_kv_heads for arch, c in model_configs().items()
+                if "attn" in c.pattern or c.shared_attn_every}
     split = {arch: decode_cluster(BATCH, kv, PROMPT + DECODE + 8, dev)
              for arch, kv in kv_heads.items()}
     assert all(BATCH * kv_heads[arch] * c >= sms for arch, c in split.items()
                if arch != "yi-6b"), (split, sms)
     log(f"kernels: decode clusters per (batch, kv head) {split}; yi-6b's grid "
-        f"{BATCH * 4 * split['yi-6b']} blocks, {BATCH * 4 * split['yi-6b'] / sms:.3f} a SM; "
+        f"{BATCH * kv_heads['yi-6b'] * split['yi-6b']} blocks, "
+        f"{BATCH * kv_heads['yi-6b'] * split['yi-6b'] / sms:.3f} a SM; "
         f"room for clusters of 1..8 at one block per SM {cluster_room(dev.index or 0)}")
     return err
 
@@ -861,7 +877,7 @@ def moe_against_plain(cfg, p, x):
     log(f"moe: {cfg.name} layer 0, full width: apply_moe vs moe_plain rel. err {rel:.3g} "
         f"(limit {REL_TOL_SMALL}); dropped {dropped} of {total} assignments "
         f"({dropped / total:.4f}), the plain version {total - kept:.0f}; capacity {C} a virtual "
-        f"expert, {min(-(-C // cfg.expert_shards), Sc)} fillable")
+        f"expert, {moe._fillable(C, Sc, cfg.expert_shards)} fillable")
     assert rel <= REL_TOL_SMALL, rel
     assert dropped == total - kept, (dropped, total - kept)
     assert abs(float(aux) - float(aux_plain)) <= 1e-6 * abs(float(aux_plain)), (aux, aux_plain)
@@ -912,7 +928,7 @@ def prefill_matmul_flops(cfg, batch, seq):
     if kind == "attn" and cfg.is_moe:
         n, Sc, C = moe._chunking(seq, cfg, 512)
         ks = cfg.expert_shards
-        rows = n * cfg.n_experts * ks * batch * min(-(-C // ks), Sc)
+        rows = n * cfg.n_experts * ks * batch * moe._fillable(C, Sc, ks)
         per_layer = proj + 2 * T * d * cfg.n_experts + 3 * 2 * rows * d * (cfg.d_ff // ks)
     elif kind == "attn":
         per_layer = attn
@@ -1059,14 +1075,18 @@ def _to(tree, dev):
 # Phase 5: timing at the slice's shapes
 # ---------------------------------------------------------------------------
 
-def time_flash(dev, rng, err, H=32, KV=8, hd=128):
+def time_flash(dev, rng, H=32, KV=8, hd=128):
     """Flash attention at a served model's prefill shape (qwen3-4b's heads
-    by default): kernel, plain version and SDPA device times, and bound."""
+    by default): the kernel against its plain version on the timed inputs
+    (max_abs_err), kernel, plain version and SDPA device times, and bound."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     B, S = BATCH, PROMPT
     q = rand(rng, (B, S, H, hd), torch.float32, dev)
     k, v = rand(rng, (B, S, KV, hd), torch.float32, dev), rand(rng, (B, S, KV, hd), torch.float32, dev)
+    with torch.inference_mode():
+        err = check_close(f"flash timed {B, S, H, KV, hd}", flash_attention(q, k, v),
+                          ref.attention_ref(q, k, v), TOL[torch.float32])
     # the yardstick: SDPA's efficient kernel on K/V expanded to H heads
     # outside the timed call (with enable_gqa, f32 SDPA runs only its math
     # backend); that math-backend time is kept beside it where H > KV
@@ -1090,9 +1110,11 @@ def time_flash(dev, rng, err, H=32, KV=8, hd=128):
             "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes), **lib}
 
 
-def time_decode(dev, rng, err, H=32, KV=8, hd=128):
+def time_decode(dev, rng, H=32, KV=8, hd=128):
     """Decode attention at a served model's first decode step (qwen3-4b's
-    heads by default), over enough cache copies to exceed the L2 cache."""
+    heads by default), over enough cache copies to exceed the L2 cache:
+    the kernel against its plain version on the first copy (max_abs_err),
+    kernel, plain version and SDPA device times, and bound."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     n_copies = 8                                  # 8 x 17 MB of cache > 50 MB L2
@@ -1103,6 +1125,9 @@ def time_decode(dev, rng, err, H=32, KV=8, hd=128):
     qh = q.transpose(1, 2)                        # (B, H, 1, hd)
     expanded = [tuple(c.repeat_interleave(H // KV, dim=1) for c in kv) for kv in caches]
     with torch.inference_mode():
+        err = check_close(f"decode timed {B, S_buf, H, KV, hd}",
+                          decode_attention(q, *views[0], qpos, kvpos),
+                          ref.decode_attention_ref(q, *views[0], qpos, kvpos), TOL[torch.float32])
         per_call = {}
         ms = device_ms(lambda i: decode_attention(q, *views[i], qpos, kvpos), n_copies, 40,
                        per_call=per_call)
@@ -1201,7 +1226,8 @@ def log_timing(k, what=None):
         f"library {lib}, bound {k['bound_ms']:.4f} by {k['bound_by']}, "
         f"on the CUDA cores {k['bound_f32_cores_ms']:.4f}); "
         f"plain / kernel = {k['plain_ms'] / k['ms']:.2f}, "
-        f"{k['bound_ms'] / k['ms']:.1%} of bound")
+        f"{k['bound_ms'] / k['ms']:.1%} of bound"
+        + (f"; max_abs_err {k['max_abs_err']:.3g}" if "max_abs_err" in k else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -2341,19 +2367,19 @@ def main():
                 f"{counts}")
     # phase 5 before phase 4: the larger the profiler runs before a timing,
     # the more kernel records it drops (see device_ms)
-    kernels = []
-    for name, timer in (("flash_attention", time_flash), ("decode_attention", time_decode),
-                        ("rwkv6_scan", time_rwkv), ("ssd_scan", time_ssd)):
+    kernels = [time_flash(dev, rng), time_decode(dev, rng)]
+    for name, timer in (("rwkv6_scan", time_rwkv), ("ssd_scan", time_ssd)):
         kernels.append(timer(dev, rng, errs[name]))
-        log_timing(kernels[-1])
+    for k in kernels:
+        log_timing(k)
     # the attention kernels at zamba2-2.7b's shared block: head_dim 80, 32 kv heads
-    hd80 = [time_flash(dev, rng, errs["flash_attention"], 32, 32, 80),
-            time_decode(dev, rng, errs["decode_attention"], 32, 32, 80)]
+    hd80 = [time_flash(dev, rng, 32, 32, 80),
+            time_decode(dev, rng, 32, 32, 80)]
     for k in hd80:
         log_timing(k, f"{k['name']} (zamba2-2.7b, head_dim 80)")
     # and at mixtral-8x22b's and dbrx-132b's: 48 query heads on 8 kv heads
-    h48 = [time_flash(dev, rng, errs["flash_attention"], 48, 8, 128),
-           time_decode(dev, rng, errs["decode_attention"], 48, 8, 128)]
+    h48 = [time_flash(dev, rng, 48, 8, 128),
+           time_decode(dev, rng, 48, 8, 128)]
     for k in h48:
         log_timing(k, f"{k['name']} (mixtral-8x22b / dbrx-132b, 48 / 8 heads)")
     # phase 6, the planner, before the pumps' large profiler runs as well
@@ -2374,7 +2400,8 @@ def main():
         slices.append(stats)
     kernels = ([{**k, "launches": launches[k["name"]]} for k in kernels]
                + [planner_kernel, tables_kernel])
-    timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms")
+    timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms",
+                   "max_abs_err")
     for st in slices:
         extra = {"zamba2-2.7b": ("attention_hd80", hd80), "mixtral-8x22b": ("attention_h48", h48),
                  "dbrx-132b": ("attention_h48", h48)}.get(st["arch"])

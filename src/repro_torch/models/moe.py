@@ -99,6 +99,13 @@ def _chunking(S: int, cfg, chunk: int):
     return n, Sc, max(K, int(math.ceil(Sc * K * cf / E)))
 
 
+def _fillable(C: int, Sc: int, ks: int) -> int:
+    """The slots of a virtual expert a chunk can fill: an assignment's
+    position is ks x its rank, so ks·r < C, and r < Sc (an expert takes at
+    most one assignment a token)."""
+    return min(-(-C // ks), Sc)
+
+
 def _positions(ids, E: int, ks: int):
     """ids (B, Sc, K) -> each assignment's position within its expert,
     (B, Sc·K) in (s, k) order: ks times its running count, as the
@@ -115,9 +122,7 @@ def _experts_chunk(xc, idc, gtc, w, E: int, C: int, ks: int):
     -> (y (B, Sc, D), dropped assignments)."""
     B, Sc, D = xc.shape
     K = idc.shape[-1]
-    # the slots an assignment can reach: ks·r < C, and r < Sc (an expert
-    # takes at most one assignment a token)
-    Ev, Ck = E * ks, min(-(-C // ks), Sc)
+    Ev, Ck = E * ks, _fillable(C, Sc, ks)
     n_slots = Ev * B * Ck
     dev = xc.device
     pos = _positions(idc, E, ks)                                 # (B, Sc·K)

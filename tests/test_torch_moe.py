@@ -37,12 +37,24 @@ LAYER_CASES = [
 ]
 
 
+def reference_chunking(S, cfg, chunk):
+    """(chunks, tokens a chunk, capacity) by the reference apply_moe's own
+    formula, written out here so that the dropped set does not rest on the
+    port's choice of chunks."""
+    E, K, cf = cfg.n_experts, cfg.top_k, cfg.capacity_factor
+    chunk = max(chunk, min(S, 4096))
+    n = max(1, S // chunk)
+    while S % n:
+        n -= 1
+    return n, S // n, max(K, int(np.ceil(S // n * K * cf / E)))
+
+
 def reference_kept(jp, x, cfg, chunk):
     """The reference's kept assignments, (B, S, K) bool, read off its
     dispatch tensor chunk by chunk (an expert is picked once a token)."""
     B, S, _ = x.shape
     E, K, ks = cfg.n_experts, cfg.top_k, cfg.expert_shards
-    n, Sc, C = moe._chunking(S, cfg, chunk)
+    n, Sc, C = reference_chunking(S, cfg, chunk)
     ids, gates, _ = jax_moe._route(jp["router"], jnp.asarray(x), K)
     kept = []
     for i in range(n):
@@ -76,7 +88,8 @@ def check_apply_moe(case, B, S, chunk, overrides):
         assert rel_err(got, want) <= F32_TOL
         np.testing.assert_allclose(float(got_aux), float(want_aux), rtol=1e-6)
     # the same assignments dropped
-    n, Sc, C = moe._chunking(S, cfg, chunk)
+    n, Sc, C = reference_chunking(S, cfg, chunk)
+    assert moe._chunking(S, cfg, chunk) == (n, Sc, C)
     ids, _, _ = moe._route(p["router"], xt, cfg.top_k)
     assert np.array_equal(ids.numpy(), np.asarray(jax_moe._route(jp["router"], jnp.asarray(x),
                                                                  cfg.top_k)[0]))
