@@ -24,7 +24,11 @@ Phases (any failure raises and exits non-zero):
                  scans, B and C in group form (head stride 0), the edges of
                  the tensor-core tiling (flash: S = 1, 63, 65, 513, windows
                  of 1 and longer than S, 1/2/4/8 query heads per kv head at
-                 every head_dim; ssd: S = 1, 40, 2048 and every (hd, N);
+                 every head_dim, and without a mask a kv length of its
+                 own: S = 1, 63, 512 against Skv = 1, 31, 33, 1500 at
+                 head_dim 64 and 128, whisper's encoder and cross-attention
+                 at their served shapes, a causal or windowed call at
+                 Skv != S refused; ssd: S = 1, 40, 2048 and every (hd, N);
                  rwkv6: S = 1, 31, 33 at hd 32 and 64, S = 33 from a state;
                  decode: S = 1, 63, 65, 1, 4 and 16 query heads per kv
                  head at every head_dim, windows of 1 and 20, and at the
@@ -32,25 +36,32 @@ Phases (any failure raises and exits non-zero):
                  slots only in the cluster's last block and a row with no
                  valid slot, f32 and bf16), and each kernel at its served
                  model's own shapes (flash and decode at every served
-                 model's query heads per kv head at head_dim 128: G = 1, 3,
-                 4, 6, 8, f32 and bf16); decode's cluster size at the served
-                 shapes fills the card, but for yi-6b's 16 (batch, kv head)
-                 pairs (logged); inputs no kernel is built for raise
+                 model's query heads per kv head at its head_dim: G = 1, 3,
+                 4, 6, 7, 8 at 128, whisper's G = 1 at 64; decode on
+                 whisper's cross cache with q at its last frame's position;
+                 f32 and bf16); decode's cluster size at the served shapes
+                 fills the card, but for the 16 (batch, kv head) pairs of
+                 yi-6b and qwen2-vl-7b (logged); inputs no kernel is built
+                 for raise
   4. slices   -- for each served model (qwen3-4b, rwkv6-1.6b, zamba2-2.7b,
-                 yi-6b, qwen1.5-4b, minitron-4b, mixtral-8x22b, dbrx-132b)
-                 at full width (depth cut for the last five and qwen3-4b:
-                 see MODELS; f32, random weights from a torch.Generator on
+                 yi-6b, qwen1.5-4b, minitron-4b, mixtral-8x22b, dbrx-132b,
+                 qwen2-vl-7b, whisper-large-v3) at full width (depth cut
+                 for all but rwkv6 and zamba2, whisper's encoder too: see
+                 MODELS; f32, random weights from a torch.Generator on
                  the card): a reduced model on the card
                  must match the same model's plain CPU path (rel. err <=
                  1e-4; an MoE model's routed experts equal, the smallest
-                 top-k / (k+1) probability gap logged); ServingEngine answers
-                 16 requests in 4 pumps; the
+                 top-k / (k+1) probability gap logged; random-normal frames
+                 and patches); ServingEngine answers
+                 16 requests in 4 pumps (zero frames and patches, as the
+                 JAX engine); the
                  kernels' launch counters are read over those pumps alone
                  and must be exactly what the model runs, and so are the
                  MoE layers' dropped assignments; the first decode
                  step's logits must equal a prefill over prompt + that token
                  (rel. err <= 1e-3; for an MoE model on a model sharing the
-                 weights whose capacity factor drops nothing); apply_moe
+                 weights whose capacity factor drops nothing; with
+                 random-normal frames or patches); apply_moe
                  must match moe_plain on the first MoE layer's prefill input
                  at the published capacity, drops included; a reset cache
                  must give a fresh cache's
@@ -68,8 +79,10 @@ Phases (any failure raises and exits non-zero):
                  the served shapes, beside the least time the card could
                  take (bound_ms at the 3xTF32 rate, bound_f32_cores_ms at
                  the CUDA cores' float32 rate); attention also at zamba2's
-                 head_dim 80 and at mixtral's 48 / 8 heads; one decode call
-                 launches exactly one kernel
+                 head_dim 80, at mixtral's 48 / 8 heads, at qwen2-vl's 28 /
+                 4 and at whisper's shapes (encoder, cross-attention at a kv
+                 length of its own, decoder, decode on the self and the
+                 cross cache); one decode call launches exactly one kernel
   6. planner  -- (run after phase 5, before phase 4) the Alg. 2 grant loop,
                  alloc_all_kernel (csrc/planner.cu, float64), against its
                  plain version on the card and against the port's numpy
@@ -175,13 +188,18 @@ RWKV_SHAPE = (4, 512, 32, 64)            # rwkv6-1.6b prefill: B, S, H, hd
 SSD_SHAPE = (4, 512, 80, 64, 64)         # zamba2-2.7b prefill: B, S, H, hd, N
 
 BATCH, PROMPT, DECODE, PUMPS = 4, 512, 4, 4
-# (arch, layers): every model the port serves, at full width; None = full
-# depth.  Depth is cut to keep the script near 200 s: qwen3-4b runs 12 of
-# its 36 layers, the other dense models 8, the MoE models 2 (9.66 and
-# 12.68 GB of float32 experts a layer).
-MODELS = [("qwen3-4b", 12), ("rwkv6-1.6b", None), ("zamba2-2.7b", None),
-          ("yi-6b", 8), ("qwen1.5-4b", 8), ("minitron-4b", 8),
-          ("mixtral-8x22b", 2), ("dbrx-132b", 2)]
+# (arch, layers, encoder layers): every model the port serves, at full
+# width; None = full depth.  Depth is cut to keep the script near 200 s:
+# the dense models (qwen3-4b among them) and qwen2-vl-7b run 8 layers,
+# whisper-large-v3 8 of its 32 decoder and 8 of its 32 encoder layers,
+# the MoE models 2 (9.66 and 12.68 GB of float32 experts a layer).
+MODELS = [("qwen3-4b", 8, None), ("rwkv6-1.6b", None, None), ("zamba2-2.7b", None, None),
+          ("yi-6b", 8, None), ("qwen1.5-4b", 8, None), ("minitron-4b", 8, None),
+          ("mixtral-8x22b", 2, None), ("dbrx-132b", 2, None),
+          ("qwen2-vl-7b", 8, None), ("whisper-large-v3", 8, 8)]
+# decode grids that cannot fill the card: 4 x 4 (batch, kv head) pairs in
+# clusters of at most 8 blocks (logged, not asserted)
+SMALL_DECODE_GRID = ("yi-6b", "qwen2-vl-7b")
 REL_TOL_FULL, REL_TOL_SMALL = 1e-3, 1e-4
 
 
@@ -196,15 +214,24 @@ def log(msg):
 def model_configs():
     """{arch: config} of every model in MODELS, from the port's registry."""
     from repro_torch.configs import get_config
-    return {arch: get_config(arch) for arch, _ in MODELS}
+    return {arch: get_config(arch) for arch, _, _ in MODELS}
 
 
 def served_attention():
-    """{arch: config} of the served models whose blocks are all attention,
-    each at head_dim 128."""
+    """{arch: config} of the served models whose blocks are all attention:
+    head_dim 128, but whisper-large-v3's 64."""
     cfgs = {arch: c for arch, c in model_configs().items() if set(c.pattern) == {"attn"}}
-    assert all(c.hd == 128 for c in cfgs.values()), {a: c.hd for a, c in cfgs.items()}
+    assert all(c.hd == (64 if c.family == "encdec" else 128) for c in cfgs.values()), \
+        {a: c.hd for a, c in cfgs.items()}
+    assert {c.hd for c in cfgs.values()} == {64, 128}, {a: c.hd for a, c in cfgs.items()}
     return cfgs
+
+
+def encdec_shapes():
+    """(B, frames, heads, kv heads, head_dim) of each served encoder-decoder
+    model: its encoder's self-attention and its cross-attention."""
+    return sorted({(BATCH, c.encoder_seq_len, c.n_heads, c.n_kv_heads, c.hd)
+                   for c in served_attention().values() if c.encoder_layers})
 
 
 def rand(rng, shape, dtype, dev):
@@ -347,22 +374,34 @@ def check_flash(dev, rng):
               for dt in dts]
     cases += [(2, 100, 4, 2, hd, dt, causal, w) for w in (1, 1000) for hd in (64, 80)
               for dt in dts for causal in (True, False)]
-    # the served attention models' heads at head_dim 128: at the main path's
-    # prompt shape with the model's window, at a ragged prompt, and mixtral's
-    # heads under a window shorter than the prompt
-    heads = sorted({(c.n_heads, c.n_kv_heads, c.sliding_window)
+    # the served attention models' heads at their head_dim (128, whisper's
+    # 64): at the main path's prompt shape with the model's window, at a
+    # ragged prompt, and mixtral's heads under a window shorter than the
+    # prompt
+    heads = sorted({(c.n_heads, c.n_kv_heads, c.sliding_window, c.hd)
                     for c in served_attention().values()}, key=str)
-    served = [(B, S, H, KV, 128, dt, True, w) for H, KV, w in heads
+    served = [(B, S, H, KV, hd, dt, True, w) for H, KV, w, hd in heads
               for B, S in ((BATCH, PROMPT), (2, PROMPT + 1)) for dt in dts]
-    served += [(2, PROMPT + 1, H, KV, 128, dt, True, 64) for H, KV, w in heads if w
+    served += [(2, PROMPT + 1, H, KV, hd, dt, True, 64) for H, KV, w, hd in heads if w
                for dt in dts]
     cases += served
-    for B, S, H, KV, hd, dt, causal, window in cases:
+    cases = [(B, S, S, H, KV, hd, dt, causal, window)
+             for B, S, H, KV, hd, dt, causal, window in cases]
+    # a kv length of its own (no mask): the q tile's rows and the kv tiles'
+    # edges (S = 1, 63, 512 against Skv = 1, 31, 33, 1500) at both head_dims,
+    # and whisper's encoder (1500 frames) and cross-attention (a prompt
+    # against 1500 frames) at the served shape
+    kv_cases = [(2, S, Skv, 4, 2, hd, dt, False, None) for S in (1, 63, PROMPT)
+                for Skv in (1, 31, 33, 1500) for hd in (64, 128) for dt in dts]
+    for B, Se, H, KV, hd in encdec_shapes():
+        kv_cases += [(B, S, Se, H, KV, hd, dt, False, None) for S in (Se, PROMPT) for dt in dts]
+    cases += kv_cases
+    for B, S, Skv, H, KV, hd, dt, causal, window in cases:
         q = rand(rng, (B, S, H, hd), dt, dev)
-        k, v = rand(rng, (B, S, KV, hd), dt, dev), rand(rng, (B, S, KV, hd), dt, dev)
+        k, v = rand(rng, (B, Skv, KV, hd), dt, dev), rand(rng, (B, Skv, KV, hd), dt, dev)
         out = flash_attention(q, k, v, causal=causal, window=window)
         want = ref.attention_ref(q, k, v, causal=causal, window=window)
-        check_close(f"flash {B, S, H, KV, hd, dt, causal, window}", out, want, TOL[dt])
+        check_close(f"flash {B, S, Skv, H, KV, hd, dt, causal, window}", out, want, TOL[dt])
     # the slice's prefill shape: reported as max_abs_err
     B, S, H, KV, hd = BATCH, PROMPT, 32, 8, 128
     q = rand(rng, (B, S, H, hd), torch.float32, dev)
@@ -371,9 +410,16 @@ def check_flash(dev, rng):
                       ref.attention_ref(q, k, v), TOL[torch.float32])
     log(f"kernels: flash_attention matches its plain version on {len(cases) + 1} "
         f"cases ({len(served)} at the served group sizes G = "
-        f"{sorted({H // KV for H, KV, _ in heads})}); slice-shape max_abs_err {err:.3g}")
+        f"{sorted({H // KV for H, KV, _, _ in heads})} and head_dims "
+        f"{sorted({hd for _, _, _, hd in heads})}, {len(kv_cases)} at a kv length of "
+        f"their own); slice-shape max_abs_err {err:.3g}")
     x = torch.zeros((1, 64, 2, 96), device=dev)          # head_dim 96: no kernel
     expect_refusal("flash_attention head_dim 96", lambda: flash_attention(x, x, x))
+    q, kv = torch.zeros((1, 64, 2, 64), device=dev), torch.zeros((1, 96, 2, 64), device=dev)
+    expect_refusal("flash_attention causal at a kv length of its own",
+                   lambda: flash_attention(q, kv, kv, causal=True))
+    expect_refusal("flash_attention windowed at a kv length of its own",
+                   lambda: flash_attention(q, kv, kv, causal=False, window=16))
     return err
 
 
@@ -486,33 +532,53 @@ def check_decode(dev, rng):
         decode_last_block_case(dev, rng, dt)
         decode_slice_case(dev, rng, dt, no_valid_row=True)
         n += 2
-    # the served models' query heads per kv head at head_dim 128, at their
-    # first decode step's cache (mixtral's is rolling: the same slots)
+    # the served models' query heads per kv head at their head_dim (G = 1,
+    # 3, 4, 6, 7, 8 at 128; whisper's G = 1 at 64), at their first decode
+    # step's cache (mixtral's is rolling: the same slots); whisper's cross
+    # cache, (B, frames, KV, hd) as the model keeps it, with q at the last
+    # frame's position so that every frame is visible
     served = 0
-    for H, KV in sorted({(c.n_heads, c.n_kv_heads) for c in served_attention().values()}):
+    for H, KV, hd in sorted({(c.n_heads, c.n_kv_heads, c.hd)
+                             for c in served_attention().values()}):
         for dt in dts:
-            q, [(kc, vc)], qpos, kvpos = decode_inputs(dev, rng, H=H, KV=KV, dt=dt)
-            decode_case(dev, rng, BATCH, kc.shape[2], H, KV, 128, dt, None, qpos, kvpos,
+            q, [(kc, vc)], qpos, kvpos = decode_inputs(dev, rng, H=H, KV=KV, hd=hd, dt=dt)
+            decode_case(dev, rng, BATCH, kc.shape[2], H, KV, hd, dt, None, qpos, kvpos,
                         (kc.transpose(1, 2), vc.transpose(1, 2)), q, name="served ")
+            served += 1
+    for B, Se, H, KV, hd in encdec_shapes():
+        for dt in dts:
+            decode_cross_case(dev, rng, B, Se, H, KV, hd, dt)
             served += 1
     err = decode_slice_case(dev, rng)
     log(f"kernels: decode_attention matches its plain version on {n + served + 3} cases "
-        f"({served} at the served group sizes); slice-shape max_abs_err {err:.3g}")
+        f"({served} at the served group sizes and cross caches); slice-shape max_abs_err "
+        f"{err:.3g}")
     # one launch of clusters; at the served shapes more blocks than SMs, but
-    # for yi-6b: 4 x 4 (batch, kv head) pairs in clusters of at most 8
+    # for SMALL_DECODE_GRID: 4 x 4 (batch, kv head) pairs in clusters of at most 8
     from repro_torch.kernels.decode_attention import cluster_room, decode_cluster
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    kv_heads = {arch: c.n_kv_heads for arch, c in model_configs().items()
-                if "attn" in c.pattern or c.shared_attn_every}
-    split = {arch: decode_cluster(BATCH, kv, PROMPT + DECODE + 8, dev)
-             for arch, kv in kv_heads.items()}
-    assert all(BATCH * kv_heads[arch] * c >= sms for arch, c in split.items()
-               if arch != "yi-6b"), (split, sms)
-    log(f"kernels: decode clusters per (batch, kv head) {split}; yi-6b's grid "
-        f"{BATCH * kv_heads['yi-6b'] * split['yi-6b']} blocks, "
-        f"{BATCH * kv_heads['yi-6b'] * split['yi-6b'] / sms:.3f} a SM; "
-        f"room for clusters of 1..8 at one block per SM {cluster_room(dev.index or 0)}")
+    grids = {arch: (c.n_kv_heads, PROMPT + DECODE + 8) for arch, c in model_configs().items()
+             if "attn" in c.pattern or c.shared_attn_every}
+    grids.update({f"{arch} cross": (c.n_kv_heads, c.encoder_seq_len)
+                  for arch, c in model_configs().items() if c.encoder_layers})
+    split = {name: decode_cluster(BATCH, kv, slots, dev) for name, (kv, slots) in grids.items()}
+    blocks = {name: BATCH * grids[name][0] * c for name, c in split.items()}
+    assert all(n >= sms for name, n in blocks.items() if name not in SMALL_DECODE_GRID), \
+        (split, sms)
+    small = {name: f"{blocks[name]} blocks, {blocks[name] / sms:.3f} a SM"
+             for name in SMALL_DECODE_GRID}
+    log(f"kernels: decode clusters per (batch, kv head) {split}; grids that cannot fill "
+        f"the card {small}; room for clusters of 1..8 at one block per SM "
+        f"{cluster_room(dev.index or 0)}")
     return err
+
+
+def decode_cross_case(dev, rng, B, Se, H, KV, hd, dt):
+    """decode_attention on an encoder-decoder model's cross cache: slots
+    0..Se-1, q at position Se - 1 (every frame visible)."""
+    kvpos = torch.arange(Se, dtype=torch.int32, device=dev)[None].expand(B, Se)
+    qpos = torch.full((B,), Se - 1, dtype=torch.int32, device=dev)
+    return decode_case(dev, rng, B, Se, H, KV, hd, dt, None, qpos, kvpos, name="cross cache ")
 
 
 def decode_case(dev, rng, B, S, H, KV, hd, dt, window, qpos=None, kvpos=None, kv=None,
@@ -700,21 +766,33 @@ def check_ssd(dev, rng):
 
 def want_launches(cfg):
     """Launches of each kernel over the timed pumps: every prefill runs
-    flash attention once per attention block and a scan once per recurrent
-    block; every decode step after the first token runs decode attention
-    once per attention block."""
+    flash attention once per attention block (an encoder-decoder model: once
+    per encoder block, and twice per decoder block, self- and
+    cross-attention) and a scan once per recurrent block; every decode step
+    after the first token runs decode attention once per attention block
+    (twice per encoder-decoder block)."""
     kind = cfg.pattern[0]
     n_attn = cfg.n_layers if kind == "attn" else (
         cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0)
-    return {"flash_attention": n_attn * PUMPS,
-            "decode_attention": n_attn * (DECODE - 1) * PUMPS,
+    per_block = 2 if cfg.cross_attention else 1
+    return {"flash_attention": (cfg.encoder_layers + per_block * n_attn) * PUMPS,
+            "decode_attention": per_block * n_attn * (DECODE - 1) * PUMPS,
             "rwkv6_scan": cfg.n_layers * PUMPS if kind == "rwkv6" else 0,
             "ssd_scan": cfg.n_layers * PUMPS if kind == "mamba2" else 0,
             "alloc_all": 0, "tables": 0}
 
 
-def run_slice(dev, arch, layers=None):
-    """Serve ``arch`` at full width (``layers``: cut depth) on the card."""
+def random_extras(cfg, B, S, dev, rng):
+    """Random-normal frontend stub inputs for ``cfg``, at the engine's shapes.
+    The engine's zeros make the vision embeddings exactly vis_proj's bias."""
+    from repro_torch.serving.engine import frontend_shapes
+    return {k: rand(rng, shape, torch.float32, dev)
+            for k, shape in frontend_shapes(cfg, B, S).items()}
+
+
+def run_slice(dev, arch, layers=None, encoder_layers=None):
+    """Serve ``arch`` at full width (``layers``, ``encoder_layers``: cut
+    depth) on the card."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import moe
@@ -723,11 +801,15 @@ def run_slice(dev, arch, layers=None):
     cfg = get_config(arch)
     if layers is not None:
         cfg = cfg.replace(n_layers=layers)
+    if encoder_layers is not None:
+        cfg = cfg.replace(encoder_layers=encoder_layers)
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, batch_size=BATCH, prompt_len=PROMPT,
                         decode_tokens=DECODE, seed=0, device=dev)
     n_params = sum(t.numel() for t in _leaves(eng.params))
-    log(f"slice: {arch} full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"slice: {arch} full width ({cfg.n_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers else "")
+        + f", d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B params f32, "
         f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB on the card); "
         f"init + warm-up {time.perf_counter() - t0:.1f} s")
@@ -767,32 +849,37 @@ def run_slice(dev, arch, layers=None):
     # consistency at full width: decode step 1 == prefill over prompt + token;
     # an MoE model drops by capacity in the prefill, so that check runs on a
     # second model sharing the weights whose capacity factor expert_shards·E/K
-    # drops nothing
+    # drops nothing; a model with a frontend stub runs it on random-normal
+    # frames or patches (the engine's zeros leave the vision projection out)
     model, params = eng.model, eng.params
     check = model
     if cfg.is_moe:
         dropless = cfg.expert_shards * cfg.n_experts / cfg.top_k
         check = build_model(cfg.replace(capacity_factor=dropless), dev)
     toks = torch.from_numpy(np.stack(prompts[:BATCH])).to(dev)
+    batch = {"tokens": toks, **eng.extras}
+    extras = random_extras(cfg, BATCH, PROMPT, dev, rng)
     buf = PROMPT + DECODE + 8
     with torch.inference_mode():
         cache = model.init_cache(BATCH, buf, dtype=torch.float32)
         with capture_moe_input() as moe_in:
-            lg0, cache = model.prefill(params, {"tokens": toks}, cache)
+            lg0, cache = model.prefill(params, batch, cache)
         tok = lg0.argmax(-1).to(torch.int32)[:, None]
-        if check is not model:
+        ctok = tok
+        if check is not model or extras:
             moe.reset_drop_counts()
-            _, cache = check.prefill(params, {"tokens": toks}, cache)
-        lg1, _ = check.decode_step(params, tok, cache)
-        full, _ = check.prefill(params, {"tokens": torch.cat([toks, tok], 1)},
+            lgc, cache = check.prefill(params, {"tokens": toks, **extras}, cache)
+            ctok = lgc.argmax(-1).to(torch.int32)[:, None]
+        lg1, _ = check.decode_step(params, ctok, cache)
+        full, _ = check.prefill(params, {"tokens": torch.cat([toks, ctok], 1), **extras},
                                 check.init_cache(BATCH, buf, dtype=torch.float32))
         if check is not model:
             assert all(d == 0 for d, _ in moe.drop_counts().values()), moe.drop_counts()
             moe_stats.update(dropless_capacity_factor=dropless,
                              **moe_against_plain(cfg, *moe_in))
         # the same prompt from the used cache, without and with reset_cache
-        stale, _ = model.prefill(params, {"tokens": toks}, cache)
-        again, _ = model.prefill(params, {"tokens": toks}, model.reset_cache(cache))
+        stale, _ = model.prefill(params, batch, cache)
+        again, _ = model.prefill(params, batch, model.reset_cache(cache))
     assert torch.equal(again, lg0), "a reset cache differs from a fresh one"
     stale_rel = rel_err(stale, lg0)
     log(f"slice: {arch}: a reset cache gives a fresh cache's logits bit for bit "
@@ -810,7 +897,7 @@ def run_slice(dev, arch, layers=None):
         cache = model.init_cache(BATCH, buf, dtype=torch.float32)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg0, cache = model.prefill(params, {"tokens": toks}, cache)
+        lg0, cache = model.prefill(params, batch, cache)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         model.decode_step(params, tok, cache)
@@ -825,7 +912,7 @@ def run_slice(dev, arch, layers=None):
              "tokens_per_s": len(done) * DECODE / wall,
              "prefill_ms": (t1 - t0) * 1e3, "decode_step_ms": (t2 - t1) * 1e3,
              "decode_vs_prefill_rel_err": rel, "unreset_cache_rel_err": stale_rel,
-             "alone": profile_alone(model, params, cfg, toks, tok, buf)}
+             "alone": profile_alone(model, params, cfg, batch, tok, buf)}
     if moe_stats:
         stats["moe"] = moe_stats
     # a pump of the first pump's prompts again: the engine's cache, reset,
@@ -919,7 +1006,9 @@ def prefill_matmul_flops(cfg, batch, seq):
     products over the slots the port computes, E·ks virtual experts x B x
     min(ceil(C / ks), Sc) rows a chunk; RWKV6 r, k, v, g, o, its low-rank mixes and
     channel mix; Mamba2 in/out projections), zamba2's shared block once per
-    group, and the head on the last token."""
+    group, whisper's encoder blocks over its frames and each decoder block's
+    cross-attention (q and o over the prompt, K and V over the frames),
+    qwen2-vl's vision projection, and the head on the last token."""
     from repro_torch.models import moe, rwkv, ssm
     T, d, hd, kind = batch * seq, cfg.d_model, cfg.hd, cfg.pattern[0]
     proj = (2 * T * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
@@ -939,10 +1028,20 @@ def prefill_matmul_flops(cfg, batch, seq):
         d_in, H, G, N, _ = ssm._dims(cfg)
         per_layer = 2 * T * (d * (2 * d_in + 2 * G * N + H) + d_in * d)
     groups = cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
-    return cfg.n_layers * per_layer + groups * attn + 2 * batch * d * cfg.vocab_size
+    extra = 0
+    if cfg.encoder_layers:
+        T_enc = batch * cfg.encoder_seq_len
+        enc = prefill_matmul_flops(cfg.replace(encoder_layers=0, cross_attention=False,
+                                               n_layers=cfg.encoder_layers, vocab_size=0),
+                                   batch, cfg.encoder_seq_len)
+        cross = 2 * 2 * T * d * cfg.n_heads * hd + 2 * 2 * T_enc * d * cfg.n_kv_heads * hd
+        extra = enc + cfg.n_layers * cross
+    if cfg.frontend == "vision" and cfg.frontend_dim:
+        extra += 2 * batch * min(cfg.vision_patches, seq) * cfg.frontend_dim * d
+    return cfg.n_layers * per_layer + groups * attn + 2 * batch * d * cfg.vocab_size + extra
 
 
-def profile_alone(model, params, cfg, toks, tok, buf):
+def profile_alone(model, params, cfg, batch, tok, buf):
     """One prefill and then one decode step, each alone under
     torch.profiler: device ms by group, the prefill's matmul rate, and the
     host's ATen calls per layer of the decode step."""
@@ -950,7 +1049,7 @@ def profile_alone(model, params, cfg, toks, tok, buf):
         cache = model.init_cache(BATCH, buf, dtype=torch.float32)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=ACTIVITIES) as prof:
-            model.prefill(params, {"tokens": toks}, cache)
+            model.prefill(params, batch, cache)
             torch.cuda.synchronize()
         prefill = kernel_groups(prof)
         with torch.profiler.profile(activities=ACTIVITIES) as prof:
@@ -1028,7 +1127,8 @@ def check_routes(arch, cpu, card, top_k):
 def check_small_against_cpu(dev, arch):
     """A reduced ``arch`` on the card against the same weights on the CPU
     (plain path): logits of prefill and three decode steps, and for an MoE
-    model the routed experts.  zamba2 keeps two groups (4 layers)."""
+    model the routed experts; random-normal frames or patches where the
+    model takes them.  zamba2 keeps two groups (4 layers)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.zoo import build_model
     cfg = get_config(arch)
@@ -1038,9 +1138,10 @@ def check_small_against_cpu(dev, arch):
     params_gpu = _to(params_cpu, dev)
     rng = np.random.default_rng(2)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)))
+    extras = random_extras(cfg, 2, 24, "cpu", rng)
     with torch.inference_mode():
         with record_routes() as routes_cpu:
-            lc, cc = cpu_model.prefill(params_cpu, {"tokens": tokens},
+            lc, cc = cpu_model.prefill(params_cpu, {"tokens": tokens, **extras},
                                        cpu_model.init_cache(2, 32, dtype=torch.float32))
             want, toks = [lc], []
             for _ in range(3):
@@ -1048,7 +1149,8 @@ def check_small_against_cpu(dev, arch):
                 lc, cc = cpu_model.decode_step(params_cpu, toks[-1], cc)
                 want.append(lc)
         with record_routes() as routes_card:
-            lg, gc_ = gpu_model.prefill(params_gpu, {"tokens": tokens.to(dev)},
+            lg, gc_ = gpu_model.prefill(params_gpu, {"tokens": tokens.to(dev),
+                                                     **_to(extras, dev)},
                                         gpu_model.init_cache(2, 32, dtype=torch.float32))
             got = [lg]
             for tok in toks:
@@ -1075,51 +1177,65 @@ def _to(tree, dev):
 # Phase 5: timing at the slice's shapes
 # ---------------------------------------------------------------------------
 
-def time_flash(dev, rng, H=32, KV=8, hd=128):
+def time_flash(dev, rng, H=32, KV=8, hd=128, S=PROMPT, Skv=None, causal=True):
     """Flash attention at a served model's prefill shape (qwen3-4b's heads
-    by default): the kernel against its plain version on the timed inputs
-    (max_abs_err), kernel, plain version and SDPA device times, and bound."""
+    by default; Skv: a kv length of its own, without a mask): the kernel
+    against its plain version on the timed inputs (max_abs_err), kernel,
+    plain version and SDPA device times, and bound."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    B, S = BATCH, PROMPT
+    B, Skv = BATCH, S if Skv is None else Skv
     q = rand(rng, (B, S, H, hd), torch.float32, dev)
-    k, v = rand(rng, (B, S, KV, hd), torch.float32, dev), rand(rng, (B, S, KV, hd), torch.float32, dev)
+    k, v = rand(rng, (B, Skv, KV, hd), torch.float32, dev), rand(rng, (B, Skv, KV, hd), torch.float32, dev)
     with torch.inference_mode():
-        err = check_close(f"flash timed {B, S, H, KV, hd}", flash_attention(q, k, v),
-                          ref.attention_ref(q, k, v), TOL[torch.float32])
+        err = check_close(f"flash timed {B, S, Skv, H, KV, hd, causal}",
+                          flash_attention(q, k, v, causal=causal),
+                          ref.attention_ref(q, k, v, causal=causal), TOL[torch.float32])
     # the yardstick: SDPA's efficient kernel on K/V expanded to H heads
     # outside the timed call (with enable_gqa, f32 SDPA runs only its math
     # backend); that math-backend time is kept beside it where H > KV
     qt, kg, vg = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous() for t in (k, v))
     with torch.inference_mode():
-        ms = device_ms(lambda i: flash_attention(q, k, v), 1)
-        plain_ms = device_ms(lambda i: ref.attention_ref(q, k, v), 1, iters=5)
+        ms = device_ms(lambda i: flash_attention(q, k, v, causal=causal), 1)
+        plain_ms = device_ms(lambda i: ref.attention_ref(q, k, v, causal=causal), 1, iters=5)
         lib = library_times(
             lambda: device_ms(lambda i: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), 1),
+                qt, kt, vt, is_causal=causal), 1),
             None if H == KV else lambda: device_ms(lambda i: F.scaled_dot_product_attention(
-                qt, kg, vg, is_causal=True, enable_gqa=True), 1))
-    pairs = S * (S + 1) // 2                      # causal (q, k) pairs per head
+                qt, kg, vg, is_causal=causal, enable_gqa=True), 1))
+    pairs = S * (S + 1) // 2 if causal else S * Skv   # (q, k) pairs per head
     flops = 4 * hd * pairs * B * H                # QK^T and PV, 2 flops per FMA
-    nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    nbytes = 4 * (2 * B * S * H * hd + 2 * B * Skv * KV * hd)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:72",
+            "shape": {"B": B, "S": S, "Skv": Skv, "H": H, "KV": KV, "hd": hd, "causal": causal},
             "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes), **lib}
 
 
-def time_decode(dev, rng, H=32, KV=8, hd=128):
+def time_decode(dev, rng, H=32, KV=8, hd=128, cross_frames=None):
     """Decode attention at a served model's first decode step (qwen3-4b's
-    heads by default), over enough cache copies to exceed the L2 cache:
-    the kernel against its plain version on the first copy (max_abs_err),
-    kernel, plain version and SDPA device times, and bound."""
+    heads by default; cross_frames: an encoder-decoder model's cross cache
+    of that many frames, (B, Se, KV, hd), q at position Se - 1), over
+    enough cache copies to exceed the L2 cache: the kernel against its
+    plain version on the first copy (max_abs_err), kernel, plain version
+    and SDPA device times, and bound."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     n_copies = 8                                  # 8 x 17 MB of cache > 50 MB L2
-    q, caches, qpos, kvpos = decode_inputs(dev, rng, n_copies, H, KV, hd)
-    views = [(kc.transpose(1, 2), vc.transpose(1, 2)) for kc, vc in caches]
+    if cross_frames is None:
+        q, caches, qpos, kvpos = decode_inputs(dev, rng, n_copies, H, KV, hd)
+        views = [(kc.transpose(1, 2), vc.transpose(1, 2)) for kc, vc in caches]
+    else:
+        B, Se = BATCH, cross_frames
+        q = rand(rng, (B, 1, H, hd), torch.float32, dev)
+        views = [(rand(rng, (B, Se, KV, hd), torch.float32, dev),
+                  rand(rng, (B, Se, KV, hd), torch.float32, dev)) for _ in range(n_copies)]
+        caches = [(kc.transpose(1, 2), vc.transpose(1, 2)) for kc, vc in views]
+        kvpos = torch.arange(Se, dtype=torch.int32, device=dev)[None].expand(B, Se)
+        qpos = torch.full((B,), Se - 1, dtype=torch.int32, device=dev)
     B, S_buf = q.shape[0], caches[0][0].shape[2]
     mask = (kvpos >= 0) & (kvpos <= qpos[:, None])
     qh = q.transpose(1, 2)                        # (B, H, 1, hd)
@@ -1148,6 +1264,8 @@ def time_decode(dev, rng, H=32, KV=8, hd=128):
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:64",
+            "shape": {"B": B, "slots": S_buf, "H": H, "KV": KV, "hd": hd,
+                      "cache": "cross" if cross_frames else "self"},
             "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes), **lib}
 
@@ -2382,6 +2500,24 @@ def main():
            time_decode(dev, rng, 48, 8, 128)]
     for k in h48:
         log_timing(k, f"{k['name']} (mixtral-8x22b / dbrx-132b, 48 / 8 heads)")
+    # qwen2-vl-7b's 28 query heads on 4 kv heads (G = 7); whisper-large-v3's
+    # encoder over its frames and its prompt's cross-attention to them (no
+    # mask), its decoder's causal prompt, and its decode step against the
+    # self cache and against the cross cache
+    cfgs = model_configs()
+    vl, wh = cfgs["qwen2-vl-7b"], cfgs["whisper-large-v3"]
+    g7 = [time_flash(dev, rng, vl.n_heads, vl.n_kv_heads, vl.hd),
+          time_decode(dev, rng, vl.n_heads, vl.n_kv_heads, vl.hd)]
+    heads, Se = (wh.n_heads, wh.n_kv_heads, wh.hd), wh.encoder_seq_len
+    whisper = [time_flash(dev, rng, *heads, S=Se, causal=False),
+               time_flash(dev, rng, *heads, Skv=Se, causal=False),
+               time_flash(dev, rng, *heads),
+               time_decode(dev, rng, *heads),
+               time_decode(dev, rng, *heads, cross_frames=Se)]
+    for k in g7:
+        log_timing(k, f"{k['name']} (qwen2-vl-7b, {k['shape']})")
+    for k in whisper:
+        log_timing(k, f"{k['name']} (whisper-large-v3, {k['shape']})")
     # phase 6, the planner, before the pumps' large profiler runs as well
     clusters, planner_err = check_planner(dev, np.random.default_rng(17))
     planner_kernel, planner = run_planner(dev)
@@ -2393,9 +2529,9 @@ def main():
     # phase 8, the controller, before the pumps as well
     controller_stats = run_controller(dev)
     launches, slices = dict.fromkeys(errs, 0), []
-    for arch, layers in MODELS:
+    for arch, layers, encoder_layers in MODELS:
         check_small_against_cpu(dev, arch)
-        counts, stats = run_slice(dev, arch, layers)
+        counts, stats = run_slice(dev, arch, layers, encoder_layers)
         launches = {k: n + counts[k] for k, n in launches.items()}
         slices.append(stats)
     kernels = ([{**k, "launches": launches[k["name"]]} for k in kernels]
@@ -2403,10 +2539,17 @@ def main():
     timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms",
                    "max_abs_err")
     for st in slices:
+        # one row per kernel where each kernel is timed at one shape, else
+        # a list of rows that name their shapes
         extra = {"zamba2-2.7b": ("attention_hd80", hd80), "mixtral-8x22b": ("attention_h48", h48),
                  "dbrx-132b": ("attention_h48", h48)}.get(st["arch"])
         if extra:
             st[extra[0]] = {k["name"]: {key: k[key] for key in timing_keys} for k in extra[1]}
+        listed = {"qwen2-vl-7b": ("attention_g7", g7),
+                  "whisper-large-v3": ("attention_whisper", whisper)}.get(st["arch"])
+        if listed:
+            st[listed[0]] = [{key: k[key] for key in ("name", "shape") + timing_keys}
+                             for k in listed[1]]
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     for stats in slices:

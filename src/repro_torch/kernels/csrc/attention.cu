@@ -35,8 +35,11 @@
 //   it stands (no shuffle, no trip through shared memory); the split V^T
 //   holds its keys in that order.  q tiles are issued heaviest first so the
 //   causal tail does not idle SMs.  Ragged S is masked here; the TPU kernel
-//   asserted S % 128 == 0.  The G query heads of a kv head each stream and
-//   split its K/V (from L2).
+//   asserted S % 128 == 0.  Unlike the TPU kernel, a call with no mask may
+//   take a kv length of its own, Skv (a prompt's cross-attention to an
+//   encoder's frames): the kv loop, its zero-fill and the ragged-edge mask
+//   run to Skv, the q tiles, the grid and the output to S.  The G query
+//   heads of a kv head each stream and split its K/V (from L2).
 //
 // decode_attn_kernel replaces the Pallas kernel
 //   src/repro/kernels/decode_attention.py::decode_attention (_decode_kernel).
@@ -97,9 +100,9 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* o;
-  int B, S, H, KV;
+  int B, S, Skv, H, KV;  // Skv: kv length, == S unless unmasked (cross-attention)
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;  // elements
-  int causal, window;  // window <= 0: no window
+  int causal, window;  // window <= 0: no window; either needs Skv == S
   float sm_scale;
 };
 
@@ -141,13 +144,13 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
   const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
   // kv tiles any row of this q tile can see
-  const int k_hi = a.causal ? min(a.S, q0 + FA_BQ) : a.S;
+  const int k_hi = a.causal ? min(a.Skv, q0 + FA_BQ) : a.Skv;
   const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int kt_lo = k_lo / FA_BK, kt_hi = (k_hi + FA_BK - 1) / FA_BK;
 
   auto load_tile = [&](int kt) {
-    copy_rows_async<FA_BK, HD, LDR, FA_THREADS>(Kr, kp, a.k_ss, kt * FA_BK, a.S);
-    copy_rows_async<FA_BK, HD, LDR, FA_THREADS>(Vr, vp, a.v_ss, kt * FA_BK, a.S);
+    copy_rows_async<FA_BK, HD, LDR, FA_THREADS>(Kr, kp, a.k_ss, kt * FA_BK, a.Skv);
+    copy_rows_async<FA_BK, HD, LDR, FA_THREADS>(Vr, vp, a.v_ss, kt * FA_BK, a.Skv);
     cp_async_commit();
   };
   if (kt_lo < kt_hi) load_tile(kt_lo);
@@ -223,7 +226,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
 
     // mask (only on a tile at an edge of the mask) and online softmax;
     // sc[4j + e] is row g, sc[4j + 2 + e] row g + 8, key k0 + 8 j + 2 t + e
-    const bool edge = k0 + FA_BK > a.S || (a.causal && k0 + FA_BK - 1 > q0) ||
+    const bool edge = k0 + FA_BK > a.Skv || (a.causal && k0 + FA_BK - 1 > q0) ||
                       (a.window > 0 && k0 <= q0 + FA_BQ - 1 - a.window);
     float alpha[2];
 #pragma unroll
@@ -236,7 +239,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
         for (int e = 0; e < 2; ++e) {
           const int kj = k0 + 8 * j + 2 * t + e;
           float s = sc[4 * j + 2 * r + e];
-          if (edge && kj >= a.S)
+          if (edge && kj >= a.Skv)
             s = -INFINITY;
           else if (edge && ((a.causal && kj > qi) || (a.window > 0 && kj <= qi - a.window)))
             s = NEG_INF;
@@ -754,11 +757,14 @@ cudaError_t dispatch_decode(const DecodeArgs& a, int hd, int cluster, cudaStream
 // kernel here is built for: these switches are the one list of them.
 // ---------------------------------------------------------------------------
 
+// S: query rows; Skv: keys, != S only with causal = 0 and window = 0.
 extern "C" int repro_flash_attention(int dtype, int hd, const void* q, const void* k,
-                                     const void* v, void* o, int B, int S, int H, int KV,
+                                     const void* v, void* o, int B, int S, int Skv, int H,
+                                     int KV,
                                      const long long* strides,  // q b,s,h  k b,s,h  v b,s,h
                                      int causal, int window, float sm_scale, void* stream) {
-  FlashArgs a{q, k, v, o, B, S, H, KV,
+  if (Skv < 1 || (Skv != S && (causal || window > 0))) return cudaErrorInvalidValue;
+  FlashArgs a{q, k, v, o, B, S, Skv, H, KV,
               strides[0], strides[1], strides[2], strides[3], strides[4],
               strides[5], strides[6], strides[7], strides[8],
               causal, window, sm_scale};

@@ -2,9 +2,11 @@
 
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention`` (same
 layout and masks: q (B,S,H,hd), k/v (B,S,KV,hd), GQA, causal and/or a
-sliding window, finite NEG_INF).  On a CUDA tensor it launches the CUDA
-kernel in ``csrc/attention.cu``; on a CPU tensor it runs the plain
-``ref.attention_ref``.  There is no other path.
+sliding window, finite NEG_INF).  Unlike the Pallas kernel, a call
+without a mask may take k/v of a kv length of their own, (B,Skv,KV,hd):
+a prompt's cross-attention to an encoder's frames.  On a CUDA tensor it
+launches the CUDA kernel in ``csrc/attention.cu``; on a CPU tensor it
+runs the plain ``ref.attention_ref``.  There is no other path.
 
 ``flash_attention.launches`` counts kernel launches.
 """
@@ -20,15 +22,18 @@ from repro_torch.kernels import _build, ref
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _validate(q, k, v, window):
+def _validate(q, k, v, causal, window):
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention: q (B,S,H,hd), k/v (B,S,KV,hd)")
+        raise ValueError("flash_attention: q (B,S,H,hd), k/v (B,Skv,KV,hd)")
     B, S, H, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd:
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd or k.shape[1] < 1:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)} disagree")
+    if k.shape[1] != S and (causal or window is not None):
+        raise ValueError(f"flash_attention: kv length {k.shape[1]} != {S} needs "
+                         "causal=False and no window")
     if H % k.shape[2]:
         raise ValueError("flash_attention: n_heads must be a multiple of n_kv_heads")
     if not (q.device == k.device == v.device):
@@ -39,8 +44,9 @@ def _validate(q, k, v, window):
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd)."""
-    _validate(q, k, v, window)
+    """q: (B, S, H, hd); k, v: (B, Skv, KV, hd) -> (B, S, H, hd).  Skv may
+    differ from S only for causal=False without a window."""
+    _validate(q, k, v, causal, window)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -58,7 +64,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention(
             DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, S, H, k.shape[2], strides, int(causal),
+            out.data_ptr(), B, S, k.shape[1], H, k.shape[2], strides, int(causal),
             0 if window is None else window, 1.0 / math.sqrt(hd),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention")

@@ -19,15 +19,16 @@ NEG_INF = -1e30
 
 def attention_ref(q, k, v, *, causal: bool = True,
                   window: Optional[int] = None):
-    """Naive quadratic attention. q: (B,S,H,hd); k,v: (B,S,KV,hd)."""
+    """Naive quadratic attention. q: (B,S,H,hd); k,v: (B,Skv,KV,hd); query
+    i and key j at positions i and j."""
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, S, KV, G, hd).float() / math.sqrt(hd)
     s = torch.einsum("bqkgd,bskd->bqkgs", qg, k.float())
     qi = torch.arange(S, device=q.device)[:, None]
-    si = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    si = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
     if causal:
         mask &= si <= qi
     if window is not None:

@@ -1,14 +1,15 @@
-"""GQA self-attention with a KV cache: prompt (prefill) and one-token
-decode.
+"""GQA self-attention with a KV cache (prompt and one-token decode), and
+cross-attention to an encoder's output.
 
-Counterpart of the JAX package's ``models/attention.py`` for dense
-decoder blocks: GQA, optional QKV bias, qk_norm (per-head RMSNorm on q/k
-as in Qwen3), RoPE, sliding windows, and a heads-major KV cache with
-linear or rolling writes.  Attention itself goes through the kernels:
-``flash_attention`` for the prompt and ``decode_attention`` for each
-generated token (CUDA kernels on the card, their plain versions on the
-CPU).  Cross-attention arrives with the whisper slice and M-RoPE with the
-vision slice.
+Counterpart of the JAX package's ``models/attention.py`` for the serving
+path: GQA, optional QKV bias, qk_norm (per-head RMSNorm on q/k as in
+Qwen3), RoPE or M-RoPE (qwen2-vl), sliding windows, a heads-major KV
+cache with linear or rolling writes, and whisper's cross-attention (no
+rotation, no window, every encoder frame visible).  Attention itself goes
+through the kernels: ``flash_attention`` for a prompt, an encoder pass and
+a prompt's cross-attention (kv length of its own), ``decode_attention``
+for each generated token, against the self cache and against the cross
+cache (CUDA kernels on the card, their plain versions on the CPU).
 
 Unlike the JAX functions, the cache is updated in place: the functions
 write into ``cache.k`` / ``cache.v`` / ``cache.pos`` and return the same
@@ -51,28 +52,48 @@ def init_attention(generator, cfg, device):
 # Projections
 # ---------------------------------------------------------------------------
 
-def _project_qkv(p, x, cfg):
+def _project_q(p, x, cfg):
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
+def project_kv(p, x, cfg):
+    """K and V of x (B, S, d): (B, S, KV, hd) each.  Also whisper's cross
+    K/V of the encoder output, which a prefill projects once a layer."""
+    B, S, _ = x.shape
+    KV, hd = cfg.n_kv_heads, cfg.hd
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
+        k, v = k + p["bk"], v + p["bv"]
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return q, k, v
+    return k, v
 
 
-def _apply_positions(q, k, positions, cfg):
+def _project_qkv(p, x, cfg):
+    return (_project_q(p, x, cfg), *project_kv(p, x, cfg))
+
+
+def _apply_positions(q, k, positions, cfg, positions_thw=None):
+    """RoPE at ``positions`` (B, S); M-RoPE at ``positions_thw`` (B, S, 3),
+    or at text positions t = h = w = ``positions`` without it."""
     if cfg.rope_theta <= 0:
         return q, k
     if cfg.m_rope:
-        raise NotImplementedError("M-RoPE arrives with the qwen2-vl (vision) slice")
+        if positions_thw is None:
+            positions_thw = rope_lib.text_positions_thw(positions)
+        sections = cfg.m_rope_sections
+        return (rope_lib.apply_m_rope(q, positions_thw, cfg.rope_theta, sections),
+                rope_lib.apply_m_rope(k, positions_thw, cfg.rope_theta, sections))
     return (rope_lib.apply_rope(q, positions, cfg.rope_theta),
             rope_lib.apply_rope(k, positions, cfg.rope_theta))
 
@@ -160,12 +181,15 @@ def _store_prefix_kv(cache: KVCache, k, v, S: int) -> KVCache:
 # Public entry points
 # ---------------------------------------------------------------------------
 
-def attention_decode(p, x, cfg, cache: KVCache):
-    """One-token decode. x: (B, 1, d). Returns (y, cache)."""
+def attention_decode(p, x, cfg, cache: KVCache, *, positions_thw=None):
+    """One-token decode. x: (B, 1, d). Returns (y, cache).
+
+    q and the new k rotate at ``positions_thw`` where given (qwen2-vl's
+    step + mrope_delta); the cache write and the mask use ``cache.pos``."""
     B = x.shape[0]
     positions = cache.pos[:, None].clone()                           # (B, 1)
     q, k_new, v_new = _project_qkv(p, x, cfg)
-    q, k_new = _apply_positions(q, k_new, positions, cfg)
+    q, k_new = _apply_positions(q, k_new, positions, cfg, positions_thw)
     cache = update_kv_cache(cache, k_new, v_new)
     kv_pos = cache_kv_positions(cache)
     if not cache.rolling:
@@ -176,13 +200,51 @@ def attention_decode(p, x, cfg, cache: KVCache):
     return o.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"], cache
 
 
-def attention_prefill(p, x, cfg, cache: KVCache):
-    """Prompt pass: one set of QKV projections feeds both the attention
-    output and the decode cache.  Returns (out, cache)."""
+def _prompt_attention(p, x, cfg, *, causal, window=None, positions_thw=None):
+    """Self-attention over a whole sequence: QKV projections, rotation at
+    positions 0..S-1, flash, output projection.  Returns (out, k, v) with k
+    rotated, for a cache to keep."""
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     q, k, v = _project_qkv(p, x, cfg)
-    q, k = _apply_positions(q, k, positions, cfg)
-    o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    out = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
-    return out, _store_prefix_kv(cache, k, v, S)
+    q, k = _apply_positions(q, k, positions, cfg, positions_thw)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    return o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"], k, v
+
+
+def attention_prefill(p, x, cfg, cache: KVCache, *, positions_thw=None):
+    """Prompt pass: one set of QKV projections feeds both the attention
+    output and the decode cache.  Returns (out, cache)."""
+    out, k, v = _prompt_attention(p, x, cfg, causal=True, window=cfg.sliding_window,
+                                  positions_thw=positions_thw)
+    return out, _store_prefix_kv(cache, k, v, x.shape[1])
+
+
+def attention_encoder(p, x, cfg):
+    """Bidirectional self-attention over an encoder's frames (no cache):
+    every frame sees every frame, with no window."""
+    return _prompt_attention(p, x, cfg, causal=False)[0]
+
+
+def cross_attention_prefill(p, x, cfg, k, v):
+    """A prompt's cross-attention to cross K/V (B, Se, KV, hd): no rotation,
+    no window, every frame visible (the kernel takes Se != S)."""
+    B, S, _ = x.shape
+    q = _project_q(p, x, cfg)
+    o = ops.flash_attention(q, k, v, causal=False)
+    return o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+
+
+def cross_attention_decode(p, x, cfg, k, v):
+    """One token's cross-attention to the cross cache (B, Se, KV, hd).
+
+    The reference masks it only by kv >= 0, every frame visible.  The
+    decode kernel's mask is kv position <= q position, so q sits at Se - 1
+    and the slots at 0..Se-1: the self cache's position would drop every
+    frame past the prompt."""
+    B, Se = x.shape[0], k.shape[1]
+    q = _project_q(p, x, cfg)
+    kv_pos = torch.arange(Se, dtype=torch.int32, device=x.device)[None].expand(B, Se)
+    q_pos = torch.full((B,), Se - 1, dtype=torch.int32, device=x.device)
+    o = ops.decode_attention(q, k, v, q_pos, kv_pos)
+    return o.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]

@@ -105,3 +105,18 @@ def embed(p, tokens):
 
 def init_head(generator, d, vocab, device):
     return {"w": _dense_init((d, vocab), generator, device)}
+
+
+# ---------------------------------------------------------------------------
+# Positional encodings (whisper-style sinusoidal)
+# ---------------------------------------------------------------------------
+
+def sinusoidal_positions(n_pos: int, d: int, offset=0, device=None):
+    """(n_pos, d) float32 table [sin | cos] of positions offset..offset+n_pos-1.
+    The frequencies divide by max(d // 2 - 1, 1), not d // 2, as the JAX
+    package does."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device) + offset
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)
+    inv = torch.exp(-math.log(10_000.0) * dim / max(d // 2 - 1, 1))
+    ang = pos[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -1,21 +1,25 @@
 """Model assembly for the served families: decoder-only transformers
-("attn" blocks, with a SwiGLU or GELU MLP or a top-k MoE layer), RWKV6
+("attn" blocks, with a SwiGLU or GELU MLP or a top-k MoE layer), qwen2-vl
+("attn" blocks with M-RoPE and the vision stub), whisper (an encoder of
+"attn" blocks and a decoder whose blocks cross-attend to it), RWKV6
 ("rwkv6" blocks) and Mamba2 with Zamba2's shared attention ("mamba2"
 blocks, ``shared_attn_every``).
 
 Counterpart of the JAX package's ``models/transformer.py`` for the
 serving path: ``init_params``, ``init_cache``, ``prefill`` and
 ``decode_step``, plus ``reset_cache``.  Parameters mirror the JAX tree
-except that ``params["blocks"]`` is a list with one dict per layer where
-JAX stacks a leading layer axis; the JAX ``lax.scan`` over layers (and
-over zamba2's groups) becomes a Python loop.  Other block kinds and
-features raise ``NotImplementedError`` naming the slice of the port that
-brings them.
+except that ``params["blocks"]`` and ``params["encoder"]`` are lists with
+one dict per layer where JAX stacks a leading layer axis; the JAX
+``lax.scan`` over layers (and over zamba2's groups) becomes a Python loop.
+The modality frontends are stubs, as in JAX: a prefill batch carries
+precomputed ``frames`` (whisper) or ``patches`` (qwen2-vl) beside its
+``tokens``.
 
 The cache is updated in place.  A recurrent prefill starts from the
 cache's state, as in JAX; ``reset_cache`` zeros every recurrent state,
-conv tail and token shift, so a reused cache starts where a fresh one
-does.
+conv tail and token shift and qwen2-vl's M-RoPE offset, so a reused cache
+starts where a fresh one does.  ``step`` and ``mrope_delta`` are host
+ints (they follow from shapes).
 """
 from __future__ import annotations
 
@@ -27,22 +31,28 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rope as rope_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 
 
 def check_supported(cfg: ArchConfig):
-    """Raise for what this slice of the port does not run yet."""
+    """Raise for a configuration the assembly does not build: a
+    non-uniform block pattern (as the JAX package's ``_uniform_kind``), and
+    encoders, cross-attention, frontends or M-RoPE on other than "attn"
+    blocks."""
     kinds = set(cfg.pattern)
     if len(kinds) != 1 or not kinds <= {"attn", "rwkv6", "mamba2"}:
         raise NotImplementedError(f"{cfg.name}: block kinds {sorted(kinds)}")
     if cfg.shared_attn_every and (kinds != {"mamba2"} or cfg.n_layers % cfg.shared_attn_every):
         raise NotImplementedError(
             f"{cfg.name}: shared attention runs every k Mamba2 layers, k dividing n_layers")
-    if cfg.encoder_layers or cfg.cross_attention or cfg.frontend or cfg.m_rope:
+    if (cfg.encoder_layers or cfg.cross_attention or cfg.frontend or cfg.m_rope) \
+            and kinds != {"attn"}:
         raise NotImplementedError(
-            f"{cfg.name}: encoders, cross-attention, frontends and M-RoPE "
-            "arrive with the encoder/vision slice")
+            f"{cfg.name}: encoders, cross-attention, frontends and M-RoPE need attention blocks")
+    if cfg.cross_attention != bool(cfg.encoder_layers):
+        raise NotImplementedError(f"{cfg.name}: cross-attention reads an encoder's output")
 
 
 def _kind(cfg: ArchConfig) -> str:
@@ -59,15 +69,19 @@ def _groups(cfg: ArchConfig) -> int:
 # Params
 # ---------------------------------------------------------------------------
 
-def _init_block(generator, cfg: ArchConfig, device, kind: str):
+def _init_block(generator, cfg: ArchConfig, device, kind: str, *, cross: bool = False):
     if kind == "attn":
-        p = {"ln1": L.init_norm(cfg.d_model, device),
+        ln_bias = cfg.family == "encdec"            # whisper: LayerNorm with a bias
+        p = {"ln1": L.init_norm(cfg.d_model, device, with_bias=ln_bias),
              "attn": attn_lib.init_attention(generator, cfg, device),
-             "ln2": L.init_norm(cfg.d_model, device)}
+             "ln2": L.init_norm(cfg.d_model, device, with_bias=ln_bias)}
         if cfg.is_moe:
             p["moe"] = moe_lib.init_moe(generator, cfg, device)
         else:
             p["ffn"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, device, cfg.act_fn)
+        if cross:
+            p["ln_c"] = L.init_norm(cfg.d_model, device, with_bias=ln_bias)
+            p["cross"] = attn_lib.init_attention(generator, cfg, device)
         return p
     if kind == "mamba2":
         return {"ln1": L.init_norm(cfg.d_model, device),
@@ -83,14 +97,21 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     check_supported(cfg)
     p: Dict[str, Any] = {
         "embed": L.init_embedding(generator, cfg.vocab_size, cfg.d_model, device),
-        "final_norm": L.init_norm(cfg.d_model, device),
-        "blocks": [_init_block(generator, cfg, device, _kind(cfg))
+        "final_norm": L.init_norm(cfg.d_model, device, with_bias=cfg.family == "encdec"),
+        "blocks": [_init_block(generator, cfg, device, _kind(cfg), cross=cfg.cross_attention)
                    for _ in range(cfg.n_layers)],
     }
     if not cfg.tie_embeddings:
         p["head"] = L.init_head(generator, cfg.d_model, cfg.vocab_size, device)
     if cfg.shared_attn_every:
         p["shared_attn"] = _init_block(generator, cfg, device, "attn")
+    if cfg.encoder_layers:
+        p["encoder"] = [_init_block(generator, cfg, device, "attn")
+                        for _ in range(cfg.encoder_layers)]
+        p["enc_norm"] = L.init_norm(cfg.d_model, device, with_bias=True)
+    if cfg.frontend == "vision" and cfg.frontend_dim:
+        p["vis_proj"] = {"w": L._dense_init((cfg.frontend_dim, cfg.d_model), generator, device),
+                         "b": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)}
     return p
 
 
@@ -110,7 +131,9 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, *,
                dtype=torch.bfloat16, window: Optional[int] = None,
                device=None):
     """One cache per layer (heads-major KV, or recurrent state), zamba2's
-    shared-attention KV caches (one per application), and the decode step."""
+    shared-attention KV caches (one per application), whisper's cross K/V
+    (one (B, Se, KV, hd) pair per decoder layer, filled at prefill),
+    qwen2-vl's M-RoPE offset, and the decode step."""
     check_supported(cfg)
     window = window if window is not None else cfg.sliding_window
     kind = _kind(cfg)
@@ -128,16 +151,26 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, *,
         cache["shared"] = [attn_lib.init_kv_cache(batch_size, max_len, cfg, window=w,
                                                   dtype=dtype, device=device)
                            for _ in range(_groups(cfg))]
+    if cfg.m_rope:
+        cache["mrope_delta"] = 0      # text-position offset set at prefill (grid compression)
+    if cfg.encoder_layers:
+        shape = (batch_size, cfg.encoder_seq_len, cfg.n_kv_heads, cfg.hd)
+        cache["cross"] = [(torch.zeros(shape, dtype=dtype, device=device),
+                           torch.zeros(shape, dtype=dtype, device=device))
+                          for _ in range(cfg.n_layers)]
     return cache
 
 
 def reset_cache(cache):
-    """Zero every recurrent state, conv tail and token shift in place (a KV
-    cache needs none: a prefill overwrites all its slots)."""
+    """Zero every recurrent state, conv tail and token shift, and the M-RoPE
+    offset, in place (a KV cache and the cross K/V need none: a prefill
+    overwrites all their slots)."""
     for lc in cache["layers"]:
         if not isinstance(lc, attn_lib.KVCache):
             lc.reset()
     cache["step"] = 0
+    if "mrope_delta" in cache:
+        cache["mrope_delta"] = 0
     return cache
 
 
@@ -145,12 +178,14 @@ def reset_cache(cache):
 # Prefill and decode
 # ---------------------------------------------------------------------------
 
-def _attn_block(bp, x, cfg: ArchConfig, attend, layer: int = 0):
-    """Attention, then the MLP or the MoE layer (whose aux loss serving
-    discards; the JAX decode step's chunk=1 picks the default's one chunk
-    at S = 1)."""
+def _attn_block(bp, x, cfg: ArchConfig, attend, layer: int = 0, cross=None):
+    """Attention, whisper's cross-attention (``cross``), then the MLP or the
+    MoE layer (whose aux loss serving discards; the JAX decode step's
+    chunk=1 picks the default's one chunk at S = 1)."""
     h, _ = attend(bp["attn"], L.apply_norm(bp["ln1"], x, cfg.norm_eps))
     x = x + h
+    if cross is not None:
+        x = x + cross(bp["cross"], L.apply_norm(bp["ln_c"], x, cfg.norm_eps))
     xin = L.apply_norm(bp["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
         h, _ = moe_lib.apply_moe(bp["moe"], xin, cfg, layer=layer)
@@ -179,16 +214,20 @@ def _rwkv_decode(bp, x, cfg, lc):
     return x + h
 
 
-def _run_blocks(params, cfg: ArchConfig, x, cache, attend, mamba, rwkv):
+def _run_blocks(params, cfg: ArchConfig, x, cache, attend, mamba, rwkv, cross=None):
     """Every block in order; for zamba2 the shared attention block (with
-    the KV cache of its application) before each group of Mamba2 layers."""
+    the KV cache of its application) before each group of Mamba2 layers;
+    for whisper each block's cross-attention, ``cross(p, xin, k, v)``, to
+    its layer's cross K/V."""
     every, kind = cfg.shared_attn_every, _kind(cfg)
     for i, (bp, lc) in enumerate(zip(params["blocks"], cache["layers"])):
         if every and i % every == 0:
             x = _attn_block(params["shared_attn"], x, cfg,
                             lambda p, xin, sc=cache["shared"][i // every]: attend(p, xin, sc))
         if kind == "attn":
-            x = _attn_block(bp, x, cfg, lambda p, xin, lc=lc: attend(p, xin, lc), i)
+            xc = None if cross is None else (
+                lambda p, xin, kv=cache["cross"][i]: cross(p, xin, *kv))
+            x = _attn_block(bp, x, cfg, lambda p, xin, lc=lc: attend(p, xin, lc), i, xc)
         elif kind == "mamba2":
             h, _ = mamba(bp["mamba"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg, lc)
             x = x + h
@@ -197,23 +236,92 @@ def _run_blocks(params, cfg: ArchConfig, x, cache, attend, mamba, rwkv):
     return x
 
 
+def _embed_inputs(params, cfg: ArchConfig, batch):
+    """Token embeddings and the modality stub's merge -> (x, positions_thw,
+    mrope_delta).
+
+    qwen2-vl: the projected patches replace the first Pn token embeddings;
+    they take a square grid's M-RoPE positions and the text after them
+    positions compressed to pos - Pn + side, so decoding continues at step
+    + mrope_delta, mrope_delta = side - Pn (None without patches).
+    whisper: the sinusoidal table is added."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.embed(params["embed"], tokens)
+    positions_thw = mrope_delta = None
+    if cfg.frontend == "vision" and "patches" in batch:
+        pe = batch["patches"]
+        Pn = pe.shape[1]
+        if "vis_proj" in params:
+            pe = pe @ params["vis_proj"]["w"] + params["vis_proj"]["b"]
+        x = torch.cat([pe.to(x.dtype), x[:, Pn:]], dim=1)
+        if cfg.m_rope:
+            side = max(1, int(Pn ** 0.5))
+            mrope_delta = side - Pn
+            txt = torch.arange(Pn, S, dtype=torch.int32, device=x.device) + mrope_delta
+            positions_thw = torch.cat(
+                [rope_lib.vision_positions_thw(B, Pn, device=x.device),
+                 rope_lib.text_positions_thw(txt[None].expand(B, S - Pn))], dim=1)
+    if cfg.family == "encdec":
+        x = x + L.sinusoidal_positions(S, cfg.d_model, device=x.device).to(x.dtype)[None]
+    return x, positions_thw, mrope_delta
+
+
+def _encoder_forward(params, cfg: ArchConfig, frames):
+    """whisper's encoder over precomputed frame embeddings (B, Se, d): the
+    sinusoidal table, then bidirectional attention blocks, then enc_norm."""
+    x = frames + L.sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                        device=frames.device).to(frames.dtype)[None]
+    attend = lambda p, xin: (attn_lib.attention_encoder(p, xin, cfg), None)
+    for i, bp in enumerate(params["encoder"]):
+        x = _attn_block(bp, x, cfg, attend, i)
+    return L.apply_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
 def prefill(params, cfg: ArchConfig, batch, cache):
     """Run the prompt through the model in one pass; returns the last
-    token's logits (B, V) in float32 and the filled cache (in place)."""
+    token's logits (B, V) in float32 and the filled cache (in place).
+    ``batch`` holds ``tokens`` (B, S) and, for whisper, ``frames`` (B, Se,
+    d); for qwen2-vl optionally ``patches`` (B, Pn, frontend_dim)."""
     tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens)
+    x, positions_thw, mrope_delta = _embed_inputs(params, cfg, batch)
+    cross = None
+    if cfg.encoder_layers:
+        enc_out = _encoder_forward(params, cfg, batch["frames"].to(x.dtype))
+
+        def cross(p, xin, ck, cv):
+            # the layer's cross K/V, projected once: they fill its cache
+            # slots and feed this prompt's cross-attention
+            k, v = attn_lib.project_kv(p, enc_out, cfg)
+            ck.copy_(k)
+            cv.copy_(v)
+            return attn_lib.cross_attention_prefill(p, xin, cfg, k, v)
     x = _run_blocks(params, cfg, x, cache,
-                    lambda p, xin, lc: attn_lib.attention_prefill(p, xin, cfg, lc),
-                    ssm_lib.mamba2_prefill, _rwkv_prefill)
+                    lambda p, xin, lc: attn_lib.attention_prefill(
+                        p, xin, cfg, lc, positions_thw=positions_thw),
+                    ssm_lib.mamba2_prefill, _rwkv_prefill, cross)
     cache["step"] = tokens.shape[1]
+    if mrope_delta is not None:
+        cache["mrope_delta"] = mrope_delta
     return _logits(params, cfg, x[:, -1, :]), cache
 
 
 def decode_step(params, cfg: ArchConfig, token, cache):
     """token: (B, 1) int -> (logits (B, 1, V) float32, cache updated in place)."""
     x = L.embed(params["embed"], token)
+    if cfg.family == "encdec":        # whisper: the sinusoidal table's row at this step
+        x = x + L.sinusoidal_positions(1, cfg.d_model, cache["step"], x.device).to(x.dtype)
+    positions_thw = None
+    if cfg.m_rope:      # qwen2-vl rotates at step + mrope_delta; the KV cache keeps cache.pos
+        pos = torch.full((token.shape[0], 1), cache["step"] + cache["mrope_delta"],
+                         dtype=torch.int32, device=x.device)
+        positions_thw = rope_lib.text_positions_thw(pos)
+    cross = None
+    if cfg.encoder_layers:
+        cross = lambda p, xin, k, v: attn_lib.cross_attention_decode(p, xin, cfg, k, v)
     x = _run_blocks(params, cfg, x, cache,
-                    lambda p, xin, lc: attn_lib.attention_decode(p, xin, cfg, lc),
-                    ssm_lib.mamba2_decode, _rwkv_decode)
+                    lambda p, xin, lc: attn_lib.attention_decode(
+                        p, xin, cfg, lc, positions_thw=positions_thw),
+                    ssm_lib.mamba2_decode, _rwkv_decode, cross)
     cache["step"] += 1
     return _logits(params, cfg, x), cache

@@ -5,8 +5,11 @@ batching and padding: requests queue up; each serving pass takes up to
 ``batch_size`` of them, zero-pads every prompt to ``prompt_len``, runs one
 prefill (through the flash-attention or scan kernels) and
 ``decode_tokens - 1`` greedy decode steps, and returns ``decode_tokens``
-tokens per request.  Latency runs from a request's arrival to the moment its output
-tokens reach the host.
+tokens per request.  whisper's and qwen2-vl's frontends are stubs, as in
+the JAX engine: every prefill gets zero ``frames`` (B, Se, d) or
+``patches`` (B, min(vision_patches, prompt_len), frontend_dim).  Latency
+runs from a request's arrival to the moment its output tokens reach the
+host.
 """
 from __future__ import annotations
 
@@ -37,6 +40,19 @@ class Completion:
     latency_ms: float
 
 
+def frontend_shapes(cfg: ArchConfig, batch: int, prompt_len: int) -> Dict[str, tuple]:
+    """Shapes of the frontend stubs' inputs: frames (B, Se, d_model) for an
+    audio model, patches (B, min(vision_patches, S), frontend_dim) for a
+    vision one; {} for a text model."""
+    shapes = {}
+    if cfg.frontend == "audio":
+        shapes["frames"] = (batch, cfg.encoder_seq_len, cfg.d_model)
+    if cfg.frontend == "vision":
+        shapes["patches"] = (batch, min(cfg.vision_patches, prompt_len),
+                             cfg.frontend_dim or cfg.d_model)
+    return shapes
+
+
 class ServingEngine:
     """``device=None`` serves on cuda:0 and raises without CUDA; pass
     ``device="cpu"`` for the plain path.  ``params`` (e.g. from
@@ -52,6 +68,7 @@ class ServingEngine:
         self.prompt_len = prompt_len
         self.decode_tokens = decode_tokens
         self.params = params if params is not None else self.model.init(seed)
+        self.extras = self._dummy_extras()
         self.queue: Deque[Request] = deque()
         self.latencies: List[float] = []
         # One cache per engine, in float32 as in the JAX engine.  Each pass
@@ -67,7 +84,8 @@ class ServingEngine:
     def _serve(self, tokens: np.ndarray) -> np.ndarray:
         toks = torch.from_numpy(tokens).to(self.device)
         cache = self.model.reset_cache(self._cache)
-        logits, cache = self.model.prefill(self.params, {"tokens": toks}, cache)
+        logits, cache = self.model.prefill(self.params, {"tokens": toks, **self.extras},
+                                           cache)
         tok = logits.argmax(-1).to(torch.int32)[:, None]
         outs = [tok]
         for _ in range(self.decode_tokens - 1):
@@ -75,6 +93,12 @@ class ServingEngine:
             tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
             outs.append(tok)
         return torch.cat(outs, dim=1).cpu().numpy()
+
+    def _dummy_extras(self) -> Dict[str, torch.Tensor]:
+        """The frontend stubs' inputs, zeros made once on the engine's device."""
+        return {k: torch.zeros(shape, dtype=torch.float32, device=self.device)
+                for k, shape in frontend_shapes(self.cfg, self.batch_size,
+                                                self.prompt_len).items()}
 
     def submit(self, req: Request):
         self.queue.append(req)

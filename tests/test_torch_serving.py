@@ -16,7 +16,7 @@ from repro.configs import REGISTRY as JAX_REGISTRY
 from repro.serving.engine import Request as JaxRequest
 from repro.serving.engine import ServingEngine as JaxServingEngine
 from tests._torch_parity import REL_TOL, jax_32bit, models  # noqa: F401
-from repro_torch.configs import REGISTRY, reduced
+from repro_torch.configs import ASSIGNED, REGISTRY, reduced
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.zoo import build_model
 from repro_torch.serving.engine import Request, ServingEngine
@@ -33,11 +33,12 @@ def test_configs_are_the_same():
     assert cfg.n_kv_heads < cfg.n_heads
 
 
-def _jax_greedy_gaps(jmodel, jparams, toks, n, max_len):
+def _jax_greedy_gaps(jmodel, jparams, toks, n, max_len, extras=None):
     """Per position of the greedy continuation: the JAX top-2 logit gap,
-    relative to max|logit|."""
+    relative to max|logit|.  ``extras``: the prefill's frames or patches."""
     cache = jmodel.init_cache(toks.shape[0], max_len, dtype=jnp.float32)
-    lg, cache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, cache)
+    lg, cache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks), **(extras or {})},
+                               cache)
     gaps = []
     for i in range(n):
         lgn = np.asarray(lg, np.float64).reshape(toks.shape[0], -1)
@@ -86,11 +87,20 @@ def test_serving_engine_matches_jax_engine():
 
 
 def test_unported_blocks_name_their_slice():
-    for arch in ("whisper-large-v3", "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError, match="encoder/vision slice"):
-            build_model(reduced(REGISTRY[arch]), "cpu")
-    for arch in ("qwen3-4b", "rwkv6-1.6b", "zamba2-2.7b",    # served since slice 2
-                 "yi-6b", "qwen1.5-4b", "minitron-4b",       # the rest of the dense family
-                 "mixtral-8x22b", "dbrx-132b"):              # and MoE
+    """Every assigned architecture builds, reduced and at its published
+    config; check_supported still refuses what the assembly does not build,
+    as the JAX package's _uniform_kind does, naming why."""
+    assert len(ASSIGNED) == 10
+    for arch in ASSIGNED:
         assert build_model(reduced(REGISTRY[arch]), "cpu").cfg.name == arch
         assert build_model(REGISTRY[arch], "cpu").cfg.name == arch
+    mixed = reduced(REGISTRY["qwen3-4b"]).replace(block_pattern=("attn", "rwkv6"))
+    with pytest.raises(NotImplementedError, match="block kinds"):
+        build_model(mixed, "cpu")
+    encoder_on_scan = reduced(REGISTRY["rwkv6-1.6b"]).replace(encoder_layers=2,
+                                                             cross_attention=True)
+    with pytest.raises(NotImplementedError, match="need attention blocks"):
+        build_model(encoder_on_scan, "cpu")
+    no_encoder = reduced(REGISTRY["whisper-large-v3"]).replace(encoder_layers=0)
+    with pytest.raises(NotImplementedError, match="reads an encoder"):
+        build_model(no_encoder, "cpu")
