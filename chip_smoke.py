@@ -46,7 +46,7 @@ Phases (any failure raises and exits non-zero):
   4. slices   -- for each served model (qwen3-4b, rwkv6-1.6b, zamba2-2.7b,
                  yi-6b, qwen1.5-4b, minitron-4b, mixtral-8x22b, dbrx-132b,
                  qwen2-vl-7b, whisper-large-v3) at full width (depth cut
-                 for all but rwkv6 and zamba2, whisper's encoder too: see
+                 for all but rwkv6, whisper's encoder too: see
                  MODELS; f32, random weights from a torch.Generator on
                  the card): a reduced model on the card
                  must match the same model's plain CPU path (rel. err <=
@@ -148,10 +148,44 @@ Phases (any failure raises and exits non-zero):
                  diurnal run on both backends (identical edits) for
                  CONTROL_M1000_HORIZON_S; one profiled run's idle share; and
                  launch.serve's cluster mode on the card against numpy's flags
+  9. training -- (run after phase 4) each kernel's autograd wrapper
+                 (models/attention.FlashAttention, rwkv.RWKV6Scan,
+                 ssm.SSDScan) at the training shapes (flash at qwen3-4b's
+                 (4, 512, 32/8, 128) in bf16 and f32, at whisper's (4, 512 q /
+                 1500 kv, 20/20, 64) unmasked and at (1, 4100, 4/2, 128),
+                 whose backward runs kv-blockwise; rwkv6_scan at (4, 512,
+                 32, 64) and ssd_scan at (4, 512, 80, 64, 64), bf16 and f32,
+                 from a state): the forward launches the kernel once and the
+                 backward none, and the gradients of a random-weighted sum
+                 of the outputs equal the CPU path's (autograd through the
+                 recompute on the CPU) within 1e-4 (f32) / 2e-2 (bf16) of
+                 their max; the backward's ms per call (CUDA events, back to
+                 back) beside the forward's and, for flash, SDPA's efficient
+                 backend forward + backward and backward alone.  Then the
+                 main path: qwen3-4b at full width, 8 of 36 layers, batch 4
+                 x 512 from the port's pipeline, bf16 compute with float32
+                 master params and moments, AdamW as loop.train builds it,
+                 remat off, 10 steps through loop.make_step: every loss
+                 finite, every parameter leaf's first gradient finite and
+                 not all zero, flash launched 8 times a step (16 with remat,
+                 checked once, none in the backward), a checkpoint at step 5
+                 from which loop.train (a fresh model, restored) reproduces
+                 steps 6-10 within 1e-6 relative; step ms (CUDA events,
+                 median of steps 2-10), tokens/s, peak memory, one profiled
+                 step's device ms by group and idle share.  rwkv6-1.6b (4 of
+                 24 layers) and zamba2-2.7b (6 of 54, one shared-attention
+                 group) at full width, 3 steps, with their scans' launches
+                 a step, the same checks and measures.  The reduced
+                 qwen3-4b, rwkv6-1.6b, zamba2-2.7b, mixtral-8x22b,
+                 whisper-large-v3 and qwen2-vl-7b (f32) on the card against
+                 the CPU: loss within 1e-5, every gradient leaf
+                 within max(1e-4, twice its noise floor) of its max, MoE
+                 experts equal.  The JAX package's 60-step short run's config
+                 on the card: the last 10 losses average 0.3 below the first 10
 Prints one {"kernels": [...]} line (the four kernels, alloc_all and
 tables_kernel), one {"slice": {...}} line per model, one {"planner": {...}}
-line, one {"simulator": {...}} line, one {"controller": {...}} line, and
-last {"ok": true, "device": {...}}.
+line, one {"simulator": {...}} line, one {"controller": {...}} line, one
+{"train": {...}} line, and last {"ok": true, "device": {...}}.
 """
 import contextlib
 import dataclasses
@@ -189,11 +223,13 @@ SSD_SHAPE = (4, 512, 80, 64, 64)         # zamba2-2.7b prefill: B, S, H, hd, N
 
 BATCH, PROMPT, DECODE, PUMPS = 4, 512, 4, 4
 # (arch, layers, encoder layers): every model the port serves, at full
-# width; None = full depth.  Depth is cut to keep the script near 200 s:
-# the dense models (qwen3-4b among them) and qwen2-vl-7b run 8 layers,
-# whisper-large-v3 8 of its 32 decoder and 8 of its 32 encoder layers,
-# the MoE models 2 (9.66 and 12.68 GB of float32 experts a layer).
-MODELS = [("qwen3-4b", 8, None), ("rwkv6-1.6b", None, None), ("zamba2-2.7b", None, None),
+# width; None = full depth.  Depth is cut to keep the script near 200 s
+# before phase 9 (training) was added: the dense models (qwen3-4b among
+# them) and qwen2-vl-7b run 8 layers, whisper-large-v3 8 of its 32 decoder
+# and 8 of its 32 encoder layers, the MoE models 2 (9.66 and 12.68 GB of
+# float32 experts a layer); zamba2-2.7b 18 of its 54 (3 shared-attention
+# groups), cut when phase 9 added about 80 s.
+MODELS = [("qwen3-4b", 8, None), ("rwkv6-1.6b", None, None), ("zamba2-2.7b", 18, None),
           ("yi-6b", 8, None), ("qwen1.5-4b", 8, None), ("minitron-4b", 8, None),
           ("mixtral-8x22b", 2, None), ("dbrx-132b", 2, None),
           ("qwen2-vl-7b", 8, None), ("whisper-large-v3", 8, 8)]
@@ -798,6 +834,7 @@ def run_slice(dev, arch, layers=None, encoder_layers=None):
     from repro_torch.models import moe
     from repro_torch.models.zoo import build_model
     from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.tree import tree_leaves
     cfg = get_config(arch)
     if layers is not None:
         cfg = cfg.replace(n_layers=layers)
@@ -806,7 +843,7 @@ def run_slice(dev, arch, layers=None, encoder_layers=None):
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, batch_size=BATCH, prompt_len=PROMPT,
                         decode_tokens=DECODE, seed=0, device=dev)
-    n_params = sum(t.numel() for t in _leaves(eng.params))
+    n_params = sum(t.numel() for t in tree_leaves(eng.params))
     log(f"slice: {arch} full width ({cfg.n_layers} layers"
         + (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers else "")
         + f", d_model {cfg.d_model}, "
@@ -1079,17 +1116,6 @@ def profile_pump(eng, prompts, pump_ms):
             "idle_share": max(0.0, 1.0 - sum(groups.values()) / pump_ms)}, done
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 @contextlib.contextmanager
 def record_routes():
     """Inside the block, every MoE routing appends its (top-k ids, probs)
@@ -1099,7 +1125,7 @@ def record_routes():
 
     def keep(router_w, x, top_k):
         out = route(router_w, x, top_k)
-        seen.append((out[0], out[2]))
+        seen.append((out[0], out[2].detach()))
         return out
 
     moe._route = keep
@@ -1131,11 +1157,12 @@ def check_small_against_cpu(dev, arch):
     model takes them.  zamba2 keeps two groups (4 layers)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.zoo import build_model
+    from repro_torch.tree import tree_map
     cfg = get_config(arch)
     cfg = reduced(cfg, layers=4 if cfg.shared_attn_every else 2)
     cpu_model, gpu_model = build_model(cfg, "cpu"), build_model(cfg, dev)
     params_cpu = cpu_model.init(seed=1)
-    params_gpu = _to(params_cpu, dev)
+    params_gpu = tree_map(lambda t: t.to(dev), params_cpu)
     rng = np.random.default_rng(2)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)))
     extras = random_extras(cfg, 2, 24, "cpu", rng)
@@ -1150,7 +1177,7 @@ def check_small_against_cpu(dev, arch):
                 want.append(lc)
         with record_routes() as routes_card:
             lg, gc_ = gpu_model.prefill(params_gpu, {"tokens": tokens.to(dev),
-                                                     **_to(extras, dev)},
+                                                     **tree_map(lambda t: t.to(dev), extras)},
                                         gpu_model.init_cache(2, 32, dtype=torch.float32))
             got = [lg]
             for tok in toks:
@@ -1163,14 +1190,6 @@ def check_small_against_cpu(dev, arch):
         f"(limit {REL_TOL_SMALL})")
     assert worst <= REL_TOL_SMALL, worst
     return worst
-
-
-def _to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, dev) for v in tree]
-    return tree.to(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -2443,6 +2462,452 @@ def run_controller(dev):
              "profiled": profiled, "launcher_cluster": launcher}
     return stats
 
+# ---------------------------------------------------------------------------
+# Phase 9: training
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_STEP = 4, 512, 10, 5
+# qwen3-4b at serving's depth cut: 1.59 G params, so float32 params, grads
+# and two moments take 25 GB (full depth's 4.4 G would take 70 GB)
+TRAIN_MAIN = ("qwen3-4b", 8)
+# rwkv6-1.6b 4 of 24 layers, zamba2-2.7b 6 of 54 (one shared-attention group)
+TRAIN_RECURRENT = (("rwkv6-1.6b", 4), ("zamba2-2.7b", 6))
+TRAIN_RECURRENT_STEPS = 3
+TRAIN_SMALL = ("qwen3-4b", "rwkv6-1.6b", "zamba2-2.7b", "mixtral-8x22b", "whisper-large-v3",
+               "qwen2-vl-7b")
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}    # of max|g|, card against CPU
+TRAIN_DIR = PORT_TREE.parents[1] / "build" / "train_ckpt"   # git-ignored, removed after
+# record_function ranges of the port's step (training/loop.py, the kernels'
+# autograd wrappers, layers._ChunkedCrossEntropy) -> device-time group
+TRAIN_RANGES = {"flash_attention.backward": "attention_backward",
+                "rwkv6_scan.backward": "scan_backward", "ssd_scan.backward": "scan_backward",
+                "cross_entropy.forward": "cross_entropy",
+                "cross_entropy.backward": "cross_entropy",
+                "train.optimizer": "optimizer"}
+TRAIN_GROUPS = ("matmul", "flash_forward", "attention_backward", "scan_forward",
+                "scan_backward", "cross_entropy", "optimizer", "other")
+
+
+def grads_of(fn, inputs, weights=None, rng=None):
+    """Outputs of fn on inputs that require grad and the gradients of the
+    random-weighted sum of its outputs (weights drawn from rng when not
+    given); also the weights, to repeat the sum on another device."""
+    ins = [t.detach().requires_grad_() for t in inputs]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    if weights is None:
+        weights = [rand(rng, tuple(o.shape), torch.float32, "cpu") for o in outs]
+    loss = sum((o.float() * w.to(o.device)).sum() for o, w in zip(outs, weights))
+    return outs, torch.autograd.grad(loss, ins, retain_graph=True), weights, (loss, ins)
+
+
+def check_train_function(dev, rng, name, fn, recompute, inputs, label):
+    """One kernel's autograd wrapper on the card: the forward launches the
+    kernel once and the backward launches none; every gradient equals the
+    CPU path's within GRAD_TOL of its max.  The CPU path's gradients are
+    autograd's through ``recompute`` on the CPU: its backward differentiates
+    exactly that, and its forward (the plain version, phase 3's yardstick)
+    leaves them as they are, so it is not run.  Returns the row and, for
+    timing, the card's inputs and graph."""
+    from repro_torch.kernels import ops
+    dtype = inputs[0].dtype
+    ops.reset_launch_counts()
+    outs, grads, weights, graph = grads_of(fn, inputs, rng=rng)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    assert counts == {name: 1}, f"{name} {label}: launches over forward + backward {counts}"
+    _, want, _, _ = grads_of(recompute, [t.cpu() for t in inputs], weights)
+    errs = []
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert g.dtype == w.dtype == inputs[i].dtype and bool(torch.isfinite(g).all()), (name, label, i)
+        errs.append(rel_err(g.cpu(), w))
+    worst = max(errs)
+    log(f"train: {name} {label} {str(dtype)[6:]}: one launch, none in the backward; "
+        f"gradients vs CPU rel. err {worst:.3g} (limit {GRAD_TOL[dtype]})")
+    assert worst <= GRAD_TOL[dtype], (name, label, errs)
+    return {"name": name, "shape": label, "dtype": str(dtype)[6:], "grad_rel_err": worst}, graph
+
+
+def train_event_ms(fn, iters=10):
+    """ms per call of fn over ``iters`` calls back to back, read with CUDA
+    events: the card's time and any gap the host leaves it (a recompute
+    backward launches hundreds of small kernels, and torch.profiler drops
+    records after runs that large: see device_ms)."""
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_backward(row, graph, forward):
+    """ms per call of one backward of the wrapper's graph (the recompute
+    and its gradient, and the weighted sum's) and of its forward alone."""
+    loss, ins = graph
+    row["backward_ms"] = train_event_ms(lambda: torch.autograd.grad(loss, ins, retain_graph=True))
+    with torch.no_grad():
+        row["forward_ms"] = train_event_ms(forward)
+    return row
+
+
+def sdpa_train_times(q, k, v, causal):
+    """SDPA's efficient backend on K/V expanded to every query head, the
+    attention rows' yardstick: forward + backward, and backward alone."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    H, KV = q.shape[2], k.shape[2]
+    qt = q.detach().transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (t.detach().repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+              .requires_grad_() for t in (k, v))
+    go = torch.randn_like(qt)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        both = train_event_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), (qt, kt, vt), go))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        bwd = train_event_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), go, retain_graph=True))
+    return {"library_fwd_bwd_ms": both, "library_bwd_ms": bwd, "library": SDPA_EFFICIENT}
+
+
+def check_train_functions(dev, rng):
+    """Phase 9a: each kernel's autograd wrapper at the training shapes,
+    against the CPU path, and the backward's device time beside SDPA's."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import rwkv as R
+    from repro_torch.models import ssm as M
+    rows = []
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    wh = model_configs()["whisper-large-v3"]
+    flash_cases = [((B, S, S, 32, 8, 128), True, dt) for dt in (torch.bfloat16, torch.float32)]
+    flash_cases += [((B, S, wh.encoder_seq_len, wh.n_heads, wh.n_kv_heads, wh.hd), False, torch.float32),
+                    ((1, 4100, 4100, 4, 2, 128), True, torch.float32)]   # kv-blockwise backward
+    for (b, s, skv, H, KV, hd), causal, dt in flash_cases:
+        q = rand(rng, (b, s, H, hd), dt, dev)
+        k, v = rand(rng, (b, skv, KV, hd), dt, dev), rand(rng, (b, skv, KV, hd), dt, dev)
+        label = f"({b}, {s} q / {skv} kv, {H}/{KV}, {hd}){'' if causal else ' unmasked'}"
+        full = A.full_attention if max(s, skv) <= A.FULL_MAX else A.kv_blockwise_attention
+        pos = lambda n: torch.arange(n)[None].expand(b, n)
+        row, graph = check_train_function(
+            dev, rng, "flash_attention",
+            lambda q_, k_, v_: A.flash_attention(q_, k_, v_, causal=causal),
+            lambda q_, k_, v_: full(q_, k_, v_, q_positions=pos(s), kv_positions=pos(skv),
+                                    causal=causal, window=None), (q, k, v), label)
+        time_backward(row, graph, lambda: A.flash_attention(q, k, v, causal=causal))
+        row.update(sdpa_train_times(q, k, v, causal))
+        rows.append(row)
+        del graph
+    Br, Sr, Hr, hdr = RWKV_SHAPE
+    for dt in (torch.bfloat16, torch.float32):
+        r, k, v, logw, u = rwkv_inputs(rng, Br, Sr, Hr, hdr, dt, dev)
+        s0 = 0.1 * rand(rng, (Br, Hr, hdr, hdr), torch.float32, dev)
+        row, graph = check_train_function(
+            dev, rng, "rwkv6_scan", lambda *a: R.wkv(*a[:5], s0=a[5]),
+            lambda *a: (lambda y, st: (y.to(a[0].dtype), st))(*R.wkv_chunked(*a[:5], s0=a[5])),
+            (r, k, v, logw, u, s0), f"{RWKV_SHAPE} from a state")
+        time_backward(row, graph, lambda: R.wkv(r, k, v, logw, u, s0=s0))
+        rows.append({**row, "library_fwd_bwd_ms": None, "library_bwd_ms": None})
+        del graph
+    Bs, Ss, Hs, hds, N = SSD_SHAPE
+    for dt in (torch.bfloat16, torch.float32):
+        xh = rand(rng, (Bs, Ss, Hs, hds), dt, dev)
+        buf = 0.5 * rand(rng, (Bs, Ss, 2 * N), torch.float32, dev).to(dt)
+        Bm, Cm = buf[..., :N], buf[..., N:]
+        dt_ = torch.rand((Bs, Ss, Hs), device=dev) * 0.1
+        dA = -dt_ * torch.exp(0.5 * rand(rng, (Bs, Ss, Hs), torch.float32, dev))
+        h0 = 0.1 * rand(rng, (Bs, Hs, hds, N), torch.float32, dev)
+        row, graph = check_train_function(
+            dev, rng, "ssd_scan", lambda x, b_, c_, d_, a_, h_: M.ssd(x, b_, c_, d_, a_, h0=h_),
+            lambda x, b_, c_, d_, a_, h_: (lambda y, st: (y.to(x.dtype), st))(
+                *M.ssd_chunked(x, b_, c_, d_, a_, h0=h_)),
+            (xh, Bm, Cm, dt_, dA, h0), f"{SSD_SHAPE} group-form B, C, from a state")
+        time_backward(row, graph, lambda: M.ssd(xh, Bm, Cm, dt_, dA, h0=h0))
+        rows.append({**row, "library_fwd_bwd_ms": None, "library_bwd_ms": None})
+        del graph
+    for row in rows:
+        lib = row["library_fwd_bwd_ms"]
+        log(f"train: {row['name']} {row['shape']} {row['dtype']}: forward {row['forward_ms']:.4f} ms, "
+            f"backward (recompute) {row['backward_ms']:.4f} ms"
+            + ("" if lib is None else f"; SDPA efficient forward + backward {lib:.4f}, "
+               f"backward {row['library_bwd_ms']:.4f}"))
+    return rows
+
+
+def train_step_groups(prof):
+    """Device ms of one profiled training step by group: a kernel inside
+    one of the port's ranges (TRAIN_RANGES, found as device-side
+    annotations) counts there, any other by its name."""
+    cuda = torch.autograd.DeviceType.CUDA
+    annotations = set(TRAIN_RANGES) | {"train.forward_backward"}
+    events = [e for e in prof.events() if e.device_type == cuda]
+    windows = [(e.time_range.start, e.time_range.end, TRAIN_RANGES[e.name])
+               for e in events if e.name in TRAIN_RANGES]
+    groups, other = dict.fromkeys(TRAIN_GROUPS, 0.0), {}
+    for e in events:
+        if e.name in annotations:
+            continue
+        group = next((g for s, t, g in windows if s <= e.time_range.start < t), None)
+        name = e.name.lower()
+        if group is None:
+            if "flash_attn_kernel" in name:
+                group = "flash_forward"
+            elif "scan_kernel" in name:
+                group = "scan_forward"
+            elif any(k in name for k in ("gemm", "gemv", "cutlass", "nvjet")):
+                group = "matmul"      # cuBLAS's bf16 kernels on sm_90 are nvjet_*
+            else:
+                group = "other"
+                other[e.name[:60]] = other.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+        groups[group] += e.time_range.elapsed_us() / 1e3
+    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:5])
+    return groups, top
+
+
+def param_grads(model, params, batch, dtype, remat):
+    """The loss and every float32 leaf's gradient, as the step takes them,
+    with the kernels' launches over the forward and over the whole."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    ops.reset_launch_counts()
+    loss = model.loss(T.cast_params(tree_unflatten(params, leaves), dtype), batch, remat=remat)
+    forward = ops.launch_counts()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    return loss.detach(), grads, forward, ops.launch_counts()
+
+
+def check_leaf_grads(arch, grads):
+    """Every parameter leaf's gradient is finite and not all zero (a kernel
+    call without a backward would leave everything upstream of it zero)."""
+    bad = [i for i, g in enumerate(grads)
+           if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    assert not bad, f"{arch}: leaves {bad} of {len(grads)} have a non-finite or zero gradient"
+
+
+def train_launches(cfg):
+    """Kernel launches of a training step without remat: flash once an
+    attention block (zamba2: once a shared-attention group), a scan once a
+    recurrent block, none in the backward."""
+    kind = cfg.pattern[0]
+    if kind == "rwkv6":
+        return {"rwkv6_scan": cfg.n_layers}
+    if kind == "mamba2":
+        return {"ssd_scan": cfg.n_layers, "flash_attention": cfg.n_layers // cfg.shared_attn_every}
+    return {"flash_attention": cfg.n_layers}
+
+
+def train_run(dev, arch, layers, steps, ckpt_step=None, remat_check=False):
+    """``steps`` steps of ``arch`` at full width (``layers`` deep) as
+    loop.train takes them (its AdamW, the pipeline's batches, the compute
+    cast to cfg.dtype, remat off), one step at a time through
+    loop.make_step: the kernels' launches a step, CUDA-event step times,
+    peak memory; the first step's gradients checked leaf by leaf; one more
+    step profiled (device ms by group); with ``remat_check`` (an attention
+    model) the launches with remat."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training import checkpoint, loop
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch).replace(n_layers=layers)
+    dtype = loop.compute_dtype(cfg)
+    per_step = train_launches(cfg)
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev)
+    opt = AdamW(lr=1e-3, warmup_steps=20, total_steps=steps, weight_decay=0.01)
+    params = model.init(0)
+    state = opt.init(params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    data = make_pipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [loop.to_device(next(data), dev) for _ in range(steps)]
+    log(f"train: {arch} full width ({layers} layers, {n_params / 1e9:.3f} B params, "
+        f"compute {str(dtype)[6:]}, float32 master params and moments); init "
+        f"{time.perf_counter() - t0:.1f} s")
+    _, grads, fwd, whole = param_grads(model, params, batches[0], dtype, remat=False)
+    check_leaf_grads(arch, grads)
+    del grads
+    assert fwd == whole and {k: n for k, n in fwd.items() if n} == per_step, (arch, fwd, whole)
+    stats = {"arch": arch, "layers": layers, "params": n_params, "batch": TRAIN_BATCH,
+             "seq": TRAIN_SEQ, "compute_dtype": str(dtype)[6:], "steps": steps,
+             "launches_per_step": per_step}
+    if remat_check:     # each block's forward runs again in the backward
+        _, grads, fwd, whole = param_grads(model, params, batches[0], dtype, remat=True)
+        del grads
+        key = "flash_attention"
+        assert fwd[key] == per_step[key] and whole[key] == 2 * per_step[key], (arch, fwd, whole)
+        stats["remat_launches_per_step"] = whole[key]
+    step = loop.make_step(model, opt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms = [], []
+    for i, batch in enumerate(batches):
+        ops.reset_launch_counts()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, state, loss = step(params, state, batch)
+        e1.record()
+        losses.append(float(loss))
+        step_ms.append(e0.elapsed_time(e1))
+        got = {k: n for k, n in ops.launch_counts().items() if n}
+        assert got == per_step, (arch, i + 1, got, per_step)
+        if ckpt_step == i + 1:
+            t = time.perf_counter()
+            checkpoint.save(str(TRAIN_DIR), i + 1, (params, state))
+            stats["checkpoint_save_s"] = time.perf_counter() - t
+    assert all(np.isfinite(losses)), losses
+    stats["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    timed = step_ms[1:] if steps > 2 else step_ms
+    stats.update(losses=losses, step_ms=step_ms, median_step_ms=float(np.median(timed)),
+                 tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (float(np.median(timed)) / 1e3))
+    # one more step, profiled (its result is dropped)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
+        step(params, state, batches[-1])
+        torch.cuda.synchronize()
+    groups, top_other = train_step_groups(prof)
+    busy = sum(groups.values())
+    stats["profile"] = {"device_ms": groups, "busy_ms": busy, "other_top_ms": top_other,
+                        "idle_share": max(0.0, 1.0 - busy / stats["median_step_ms"])}
+    want = ["cross_entropy", "optimizer", "matmul"]
+    if "flash_attention" in per_step:
+        want += ["flash_forward", "attention_backward"]
+    if "rwkv6_scan" in per_step or "ssd_scan" in per_step:
+        want += ["scan_forward", "scan_backward"]
+    for g in want:
+        assert groups[g] > 0, (g, groups)
+    log(f"train: {arch} profiled step, device ms {({k: round(v, 3) for k, v in groups.items()})}, "
+        f"idle share {stats['profile']['idle_share']:.3f}")
+    log(f"train: {arch}: {steps} steps, losses {[round(x, 4) for x in losses]}, median step "
+        f"{stats['median_step_ms']:.2f} ms ({stats['tokens_per_s']:.0f} tokens/s), peak "
+        f"{stats['peak_memory_gib']:.2f} GiB, launches a step {per_step}")
+    del params, state, batches, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def check_resume(dev, stats):
+    """loop.train from the step-TRAIN_CKPT_STEP checkpoint (a fresh model,
+    restored; the pipeline skipped to its batch) must give the
+    uninterrupted run's later losses within 1e-6 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import loop
+    arch, layers = TRAIN_MAIN
+    t = time.perf_counter()
+    logged = []
+    report = loop.train(get_config(arch).replace(n_layers=layers), steps=TRAIN_STEPS,
+                        batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, ckpt_dir=str(TRAIN_DIR),
+                        ckpt_every=TRAIN_STEPS + 1, log_every=TRAIN_STEPS + 1,
+                        log_fn=logged.append, device=dev)
+    shutil.rmtree(TRAIN_DIR)
+    want = stats["losses"][TRAIN_CKPT_STEP:]
+    rel = max(abs(a / b - 1) for a, b in zip(report.losses, want))
+    assert logged == [f"restored checkpoint at step {TRAIN_CKPT_STEP}"], logged
+    assert len(report.losses) == len(want) and rel <= 1e-6, (report.losses, want)
+    log(f"train: loop.train restored at step {TRAIN_CKPT_STEP} reproduces steps "
+        f"{TRAIN_CKPT_STEP + 1}-{TRAIN_STEPS} (rel. err {rel:.3g}) in "
+        f"{time.perf_counter() - t:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"resumed_losses": report.losses, "resume_rel_err": rel}
+
+
+def check_train_small(dev, arch):
+    """A reduced ``arch`` (float32) on the card against the same weights on
+    the CPU: the loss within 1e-5 relative and every gradient leaf within
+    max(1e-4, twice its noise floor) of its max, the floor being how far
+    the CPU gradient moves under a 1e-7 relative change of every weight,
+    capped as tests/test_torch_train_grads.py caps it (1e-3 for
+    rwkv6-1.6b, whose group norm sees near-zero variances at t = 0, 2e-5
+    for the others), so a port fault cannot widen its own bound.  A key
+    bias (``bk``) of a model without rotary positions (whisper's) has an
+    exact gradient of zero, since softmax does not see a shift of every
+    score, and holds only rounding: its gradient, on either device, and
+    their difference stay within 1e-4 of the model's largest gradient
+    (rotated, as in qwen2-vl-7b, the bias moves each score by another
+    amount and its leaf is checked like any other).  An MoE model routes
+    every token to the CPU's experts."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training import loop
+    from repro_torch.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
+    cfg = get_config(arch)
+    cfg = reduced(cfg, layers=4 if cfg.shared_attn_every else 2)
+    cpu_model, card_model = build_model(cfg, "cpu"), build_model(cfg, dev)
+    params = cpu_model.init(seed=1)
+    batch = next(make_pipeline(cfg, 2, 64, seed=0))
+    with record_routes() as routes_cpu:
+        loss_cpu, want, _, _ = param_grads(cpu_model, params, loop.to_device(batch, "cpu"),
+                                           torch.float32, False)
+    with record_routes() as routes_card:
+        loss, got, _, _ = param_grads(card_model, tree_map(lambda t: t.to(dev), params),
+                                      loop.to_device(batch, dev), torch.float32, False)
+    if cfg.is_moe:
+        check_routes(arch, routes_cpu, routes_card, cfg.top_k)
+    gen = torch.Generator().manual_seed(0)
+    moved = [t * (1 + 1e-7 * torch.randn(t.shape, generator=gen)) for t in tree_leaves(params)]
+    _, again, _, _ = param_grads(cpu_model, tree_unflatten(params, moved),
+                                 loop.to_device(batch, "cpu"), torch.float32, False)
+    zero = [name.endswith(".bk") and cfg.rope_theta <= 0 for name in tree_paths(params)]
+    got = [g.cpu() for g in got]
+    scale = max(float(w.abs().max()) for w in want)
+    floors = [rel_err(a, b) for a, b, z in zip(again, want, zero) if not z]
+    errs = [rel_err(g, w) for g, w, z in zip(got, want, zero) if not z]
+    bad = [(i, e, f) for i, (e, f) in enumerate(zip(errs, floors)) if e > max(1e-4, 2 * f)]
+    zero_err = max([max(float(g.abs().max()), float(w.abs().max()), float((g - w).abs().max()))
+                    / scale for g, w, z in zip(got, want, zero) if z], default=0.0)
+    floor_cap = 1e-3 if arch == "rwkv6-1.6b" else 2e-5
+    loss_rel = abs(float(loss) / float(loss_cpu) - 1)
+    log(f"train: reduced {arch} card vs CPU: loss rel. err {loss_rel:.3g}, worst gradient "
+        f"leaf {max(errs):.3g} (largest noise floor {max(floors):.3g}, cap {floor_cap:g}); "
+        f"{sum(zero)} unrotated key-bias leaves within {zero_err:.3g} of the largest "
+        f"gradient")
+    assert max(floors) < floor_cap, (arch, max(floors), floor_cap)
+    assert loss_rel <= 1e-5 and not bad and zero_err <= 1e-4, (arch, loss_rel, bad, zero_err)
+    return {"arch": arch, "loss_rel_err": loss_rel, "worst_grad_rel_err": max(errs),
+            "largest_noise_floor": max(floors), "zero_grad_leaves": sum(zero),
+            "zero_grad_err_of_largest": zero_err}
+
+
+def run_train(dev):
+    """Phase 9: the kernels' autograd wrappers, the main path (qwen3-4b)
+    with its checkpoint resumed through loop.train, rwkv6-1.6b and
+    zamba2-2.7b at full width, the reduced models against the CPU, and the
+    JAX package's short training run's config on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import loop
+    t0 = time.perf_counter()
+    if TRAIN_DIR.exists():
+        shutil.rmtree(TRAIN_DIR)
+    out = {"functions": check_train_functions(dev, np.random.default_rng(41))}
+    arch, layers = TRAIN_MAIN
+    main = train_run(dev, arch, layers, TRAIN_STEPS, ckpt_step=TRAIN_CKPT_STEP, remat_check=True)
+    main.update(check_resume(dev, main))
+    out["main"] = main
+    out["recurrent"] = [train_run(dev, arch, layers, TRAIN_RECURRENT_STEPS)
+                        for arch, layers in TRAIN_RECURRENT]
+    out["small"] = [check_train_small(dev, a) for a in TRAIN_SMALL]
+    cfg = get_config("qwen3-4b").replace(     # tests/test_data_training.py's config
+        n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256,
+        vocab_size=512, dtype="float32")
+    report = loop.train(cfg, steps=60, batch=8, seq=64, log_every=1000, log_fn=log, device=dev)
+    first, last = float(np.mean(report.losses[:10])), float(np.mean(report.losses[-10:]))
+    log(f"train: the reference test's 60 steps on the card: loss {first:.4f} -> {last:.4f}")
+    assert last < first - 0.3, (first, last)
+    out["short_run"] = {"first10": first, "last10": last}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"train: phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not PORT_TREE.is_dir():
         print(f"chip_smoke: {PORT_TREE} is missing: this script drives the port "
@@ -2534,6 +2999,8 @@ def main():
         counts, stats = run_slice(dev, arch, layers, encoder_layers)
         launches = {k: n + counts[k] for k, n in launches.items()}
         slices.append(stats)
+    # phase 9, training, after the slices
+    train = run_train(dev)
     kernels = ([{**k, "launches": launches[k["name"]]} for k in kernels]
                + [planner_kernel, tables_kernel])
     timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms",
@@ -2559,6 +3026,7 @@ def main():
     print(json.dumps({"simulator": {"table_grids": grids, **simulator_stats, "gpu": smi}}),
           flush=True)
     print(json.dumps({"controller": {**controller_stats, "gpu": smi}}), flush=True)
+    print(json.dumps({"train": {**train, "gpu": smi}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -168,6 +168,16 @@ def check_vector_aligned(name: str, t, dims):
                          "to 4 elements (make it contiguous)")
 
 
+def refuse_grad(name: str, entry: str, *tensors):
+    """The kernels have no backward: a call under grad mode on an input that
+    requires grad would drop its gradient, on the card and (for the same
+    code) on the CPU, so it raises and names the differentiable entry."""
+    import torch
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad and the kernel has no "
+                           f"backward; call {entry}, which differentiates it")
+
+
 def strides_arg(*tensors_dims):
     """Pack (tensor, dims) pairs into the kernels' int64 stride array."""
     vals = [t.stride(d) for t, dims in tensors_dims for d in dims]

@@ -6,7 +6,9 @@ sliding window, finite NEG_INF).  Unlike the Pallas kernel, a call
 without a mask may take k/v of a kv length of their own, (B,Skv,KV,hd):
 a prompt's cross-attention to an encoder's frames.  On a CUDA tensor it
 launches the CUDA kernel in ``csrc/attention.cu``; on a CPU tensor it
-runs the plain ``ref.attention_ref``.  There is no other path.
+runs the plain ``ref.attention_ref``.  There is no other path, and no
+backward: under grad mode an input that requires grad is refused (the
+differentiable entry is ``repro_torch.models.attention.flash_attention``).
 
 ``flash_attention.launches`` counts kernel launches.
 """
@@ -47,6 +49,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q: (B, S, H, hd); k, v: (B, Skv, KV, hd) -> (B, S, H, hd).  Skv may
     differ from S only for causal=False without a window."""
     _validate(q, k, v, causal, window)
+    _build.refuse_grad("flash_attention", "repro_torch.models.attention.flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

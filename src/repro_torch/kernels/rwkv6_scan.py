@@ -7,9 +7,11 @@ Replaces the Pallas TPU kernel ``repro.kernels.rwkv6_scan``:
 with an initial state ``s0`` and any sequence length.  On a CUDA tensor it
 launches the CUDA kernel in ``csrc/scan.cu`` (chunks of 32 steps, a ragged
 last chunk zero-padded); on a CPU tensor it runs the plain
-``ref.rwkv6_ref``.  There is no other path.  ``logw`` must already be
-clamped to ``>= LOGW_CLAMP = -2`` (``models/rwkv.py`` does), as for the TPU
-kernel: the chunked factorisation takes exponents up to 64 at that floor.
+``ref.rwkv6_ref``.  There is no other path, and no backward: under grad
+mode an input that requires grad is refused (the differentiable entry is
+``repro_torch.models.rwkv.wkv``).  ``logw`` must already be clamped to
+``>= LOGW_CLAMP = -2`` (``models/rwkv.py`` does), as for the TPU kernel:
+the chunked factorisation takes exponents up to 64 at that floor.
 
 ``rwkv6_scan.launches`` counts kernel launches.
 """
@@ -43,6 +45,7 @@ def rwkv6_scan(r, k, v, logw, u, *, s0=None):
     or None (zeros).  Returns (y (B, S, H, hd) in r's dtype, final state
     (B, H, hd, hd) float32)."""
     _validate(r, k, v, logw, u, s0)
+    _build.refuse_grad("rwkv6_scan", "repro_torch.models.rwkv.wkv", r, k, v, logw, u, s0)
     if r.device.type == "cpu":
         y, s_fin = ref.rwkv6_ref(r, k, v, logw, u, s0)
         return y.to(r.dtype), s_fin

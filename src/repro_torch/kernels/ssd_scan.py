@@ -8,7 +8,9 @@ head:
 with an initial state ``h0`` and any sequence length.  On a CUDA tensor it
 launches the CUDA kernel in ``csrc/scan.cu`` (chunks of 64 steps on the
 tensor cores, a ragged last chunk zero-padded); on a CPU tensor it runs
-the plain ``ref.ssd_ref``.  There is no other path.
+the plain ``ref.ssd_ref``.  There is no other path, and no backward:
+under grad mode an input that requires grad is refused (the
+differentiable entry is ``repro_torch.models.ssm.ssd``).
 
 B and C are read through their strides, so the Mamba2 block passes its
 group-form (B, S, N) tensors as ``Bm[:, :, None].expand(B, S, H, N)``: a
@@ -48,6 +50,7 @@ def ssd_scan(xdt, Bm, Cm, dA, *, h0=None):
     float32; h0: (B, H, hd, N) float32 or None (zeros).  Returns (y (B, S,
     H, hd) in xdt's dtype, final state (B, H, hd, N) float32)."""
     _validate(xdt, Bm, Cm, dA, h0)
+    _build.refuse_grad("ssd_scan", "repro_torch.models.ssm.ssd", xdt, Bm, Cm, dA, h0)
     if xdt.device.type == "cpu":
         y, h_fin = ref.ssd_ref(xdt, Bm, Cm, dA, h0)
         return y.to(xdt.dtype), h_fin

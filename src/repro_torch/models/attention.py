@@ -11,6 +11,14 @@ a prompt's cross-attention (kv length of its own), ``decode_attention``
 for each generated token, against the self cache and against the cross
 cache (CUDA kernels on the card, their plain versions on the CPU).
 
+Training differentiates through ``FlashAttention``: its forward is the
+``flash_attention`` kernel and its backward recomputes the output through
+``full_attention`` (or ``kv_blockwise_attention`` past 4096 positions),
+the functions the JAX package's ``attention_forward`` differentiates, and
+returns their gradients.  ``attention_forward`` is the full-sequence entry
+point of training: self-attention, an encoder's (``causal=False``) and
+cross-attention (``x_kv=``).
+
 Unlike the JAX functions, the cache is updated in place: the functions
 write into ``cache.k`` / ``cache.v`` / ``cache.pos`` and return the same
 object.
@@ -18,13 +26,17 @@ object.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.layers import _dense_init, rms_norm
+from repro_torch.models.layers import _dense_init, mm, rms_norm
+
+FULL_MAX = 4096     # past this many positions the gradient runs kv-blockwise
 
 
 # ---------------------------------------------------------------------------
@@ -54,7 +66,7 @@ def init_attention(generator, cfg, device):
 
 def _project_q(p, x, cfg):
     B, S, _ = x.shape
-    q = x @ p["wq"]
+    q = mm(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     q = q.reshape(B, S, cfg.n_heads, cfg.hd)
@@ -68,8 +80,8 @@ def project_kv(p, x, cfg):
     K/V of the encoder output, which a prefill projects once a layer."""
     B, S, _ = x.shape
     KV, hd = cfg.n_kv_heads, cfg.hd
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = mm(x, p["wk"])
+    v = mm(x, p["wv"])
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
     k = k.reshape(B, S, KV, hd)
@@ -96,6 +108,105 @@ def _apply_positions(q, k, positions, cfg, positions_thw=None):
                 rope_lib.apply_m_rope(k, positions_thw, cfg.rope_theta, sections))
     return (rope_lib.apply_rope(q, positions, cfg.rope_theta),
             rope_lib.apply_rope(k, positions, cfg.rope_theta))
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention: the functions the gradient differentiates
+# ---------------------------------------------------------------------------
+
+def _mask(q_pos, kv_pos, causal: bool, window: Optional[int]):
+    """(B, Sq, 1, 1, Skv) mask from absolute positions; -1 = unwritten."""
+    kvp = kv_pos[:, None, None, None, :]
+    qpp = q_pos[:, :, None, None, None]
+    mask = kvp >= 0
+    if causal:
+        mask = mask & (kvp <= qpp)
+    if window is not None:
+        mask = mask & (kvp > qpp - window)
+    return mask
+
+
+def full_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
+                   window: Optional[int]):
+    """Un-chunked attention. q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd);
+    positions (B, S*) int.  Scores and softmax in float32; returns q's
+    dtype.  The JAX package's ``full_attention`` (S <= 4096)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = (q.float() / math.sqrt(hd)).reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg, k.float())
+    s = torch.where(_mask(q_positions, kv_positions, causal, window), s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqkgs,bskd->bqkgd", w, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def kv_blockwise_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
+                           window: Optional[int], kv_chunk: int = 1024):
+    """Online softmax over kv chunks (the chunk count cut until it divides
+    Skv), every query kept whole.  The JAX package's
+    ``kv_blockwise_attention``, its path past 4096 positions."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = (q.float() / math.sqrt(hd)).reshape(B, Sq, KV, G, hd)
+    n = max(1, Skv // kv_chunk)
+    while Skv % n:
+        n -= 1
+    Ck = Skv // n
+    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, KV, G, hd), dtype=torch.float32, device=q.device)
+    for i in range(n):
+        part = slice(i * Ck, (i + 1) * Ck)
+        kb, vb = k[:, part].float(), v[:, part].float()
+        s = torch.einsum("bqkgd,bskd->bqkgs", qg, kb)
+        s = torch.where(_mask(q_positions, kv_positions[:, part], causal, window), s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bqkgs,bskd->bqkgd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient.  Forward: the kernel (its plain
+    version on a CPU tensor); it keeps only q, k, v.  Backward: the output
+    recomputed through ``full_attention`` (``kv_blockwise_attention`` when
+    S or Skv passes 4096), as the JAX package's ``attention_forward``
+    switches, and differentiated by autograd; it launches no kernel of
+    ``ops``.  Gradients come back in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        B, S, Skv = q.shape[0], q.shape[1], k.shape[1]
+        with torch.profiler.record_function("flash_attention.backward"), torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            pos = lambda n: torch.arange(n, device=q.device)[None].expand(B, n)
+            fn = full_attention if S <= FULL_MAX and Skv <= FULL_MAX else kv_blockwise_attention
+            o = fn(q, k, v, q_positions=pos(S), kv_positions=pos(Skv),
+                   causal=ctx.causal, window=ctx.window)
+            grads = torch.autograd.grad(o, (q, k, v), grad_out)
+        return (*grads, None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None):
+    """Differentiable ``ops.flash_attention`` (see ``FlashAttention``); with
+    grad disabled (serving's ``inference_mode``) the kernel's wrapper is
+    called directly, without the Function's context."""
+    if not torch.is_grad_enabled():
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    return FlashAttention.apply(q, k, v, causal, window)
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +308,7 @@ def attention_decode(p, x, cfg, cache: KVCache, *, positions_thw=None):
         kv_pos = torch.where(kv_pos < cache.pos[:, None], kv_pos, -1)
     o = ops.decode_attention(q, cache.k.transpose(1, 2), cache.v.transpose(1, 2),
                              positions[:, 0], kv_pos, window=cfg.sliding_window)
-    return o.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"], cache
+    return mm(o.reshape(B, 1, cfg.n_heads * cfg.hd), p["wo"]), cache
 
 
 def _prompt_attention(p, x, cfg, *, causal, window=None, positions_thw=None):
@@ -208,8 +319,8 @@ def _prompt_attention(p, x, cfg, *, causal, window=None, positions_thw=None):
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     q, k, v = _project_qkv(p, x, cfg)
     q, k = _apply_positions(q, k, positions, cfg, positions_thw)
-    o = ops.flash_attention(q, k, v, causal=causal, window=window)
-    return o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"], k, v
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    return mm(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"]), k, v
 
 
 def attention_prefill(p, x, cfg, cache: KVCache, *, positions_thw=None):
@@ -223,7 +334,7 @@ def attention_prefill(p, x, cfg, cache: KVCache, *, positions_thw=None):
 def attention_encoder(p, x, cfg):
     """Bidirectional self-attention over an encoder's frames (no cache):
     every frame sees every frame, with no window."""
-    return _prompt_attention(p, x, cfg, causal=False)[0]
+    return attention_forward(p, x, cfg, causal=False)
 
 
 def cross_attention_prefill(p, x, cfg, k, v):
@@ -231,8 +342,20 @@ def cross_attention_prefill(p, x, cfg, k, v):
     no window, every frame visible (the kernel takes Se != S)."""
     B, S, _ = x.shape
     q = _project_q(p, x, cfg)
-    o = ops.flash_attention(q, k, v, causal=False)
-    return o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+    o = flash_attention(q, k, v, causal=False)
+    return mm(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
+
+
+def attention_forward(p, x, cfg, *, positions_thw=None, causal: bool = True, x_kv=None):
+    """Full-sequence attention (training; the JAX package's
+    ``attention_forward``): causal self-attention with the model's window,
+    an encoder's (``causal=False``, no window) or cross-attention to
+    ``x_kv`` (no rotation, no window, every frame visible)."""
+    if x_kv is not None:
+        return cross_attention_prefill(p, x, cfg, *project_kv(p, x_kv, cfg))
+    window = cfg.sliding_window if causal else None
+    return _prompt_attention(p, x, cfg, causal=causal, window=window,
+                             positions_thw=positions_thw)[0]
 
 
 def cross_attention_decode(p, x, cfg, k, v):
@@ -247,4 +370,4 @@ def cross_attention_decode(p, x, cfg, k, v):
     kv_pos = torch.arange(Se, dtype=torch.int32, device=x.device)[None].expand(B, Se)
     q_pos = torch.full((B,), Se - 1, dtype=torch.int32, device=x.device)
     o = ops.decode_attention(q, k, v, q_pos, kv_pos)
-    return o.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+    return mm(o.reshape(B, 1, cfg.n_heads * cfg.hd), p["wo"])

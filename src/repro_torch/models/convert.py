@@ -18,26 +18,21 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.transformer import check_supported
+from repro_torch.tree import tree_map
 
 
 def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
 def params_from_jax(np_params, cfg: ArchConfig, device):
     """JAX tree of numpy arrays -> the port's parameter tree on ``device``."""
     check_supported(cfg)
     stacked = {"blocks": cfg.n_layers, "encoder": cfg.encoder_layers}
-    out = {k: _map(v, lambda a: _tensor(a, device))
+    out = {k: tree_map(lambda a: _tensor(a, device), v)
            for k, v in np_params.items() if k not in stacked}
     for key, n in stacked.items():
         if key in np_params:
-            out[key] = [_map(np_params[key], lambda a, i=i: _tensor(a[i], device))
+            out[key] = [tree_map(lambda a, i=i: _tensor(a[i], device), np_params[key])
                         for i in range(n)]
     return out

@@ -25,6 +25,17 @@ def _dense_init(shape, generator, device, in_axis: int = 0,
     return w.mul_(std)
 
 
+def mm(x, w):
+    """x @ w, promoted as JAX promotes a product: under the bfloat16 compute
+    cast the vectors stay float32, and a float32 operand (an activation a
+    vector touched) makes the product float32, the other operand cast up.
+    One dtype: a plain product."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -83,12 +94,12 @@ def init_mlp(generator, d, ff, device, act_fn: str = "silu"):
 
 def apply_mlp(p, x, act_fn: str = "silu"):
     if act_fn == "silu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-        return h @ p["w_down"]
+        h = F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"])
+        return mm(h, p["w_down"])
     # jax.nn.gelu, which the JAX package calls, is the tanh approximation
     # by default; torch's default is the exact erf form
-    h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
-    return h @ p["w_down"] + p["b_down"]
+    h = F.gelu(mm(x, p["w_up"]) + p["b_up"], approximate="tanh")
+    return mm(h, p["w_down"]) + p["b_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -120,3 +131,57 @@ def sinusoidal_positions(n_pos: int, d: int, offset=0, device=None):
     inv = torch.exp(-math.log(10_000.0) * dim / max(d // 2 - 1, 1))
     ang = pos[:, None] * inv[None, :]
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (never holds the (B, S, V) logits whole)
+# ---------------------------------------------------------------------------
+
+def _ce_chunks(S: int, chunk: int) -> int:
+    """The JAX package's chunk count: S // chunk, cut until it divides S."""
+    n = max(1, S // chunk)
+    while S % n:
+        n -= 1
+    return n
+
+
+class _ChunkedCrossEntropy(torch.autograd.Function):
+    """Mean token cross-entropy, chunk by chunk over the sequence, logits in
+    float32.  The forward keeps no logits; the backward recomputes each
+    chunk's (B, s, V) logits, so one chunk's live at a time in both."""
+
+    @staticmethod
+    def forward(ctx, x, table, labels, n):
+        ctx.save_for_backward(x, table, labels)
+        ctx.n = n
+        with torch.profiler.record_function("cross_entropy.forward"):
+            tf = table.float()
+            total = x.new_zeros((), dtype=torch.float32)
+            for xc, lc in zip(x.chunk(n, dim=1), labels.chunk(n, dim=1)):
+                logits = xc.float() @ tf.T
+                gold = logits.gather(-1, lc[..., None].long())[..., 0]
+                total = total + (torch.logsumexp(logits, dim=-1) - gold).sum()
+        return total / labels.numel()
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, table, labels = ctx.saved_tensors
+        with torch.profiler.record_function("cross_entropy.backward"):
+            tf = table.float()
+            scale = grad / labels.numel()
+            gx, gt = [], torch.zeros_like(tf)
+            for xc, lc in zip(x.chunk(ctx.n, dim=1), labels.chunk(ctx.n, dim=1)):
+                xf = xc.float()
+                g = torch.softmax(xf @ tf.T, dim=-1)          # d(lse - gold)/d logits
+                g.scatter_add_(-1, lc[..., None].long(), -torch.ones_like(g[..., :1]))
+                g.mul_(scale)
+                gx.append((g @ tf).to(x.dtype))
+                gt.addmm_(g.flatten(0, 1).T, xf.flatten(0, 1))
+        return torch.cat(gx, dim=1), gt.to(table.dtype), None, None
+
+
+def chunked_cross_entropy(x, table, labels, *, chunk: int = 512):
+    """Mean token cross-entropy (float32 scalar) over sequence chunks, the
+    JAX package's ``chunked_cross_entropy``: x (B, S, D) final hidden
+    states, table (V, D) the unembedding, labels (B, S) int."""
+    return _ChunkedCrossEntropy.apply(x, table, labels, _ce_chunks(x.shape[1], chunk))

@@ -33,7 +33,10 @@ path.
 ``apply_moe`` counts, per ``layer``, the assignments it saw and those it
 dropped (``drop_counts``, ``reset_drop_counts``), as the kernels count
 their launches; the dropped count stays on the tensor's device until it
-is read.
+is read (an integer tensor: it holds no graph), and a remat recompute in
+the backward counts again.  Training differentiates ``apply_moe`` as it
+is: the gather and combine are indexing, so the gradient reaches the
+experts, the gates (and through them the router) and the aux loss.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _dense_init
+from repro_torch.models.layers import _dense_init, mm
 
 _drops: dict = {}          # layer -> (dropped assignments (tensor), assignments)
 
@@ -72,7 +75,7 @@ def init_moe(generator, cfg, device):
 
 def _route(router_w, x, top_k: int):
     """x: (..., D) -> (top-k ids, normalised gates, full probs)."""
-    probs = torch.softmax(x.float() @ router_w, dim=-1)         # (..., E)
+    probs = torch.softmax(mm(x.float(), router_w), dim=-1)      # (..., E)
     gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, ids = gates[..., :top_k], ids[..., :top_k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)

@@ -12,6 +12,11 @@ goes through the ``rwkv6_scan`` kernel over the prompt (CUDA on the card,
 its plain version on the CPU) and through plain tensor ops for a decode
 step.  Channel-mix: squared-ReLU MLP with token shift.
 
+A full sequence (a prompt, or a training step) reaches the kernel through
+``RWKV6Scan``, whose backward recomputes the recurrence with
+``wkv_chunked``, the function the JAX package's ``time_mix``
+differentiates, and returns its gradients (the final state's included).
+
 The decode cache is updated in place: the functions write into
 ``cache.x_tm`` / ``cache.x_cm`` / ``cache.state``.
 """
@@ -23,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _dense_init
+from repro_torch.models.layers import _dense_init, mm
 
 LORA_R = 32
 DECAY_R = 64
@@ -100,8 +105,8 @@ def _ddlerp(p, x, xs):
     dx = xs - x
     base = x + dx * p["mu"][0]
     B_, S = x.shape[0], x.shape[1]
-    lora = torch.tanh(base @ p["tm_w1"]).reshape(B_, S, 5, LORA_R)
-    adj = torch.einsum("bsfr,frd->bsfd", lora, p["tm_w2"])      # (B,S,5,d)
+    lora = torch.tanh(mm(base, p["tm_w1"])).reshape(B_, S, 5, LORA_R)
+    adj = torch.einsum("bsfr,frd->bsfd", lora, p["tm_w2"].to(lora.dtype))   # (B,S,5,d)
     return [x + dx * (p["mu"][i + 1] + adj[:, :, i, :]) for i in range(5)]
 
 
@@ -109,11 +114,11 @@ def _rkvwg(p, x, xs, cfg):
     xr, xk, xv, xw, xg = _ddlerp(p, x, xs)
     H, hd = _dims(cfg)
     B_, S = x.shape[0], x.shape[1]
-    r = (xr @ p["wr"]).reshape(B_, S, H, hd)
-    k = (xk @ p["wk"]).reshape(B_, S, H, hd)
-    v = (xv @ p["wv"]).reshape(B_, S, H, hd)
-    g = F.silu(xg @ p["wg"])
-    logw = -torch.exp(p["w0"] + torch.tanh(xw @ p["dw1"]) @ p["dw2"])   # (B,S,d) < 0
+    r = mm(xr, p["wr"]).reshape(B_, S, H, hd)
+    k = mm(xk, p["wk"]).reshape(B_, S, H, hd)
+    v = mm(xv, p["wv"]).reshape(B_, S, H, hd)
+    g = F.silu(mm(xg, p["wg"]))
+    logw = -torch.exp(p["w0"] + mm(torch.tanh(mm(xw, p["dw1"])), p["dw2"]))   # (B,S,d) < 0
     logw = torch.clamp(logw, min=LOGW_CLAMP).reshape(B_, S, H, hd)
     return r, k, v, g, logw
 
@@ -127,23 +132,110 @@ def _group_norm(y, scale, H, eps=64e-5):
     return yn.reshape(B_, S, H * hd) * scale
 
 
+def wkv_chunked(r, k, v, logw, u, *, q: int = 32, s0=None):
+    """Chunked RWKV6 recurrence in float32, the JAX package's
+    ``wkv_chunked``: r, k, v, logw (B,S,H,hd), u (H,hd), s0 (B,H,hd,hd) or
+    None -> (y (B,S,H,hd) float32, final state (B,H,hd,hd) float32).
+
+    Intra-chunk scores factor as (r_t exp(cum_{t-1} - cum_Q)) . (k_s
+    exp(cum_Q - cum_s)), one (Q,hd) x (hd,Q) product a chunk, with logw
+    clamped to LOGW_CLAMP.  Chunks are Q = 32 long and the last one is
+    zero-padded (r = k = v = 0 and logw = 0 leave the state as it was), as
+    the kernel pads it.  The JAX function instead takes the largest
+    divisor of S not above S // 32 chunks, so its chunks can pass 44 steps
+    and overflow float32 (exp(2 Q)); at S a multiple of 32 the two agree."""
+    B, S, H, hd = r.shape
+    pad = -S % q
+
+    def chunks(t):
+        t = F.pad(t.float(), (0, 0, 0, 0, 0, pad))
+        return t.reshape(B, (S + pad) // q, q, H, hd).unbind(1)
+
+    logw = torch.clamp(logw.float(), min=LOGW_CLAMP)        # idempotent guard
+    uf = u.float()
+    below = torch.ones((q, q), dtype=torch.bool, device=r.device).tril(-1)   # s < t
+    state = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+             if s0 is None else s0.float())
+    ys = []
+    for rc, kc, vc, lwc in zip(chunks(r), chunks(k), chunks(v), chunks(logw)):
+        cum = lwc.cumsum(1)                                  # cum_t = sum_{s<=t} lw_s
+        cum_prev = cum - lwc
+        tot = cum[:, -1:]
+        r_f = rc * torch.exp(cum_prev - tot)
+        k_f = kc * torch.exp(tot - cum)
+        scores = torch.einsum("bthd,bshd->bhts", r_f, k_f).masked_fill(~below, 0.0)
+        diag = torch.einsum("bthd,bthd->bht", rc, uf * kc)
+        scores = scores + torch.diag_embed(diag)
+        y = torch.einsum("bhts,bshe->bthe", scores, vc)
+        y = y + torch.einsum("bthd,bhde->bthe", rc * torch.exp(cum_prev), state)
+        state = state * torch.exp(tot[:, 0])[..., None] + torch.einsum(
+            "bshd,bshe->bhde", k_f, vc)
+        ys.append(y)
+    return torch.cat(ys, 1)[:, :S], state
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """``rwkv6_scan`` with a gradient.  Forward: the kernel (its plain
+    version on a CPU tensor); it keeps only the inputs and the initial
+    state.  Backward: ``wkv_chunked`` recomputed and differentiated by
+    autograd, the final state's gradient included; no kernel of ``ops``
+    launches.  ``logw`` arrives clamped (``_rkvwg``) and ``wkv_chunked``
+    clamps it again, so both differentiate the same function."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0):
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        return ops.rwkv6_scan(r, k, v, logw, u, s0=s0)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        saved = ctx.saved_tensors
+        with torch.profiler.record_function("rwkv6_scan.backward"), torch.enable_grad():
+            inputs = [t if t is None else t.detach().requires_grad_() for t in saved]
+            r, k, v, logw, u, s0 = inputs
+            y, s_fin = wkv_chunked(r, k, v, logw, u, s0=s0)
+            want = [t for t in inputs if t is not None]
+            grads = iter(torch.autograd.grad((y.to(r.dtype), s_fin), want,
+                                             (grad_y, grad_state)))
+        return tuple(None if t is None else next(grads) for t in inputs)
+
+
+def wkv(r, k, v, logw, u, *, s0=None):
+    """Differentiable ``ops.rwkv6_scan`` (see ``RWKV6Scan``): (y in r's
+    dtype, final state float32).  With grad disabled the kernel's wrapper
+    is called directly."""
+    if not torch.is_grad_enabled():
+        return ops.rwkv6_scan(r, k, v, logw, u, s0=s0)
+    return RWKV6Scan.apply(r, k, v, logw, u, s0)
+
+
 def time_mix(p, x, cfg, *, x_prev=None, s0=None):
-    """Prompt time-mix through the rwkv6_scan kernel.  x: (B,S,d); s0:
-    (B,H,hd,hd) or None.  Returns (out, (last x, final state))."""
+    """Full-sequence time-mix (a prompt from ``s0``, or a training step)
+    through the rwkv6_scan kernel.  x: (B,S,d); s0: (B,H,hd,hd) or None.
+    Returns (out, (last x, final state))."""
     H, _ = _dims(cfg)
     xs = _shifted(x, x_prev if x_prev is not None else torch.zeros_like(x[:, 0]))
     r, k, v, g, logw = _rkvwg(p, x, xs, cfg)
-    y, s_fin = ops.rwkv6_scan(r, k, v, logw, p["u"], s0=s0)
+    # under a bfloat16 compute cast logw stays float32 (w0 is a vector);
+    # the scan then runs in float32, as the JAX package's wkv_chunked does
+    dt = torch.promote_types(r.dtype, logw.dtype)
+    y, s_fin = wkv(r.to(dt), k.to(dt), v.to(dt), logw, p["u"].to(dt), s0=s0)
     y = _group_norm(y.float(), p["ln_x"], H).to(x.dtype)
-    return (y * g) @ p["wo"], (x[:, -1, :], s_fin)
+    return mm(y * g, p["wo"]), (x[:, -1, :], s_fin)
 
 
 def channel_mix(p, x, cfg, *, x_prev=None):
     xs = _shifted(x, x_prev if x_prev is not None else torch.zeros_like(x[:, 0]))
     xk = x + (xs - x) * p["mu_ck"]
     xr = x + (xs - x) * p["mu_cr"]
-    k = torch.square(F.relu(xk @ p["cm_k"]))
-    return torch.sigmoid(xr @ p["cm_r"]) * (k @ p["cm_v"]), x[:, -1, :]
+    k = torch.square(F.relu(mm(xk, p["cm_k"])))
+    return torch.sigmoid(mm(xr, p["cm_r"])) * mm(k, p["cm_v"]), x[:, -1, :]
+
+
+def apply_rwkv6(p, x, cfg):
+    """The time-mix half of a block over a full sequence (the JAX
+    package's ``apply_rwkv6``; the caller adds the channel-mix)."""
+    return time_mix(p, x, cfg)[0]
 
 
 def rwkv6_decode(p, x, cfg, cache: RWKVCache):
@@ -158,13 +250,13 @@ def rwkv6_decode(p, x, cfg, cache: RWKVCache):
     cache.state.copy_(S0 * torch.exp(lw1)[..., None] + kv)
     y = _group_norm(y[:, None], p["ln_x"], H).to(x.dtype)
     cache.x_tm.copy_(x[:, 0, :])
-    return (y * g) @ p["wo"], cache
+    return mm(y * g, p["wo"]), cache
 
 
 def channel_mix_decode(p, x, cfg, cache: RWKVCache):
     xs = cache.x_cm[:, None, :].to(x.dtype)
     xk = x + (xs - x) * p["mu_ck"]
     xr = x + (xs - x) * p["mu_cr"]
-    k = torch.square(F.relu(xk @ p["cm_k"]))
+    k = torch.square(F.relu(mm(xk, p["cm_k"])))
     cache.x_cm.copy_(x[:, 0, :])
-    return torch.sigmoid(xr @ p["cm_r"]) * (k @ p["cm_v"]), cache
+    return torch.sigmoid(mm(xr, p["cm_r"])) * mm(k, p["cm_v"]), cache

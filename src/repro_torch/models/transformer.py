@@ -5,9 +5,11 @@
 ("rwkv6" blocks) and Mamba2 with Zamba2's shared attention ("mamba2"
 blocks, ``shared_attn_every``).
 
-Counterpart of the JAX package's ``models/transformer.py`` for the
-serving path: ``init_params``, ``init_cache``, ``prefill`` and
-``decode_step``, plus ``reset_cache``.  Parameters mirror the JAX tree
+Counterpart of the JAX package's ``models/transformer.py``: for serving
+``init_params``, ``init_cache``, ``prefill`` and ``decode_step``, plus
+``reset_cache``; for training ``cast_params``, ``forward`` and
+``train_loss``, whose gradient reaches the kernels through their
+``torch.autograd.Function`` wrappers.  Parameters mirror the JAX tree
 except that ``params["blocks"]`` and ``params["encoder"]`` are lists with
 one dict per layer where JAX stacks a leading layer axis; the JAX
 ``lax.scan`` over layers (and over zamba2's groups) becomes a Python loop.
@@ -26,6 +28,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
@@ -34,6 +37,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rope as rope_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.tree import tree_map
 
 
 def check_supported(cfg: ArchConfig):
@@ -115,6 +119,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return p
 
 
+def cast_params(params, dtype):
+    """The compute cast: float32 matrices to ``dtype``, vectors (norm
+    scales, biases) kept float32.  Differentiable, so the gradient reaches
+    the float32 master copy."""
+    return tree_map(lambda a: a.to(dtype) if a.dim() >= 2 and a.dtype == torch.float32
+                    else a, params)
+
+
 def _logits(params, cfg: ArchConfig, x):
     """Final norm + unembedding in float32."""
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps).float()
@@ -180,17 +192,18 @@ def reset_cache(cache):
 
 def _attn_block(bp, x, cfg: ArchConfig, attend, layer: int = 0, cross=None):
     """Attention, whisper's cross-attention (``cross``), then the MLP or the
-    MoE layer (whose aux loss serving discards; the JAX decode step's
-    chunk=1 picks the default's one chunk at S = 1)."""
+    MoE layer -> (x, the MoE aux loss or None).  Serving discards the aux
+    loss; the JAX decode step's chunk=1 picks the default's one chunk at
+    S = 1."""
     h, _ = attend(bp["attn"], L.apply_norm(bp["ln1"], x, cfg.norm_eps))
     x = x + h
     if cross is not None:
         x = x + cross(bp["cross"], L.apply_norm(bp["ln_c"], x, cfg.norm_eps))
     xin = L.apply_norm(bp["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
-        h, _ = moe_lib.apply_moe(bp["moe"], xin, cfg, layer=layer)
-        return x + h
-    return x + L.apply_mlp(bp["ffn"], xin, cfg.act_fn)
+        h, aux = moe_lib.apply_moe(bp["moe"], xin, cfg, layer=layer)
+        return x + h, aux
+    return x + L.apply_mlp(bp["ffn"], xin, cfg.act_fn), None
 
 
 def _rwkv_prefill(bp, x, cfg, lc):
@@ -222,12 +235,12 @@ def _run_blocks(params, cfg: ArchConfig, x, cache, attend, mamba, rwkv, cross=No
     every, kind = cfg.shared_attn_every, _kind(cfg)
     for i, (bp, lc) in enumerate(zip(params["blocks"], cache["layers"])):
         if every and i % every == 0:
-            x = _attn_block(params["shared_attn"], x, cfg,
-                            lambda p, xin, sc=cache["shared"][i // every]: attend(p, xin, sc))
+            x, _ = _attn_block(params["shared_attn"], x, cfg,
+                               lambda p, xin, sc=cache["shared"][i // every]: attend(p, xin, sc))
         if kind == "attn":
             xc = None if cross is None else (
                 lambda p, xin, kv=cache["cross"][i]: cross(p, xin, *kv))
-            x = _attn_block(bp, x, cfg, lambda p, xin, lc=lc: attend(p, xin, lc), i, xc)
+            x, _ = _attn_block(bp, x, cfg, lambda p, xin, lc=lc: attend(p, xin, lc), i, xc)
         elif kind == "mamba2":
             h, _ = mamba(bp["mamba"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg, lc)
             x = x + h
@@ -253,7 +266,7 @@ def _embed_inputs(params, cfg: ArchConfig, batch):
         pe = batch["patches"]
         Pn = pe.shape[1]
         if "vis_proj" in params:
-            pe = pe @ params["vis_proj"]["w"] + params["vis_proj"]["b"]
+            pe = L.mm(pe, params["vis_proj"]["w"]) + params["vis_proj"]["b"]
         x = torch.cat([pe.to(x.dtype), x[:, Pn:]], dim=1)
         if cfg.m_rope:
             side = max(1, int(Pn ** 0.5))
@@ -267,14 +280,22 @@ def _embed_inputs(params, cfg: ArchConfig, batch):
     return x, positions_thw, mrope_delta
 
 
-def _encoder_forward(params, cfg: ArchConfig, frames):
+def _remat(fn, remat: bool):
+    """fn, or fn recomputed in the backward (the JAX package's
+    ``jax.checkpoint`` sites): its activations are not kept."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _encoder_forward(params, cfg: ArchConfig, frames, remat: bool = False):
     """whisper's encoder over precomputed frame embeddings (B, Se, d): the
     sinusoidal table, then bidirectional attention blocks, then enc_norm."""
     x = frames + L.sinusoidal_positions(frames.shape[1], cfg.d_model,
                                         device=frames.device).to(frames.dtype)[None]
     attend = lambda p, xin: (attn_lib.attention_encoder(p, xin, cfg), None)
     for i, bp in enumerate(params["encoder"]):
-        x = _attn_block(bp, x, cfg, attend, i)
+        x = _remat(lambda x, bp=bp, i=i: _attn_block(bp, x, cfg, attend, i)[0], remat)(x)
     return L.apply_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -325,3 +346,73 @@ def decode_step(params, cfg: ArchConfig, token, cache):
                     ssm_lib.mamba2_decode, _rwkv_decode, cross)
     cache["step"] += 1
     return _logits(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward and the training loss
+# ---------------------------------------------------------------------------
+
+def _train_attn_block(bp, x, cfg: ArchConfig, positions_thw=None, enc_out=None, layer: int = 0):
+    """Causal self-attention (the model's window), whisper's cross-attention
+    to ``enc_out``, then the MLP or MoE layer -> (x, aux or None)."""
+    attend = lambda p, xin: (attn_lib.attention_forward(p, xin, cfg,
+                                                        positions_thw=positions_thw), None)
+    cross = None
+    if enc_out is not None:
+        cross = lambda p, xin: attn_lib.attention_forward(p, xin, cfg, x_kv=enc_out)
+    return _attn_block(bp, x, cfg, attend, layer, cross)
+
+
+def _rwkv_block_fwd(bp, x, cfg: ArchConfig):
+    h, _ = rwkv_lib.time_mix(bp["rwkv"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg)
+    x = x + h
+    h, _ = rwkv_lib.channel_mix(bp["rwkv"], L.apply_norm(bp["ln2"], x, cfg.norm_eps), cfg)
+    return x + h
+
+
+def _mamba_block_fwd(bp, x, cfg: ArchConfig):
+    return x + ssm_lib.apply_mamba2(bp["mamba"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg)
+
+
+def forward(params, cfg: ArchConfig, batch, *, remat: bool = False):
+    """Full-sequence decoder forward -> (final-normed hidden (B, S, d), MoE
+    aux loss summed over layers, float32).  ``batch`` holds ``tokens`` and,
+    for whisper, ``frames``; for qwen2-vl optionally ``patches``.  With
+    ``remat`` each block (each zamba2 group, and each Mamba2 layer inside
+    it) is recomputed in the backward instead of keeping its activations,
+    as the JAX package's ``jax.checkpoint`` sites do."""
+    check_supported(cfg)
+    x, positions_thw, _ = _embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kind, every = _kind(cfg), cfg.shared_attn_every
+    if every:          # zamba2: [shared attention + k Mamba2 layers] groups
+        def group(x, g):
+            x, _ = _train_attn_block(params["shared_attn"], x, cfg)
+            for bp in params["blocks"][g * every:(g + 1) * every]:
+                x = _remat(lambda x, bp=bp: _mamba_block_fwd(bp, x, cfg), remat)(x)
+            return x
+        for g in range(_groups(cfg)):
+            x = _remat(lambda x, g=g: group(x, g), remat)(x)
+        return L.apply_norm(params["final_norm"], x, cfg.norm_eps), aux
+    enc_out = None
+    if cfg.encoder_layers:
+        enc_out = _encoder_forward(params, cfg, batch["frames"].to(x.dtype), remat)
+    for i, bp in enumerate(params["blocks"]):
+        if kind == "attn":
+            x, a = _remat(lambda x, bp=bp, i=i: _train_attn_block(
+                bp, x, cfg, positions_thw, enc_out, i), remat)(x)
+            if a is not None:
+                aux = aux + a
+        elif kind == "rwkv6":
+            x = _remat(lambda x, bp=bp: _rwkv_block_fwd(bp, x, cfg), remat)(x)
+        else:
+            x = _remat(lambda x, bp=bp: _mamba_block_fwd(bp, x, cfg), remat)(x)
+    return L.apply_norm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def train_loss(params, cfg: ArchConfig, batch, *, remat: bool = True):
+    """Mean next-token cross-entropy (float32) plus the MoE aux loss; the
+    unembedding is the tied table or ``head["w"].T``."""
+    hidden, aux = forward(params, cfg, batch, remat=remat)
+    table = params["embed"]["table"] if cfg.tie_embeddings else params["head"]["w"].T
+    return L.chunked_cross_entropy(hidden, table, batch["labels"]) + aux

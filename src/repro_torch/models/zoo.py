@@ -1,8 +1,10 @@
 """Model zoo: a uniform Model facade over the transformer assembly.
 
-Counterpart of the JAX package's ``models/zoo.py`` for the serving path.
-A ``Model`` is bound to a device; ``init(seed)`` draws its weights from a
-``torch.Generator`` on that device.
+Counterpart of the JAX package's ``models/zoo.py``.  A ``Model`` is
+bound to a device; ``init(seed)`` draws its weights, and
+``make_train_batch`` a random batch, from a ``torch.Generator`` on that
+device (not draw for draw with ``jax.random``: parity tests feed both
+packages the data pipeline's batches).
 """
 from __future__ import annotations
 
@@ -28,6 +30,12 @@ class Model:
         return T.init_params(self.cfg, gen, self.device)
 
     # -- compute --------------------------------------------------------
+    def loss(self, params, batch, *, remat=True):
+        return T.train_loss(params, self.cfg, batch, remat=remat)
+
+    def forward(self, params, batch, *, remat=False):
+        return T.forward(params, self.cfg, batch, remat=remat)
+
     def prefill(self, params, batch, cache):
         return T.prefill(params, self.cfg, batch, cache)
 
@@ -41,6 +49,30 @@ class Model:
 
     def reset_cache(self, cache):
         return T.reset_cache(cache)
+
+    # -- input builders ---------------------------------------------------
+    def train_batch_specs(self, batch: int, seq: int, dtype=torch.bfloat16):
+        """{key: (shape, dtype)} of a training batch."""
+        cfg = self.cfg
+        out = {"tokens": ((batch, seq), torch.int32), "labels": ((batch, seq), torch.int32)}
+        if cfg.frontend == "audio":
+            out["frames"] = ((batch, cfg.encoder_seq_len, cfg.d_model), dtype)
+        if cfg.frontend == "vision":
+            fd = cfg.frontend_dim or cfg.d_model
+            out["patches"] = ((batch, min(cfg.vision_patches, seq), fd), dtype)
+        return out
+
+    def make_train_batch(self, generator: torch.Generator, batch: int, seq: int):
+        """Uniform tokens and labels in [0, vocab), standard-normal float32
+        frames or patches, drawn from ``generator`` on the model's device."""
+        kw = dict(generator=generator, device=self.device)
+        out = {}
+        for key, (shape, dtype) in self.train_batch_specs(batch, seq).items():
+            if dtype == torch.int32:
+                out[key] = torch.randint(0, self.cfg.vocab_size, shape, dtype=dtype, **kw)
+            else:
+                out[key] = torch.randn(shape, dtype=torch.float32, **kw)
+        return out
 
 
 def build_model(cfg: ArchConfig, device=None) -> Model:

@@ -13,7 +13,8 @@ PORT = REPO / "src" / "repro_torch"
 
 
 def _foreign(name: str) -> bool:
-    return name.split(".")[0] in ("jax", "jaxlib", "repro")
+    # msgpack: the JAX package's checkpoints need it; the card's machine has none
+    return name.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _reaches_jax_or_repro(tree):
@@ -49,7 +50,9 @@ def test_port_imports_no_jax_and_no_repro():
                 "profiling/metrics.py", "serving/workload.py", "serving/traces.py",
                 "serving/faults.py", "serving/physics.py", "serving/physics_torch.py",
                 "serving/telemetry.py", "serving/simulator.py",
-                "serving/controller.py"):
+                "serving/controller.py", "tree.py", "data/pipeline.py",
+                "training/optimizer.py", "training/checkpoint.py", "training/loop.py",
+                "launch/train.py"):
         assert mod in found
     bad = {str(p.relative_to(REPO)): _reaches_jax_or_repro(ast.parse(p.read_text()))
            for p in files}
