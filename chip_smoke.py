@@ -182,10 +182,32 @@ Phases (any failure raises and exits non-zero):
                  within max(1e-4, twice its noise floor) of its max, MoE
                  experts equal.  The JAX package's 60-step short run's config
                  on the card: the last 10 losses average 0.3 below the first 10
+ 10. mesh     -- (run last) the mesh layer: launch.dryrun of qwen3-4b (full
+                 depth) and dbrx-132b (MESH_DRYRUN's 2 layers; 16 experts on
+                 the 16-way data axis: apply_moe_ep) train_4k on the abstract
+                 16x16 mesh, each in a subprocess started first (the host
+                 only; meta shards, nothing allocated), every record "ok";
+                 on a 1x1 DeviceMesh of cuda:0 (one-rank nccl group,
+                 make_smoke_mesh) build_step's steps over DTensors:
+                 qwen3-4b (8 layers, batch 4 x 512) train at M = 1 without
+                 remat against loop.make_step (loss and every updated param
+                 within 1e-6 relative), at M = 2 against M = 1 in float32
+                 compute (loss and every gradient leaf within 1e-4 of its
+                 max), flash 8 launches a microbatch and 16 with remat;
+                 mixtral-8x22b (1 layer) one step with TRAIN_MICROBATCHES'
+                 16 microbatches accumulated in bf16 (TRAIN_ACC_DTYPE) and
+                 int8 moments (TRAIN_OPTIMIZER): loss, gradients and params
+                 finite; qwen3-4b prefill + 3 decode steps with bf16 params:
+                 the 4 greedy tokens equal Model.prefill / decode_step's,
+                 flash once a layer a prefill, decode_attention once a layer
+                 a step; the records' memory a device, fits_hbm, dominant
+                 term and roofline terms (H100 constants)
 Prints one {"kernels": [...]} line (the four kernels, alloc_all and
 tables_kernel), one {"slice": {...}} line per model, one {"planner": {...}}
 line, one {"simulator": {...}} line, one {"controller": {...}} line, one
-{"train": {...}} line, and last {"ok": true, "device": {...}}.
+{"train": {...}} line, one {"mesh": {...}} line (the steps' checks, times
+and launches, the dry-run records, the phase's seconds), and last
+{"ok": true, "device": {...}}.
 """
 import contextlib
 import dataclasses
@@ -312,7 +334,9 @@ def device_ms(fn, n_inputs, iters=20, attempts=6, warmup=3, per_call=None):
     card busy for about 10 ms and makes one call, and times only the
     kernels that start inside the "timed" range after them.  Every call
     launches the same kernels: a run whose count of some kernel is no
-    multiple of iters lost records there too and is measured again.
+    multiple of iters lost records there too and is measured again; if
+    every run loses some, the last run's kept records give each kernel's
+    mean (while each kept at least half its calls).
     per_call, a dict, receives {kernel name: launches per call}."""
     for i in range(warmup):
         fn(i % n_inputs)
@@ -342,6 +366,17 @@ def device_ms(fn, n_inputs, iters=20, attempts=6, warmup=3, per_call=None):
             return sum(e.time_range.elapsed_us() for e in timed) / iters / 1e3
         log(f"timing: torch.profiler kept {lost or 'no kernel'} for {iters} calls; "
             "measuring again")
+    if timed and all(2 * n >= iters for n in counts.values()):
+        # every run lost a few records (on some hosts the first of 20 calls
+        # each time): each kernel's kept records give its mean duration,
+        # and its launches a call are the nearest whole number
+        per = {name: round(n / iters) for name, n in counts.items()}
+        log(f"timing: records lost in all {attempts} runs; each kernel's mean over the "
+            f"records kept ({counts}) times its launches a call {per}")
+        if per_call is not None:
+            per_call.update(per)
+        return sum(per[e.name] * e.time_range.elapsed_us() / counts[e.name]
+                   for e in timed) / 1e3
     raise RuntimeError(f"torch.profiler lost device records in {attempts} runs")
 
 
@@ -2908,6 +2943,341 @@ def run_train(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the mesh layer (step builders on a 1x1 mesh, the dry run)
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN = ("qwen3-4b", 8)              # phase 9's main model and depth
+MESH_ACC = ("mixtral-8x22b", 1)           # bf16 accumulation, int8 moments: one layer
+MESH_ACC_SHAPE = (16, 128)                # 16 rows: TRAIN_MICROBATCHES' 16 of one row
+MESH_DECODE_STEPS = 3                     # + the prefill's token: 4 generated tokens
+# the dry run on the fake 16x16 mesh, in a process of its own: (arch, layers
+# or None for the full depth); dbrx-132b's 40 layers x 16 microbatches take
+# minutes, so the phase runs 2 (the full-depth row comes from the CLI)
+MESH_DRYRUN = (("qwen3-4b", None), ("dbrx-132b", 2))
+MESH_DIR = PORT_TREE.parents[1] / "build" / "mesh_dryrun"   # git-ignored
+
+
+def start_dryruns():
+    """The dry runs, one subprocess each (a fake process group cannot share
+    this process with the phase's real one), started before the phase's
+    card work: they use the host only."""
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(PORT_TREE.parent)}
+    procs = []
+    for arch, layers in MESH_DRYRUN:
+        out = MESH_DIR / f"{arch}.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", "train_4k", "--out", str(out)]
+        if layers:
+            cmd += ["--layers", str(layers)]
+        log_path = MESH_DIR / f"{arch}.log"
+        procs.append((arch, out, log_path, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=PORT_TREE.parents[1], env=env, stdout=open(log_path, "w"),
+            stderr=subprocess.STDOUT)))
+    return procs
+
+
+def finish_dryruns(procs, timeout=600):
+    """Wait for the dry runs; every record must have status "ok"."""
+    records = []
+    for arch, out, log_path, t0, proc in procs:
+        try:
+            rc = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        tail = log_path.read_text()[-3000:]
+        assert rc == 0 and out.exists(), f"dry run of {arch}: exit {rc}\n{tail}"
+        (rec,) = json.loads(out.read_text())
+        assert rec["status"] == "ok", rec
+        assert rec["mesh_device"] == "cuda", rec       # the card's program, not a CPU mesh's
+        rec["wall_s"] = time.perf_counter() - t0
+        mem = rec["temp_bytes_per_dev"] + rec["arg_bytes_per_dev"]
+        log(f"mesh: dry run {arch} train_4k {rec['mesh']} {rec['mesh_device']} mesh, torch "
+            f"{rec['torch']} ({rec['layers']} layers): "
+            f"{mem / 2**30:.2f} GiB a device (args {rec['arg_bytes_per_dev'] / 2**30:.2f}, "
+            f"temp {rec['temp_bytes_per_dev'] / 2**30:.2f}), fits_hbm {rec['fits_hbm']}, "
+            f"dominant {rec['dominant']} (compute / memory / collective "
+            f"{rec['compute_s'] * 1e3:.2f} / {rec['memory_s'] * 1e3:.2f} / "
+            f"{rec['collective_s'] * 1e3:.2f} ms), {rec['run_s']:.1f} s")
+        records.append(rec)
+    return records
+
+
+def whole(tree):
+    """DTensor leaves as whole tensors (host ints kept)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
+
+
+class GradsOut:
+    """An optimizer for a built step that returns the gradients as the new
+    params (the step's gradients, compared leaf by leaf)."""
+
+    def init(self, params):
+        from repro_torch.training.optimizer import AdamW
+        return AdamW().init(params)
+
+    def update(self, grads, state, params):
+        return grads, state
+
+
+class Recording:
+    """The step's optimizer, keeping the gradients it was given."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return self.inner.update(grads, state, params)
+
+
+def leaf_rel(a, b):
+    """max|a - b| / max|b| in float32 (``rel_err`` casts to float64, which
+    a full-width leaf of several GB cannot spare)."""
+    return float((a.float() - b.float()).abs().max()) / (float(b.float().abs().max()) + 1e-30)
+
+
+def mesh_train(dev, mesh):
+    """The train step of qwen3-4b (8 layers, batch 4 x 512) built on the
+    mesh: at M = 1 without remat equal to loop.make_step (bf16 compute,
+    loss and every updated param within 1e-6 relative); at M = 2 the loss
+    and every gradient leaf equal M = 1's within 1e-4 of their max (float32
+    compute: bf16 rounds a product to 4e-3 of its size, and halving the
+    batch changes what it rounds); flash 8 launches a microbatch without
+    remat, 16 with it (none in the backward)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.tree import tree_leaves
+    arch, layers = MESH_TRAIN
+    cfg = get_config(arch).replace(n_layers=layers)
+    shape = InputShape("smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    model = build_model(cfg, dev)
+    params = model.init(0)
+    batch = loop.to_device(next(make_pipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)), dev)
+    opt = AdamW(lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS, weight_decay=0.01)
+    out = {"arch": arch, "layers": layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ}
+
+    want_p, _, want_loss = loop.make_step(model, opt)(params, opt.init(params), batch)
+    want_p = [t.clone() for t in tree_leaves(want_p)]
+    st = steps.make_train_step(arch, mesh, shape=shape, cfg=cfg, remat=False,
+                               microbatches=1, opt=opt)
+    args = st.shard(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    got_p, got_o, got_loss = st.fn(*args)
+    e1.record()
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    assert counts == {"flash_attention": layers}, counts
+    got_loss = float(whole(got_loss))
+    loss_rel = abs(got_loss / float(want_loss) - 1)
+    param_rel = max(leaf_rel(g, w) for g, w in zip(tree_leaves(whole(got_p)), want_p))
+    assert loss_rel <= 1e-6 and param_rel <= 1e-6, (loss_rel, param_rel)
+    out.update(m1_loss=got_loss, m1_loss_rel=loss_rel, m1_param_rel=param_rel,
+               m1_step_ms=e0.elapsed_time(e1), m1_launches=counts)
+    log(f"mesh: {arch} train step on the 1x1 mesh, M = 1: loss {got_loss:.6f} (rel. err "
+        f"{loss_rel:.3g} against loop.make_step), params rel. err {param_rel:.3g}, "
+        f"{e0.elapsed_time(e1):.1f} ms, launches {counts}")
+    del args, got_p, got_o, want_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(dtype="float32")
+    grads = {}
+    for M, remat in ((1, False), (2, False), (1, True)):
+        st = steps.make_train_step(arch, mesh, shape=shape, cfg=cfg32, remat=remat,
+                                   microbatches=M, opt=GradsOut())
+        args = st.shard(params, AdamW().init(params), batch)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g, _, loss = st.fn(*args)
+        e1.record()
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+        want = {"flash_attention": layers * M * (2 if remat else 1)}
+        assert counts == want, (M, remat, counts, want)
+        out[f"f32_m{M}{'_remat' if remat else ''}_step_ms"] = e0.elapsed_time(e1)
+        if not remat:
+            grads[M] = (float(whole(loss)), [t.clone() for t in tree_leaves(whole(g))])
+        del args, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    loss_rel = abs(grads[2][0] / grads[1][0] - 1)
+    grad_rel = max(leaf_rel(a, b) for a, b in zip(grads[2][1], grads[1][1]))
+    assert loss_rel <= 1e-4 and grad_rel <= 1e-4, (loss_rel, grad_rel)
+    out.update(m2_loss_rel=loss_rel, m2_grad_rel=grad_rel,
+               flash_launches={"microbatch": layers, "remat_microbatch": 2 * layers})
+    log(f"mesh: {arch} M = 2 against M = 1 (float32 compute): loss rel. err {loss_rel:.3g}, "
+        f"worst gradient leaf {grad_rel:.3g} of its max; step ms M = 1 "
+        f"{out['f32_m1_step_ms']:.1f}, M = 2 {out['f32_m2_step_ms']:.1f}, M = 1 with remat "
+        f"{out['f32_m1_remat_step_ms']:.1f}; flash {layers} launches a microbatch, "
+        f"{2 * layers} with remat")
+    del grads, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_accumulate(dev, mesh):
+    """One step of mixtral-8x22b (MESH_ACC's depth) with the builder's
+    tables: TRAIN_MICROBATCHES' 16 microbatches accumulated in bf16 against
+    the bf16 compute copy (TRAIN_ACC_DTYPE), AdamW with int8 moments
+    (TRAIN_OPTIMIZER): the loss, every gradient and every new param finite,
+    the large leaves' moments int8."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training import loop
+    from repro_torch.tree import tree_leaves
+    arch, layers = MESH_ACC
+    B, S = MESH_ACC_SHAPE
+    cfg = get_config(arch).replace(n_layers=layers)
+    M = steps.TRAIN_MICROBATCHES[arch]
+    assert steps.TRAIN_ACC_DTYPE[arch] == torch.bfloat16
+    opt = Recording(steps.TRAIN_OPTIMIZER[arch])
+    st = steps.make_train_step(arch, mesh, shape=InputShape("smoke", S, B, "train"), cfg=cfg,
+                               opt=opt)
+    model = build_model(cfg, dev)
+    params = model.init(0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = loop.to_device(next(make_pipeline(cfg, B, S, seed=0)), dev)
+    args = st.shard(params, opt.init(params), batch)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_p, new_o, loss = st.fn(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    loss = float(whole(loss))
+    grads = tree_leaves(opt.grads)
+    assert np.isfinite(loss), loss
+    assert all(bool(torch.isfinite(g.to_local()).all()) for g in grads)
+    assert all(bool(torch.isfinite(p.to_local()).all()) for p in tree_leaves(new_p))
+    acc_dtypes = sorted({str(g.dtype)[6:] for g in grads})
+    n_int8 = sum(1 for m in tree_leaves(new_o.mu) if m.dtype == torch.int8)
+    assert n_int8 > 0 and "bfloat16" in acc_dtypes, (n_int8, acc_dtypes)
+    out = {"arch": arch, "layers": layers, "params": n_params, "batch": B, "seq": S,
+           "microbatches": M, "loss": loss, "grad_dtypes": acc_dtypes, "int8_moment_leaves": n_int8,
+           "step_s": step_s, "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    log(f"mesh: {arch} ({layers} layer, {n_params / 1e9:.2f} B params) one step, {M} "
+        f"microbatches of {B // M} x {S} accumulated in bf16, int8 moments on {n_int8} leaves: "
+        f"loss {loss:.4f}, every gradient and param finite, gradients {acc_dtypes}, "
+        f"{step_s:.1f} s, peak {out['peak_memory_gib']:.1f} GiB")
+    del args, new_p, new_o, grads, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve(dev, mesh):
+    """The prefill and decode steps of qwen3-4b (8 layers) built on the mesh,
+    with the serving steps' bf16 params: MESH_DECODE_STEPS + 1 greedy tokens
+    equal to Model.prefill / decode_step's on the same params; flash once a
+    layer in the prefill, decode_attention once a layer a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models.zoo import build_model
+    from repro_torch.tree import tree_map
+    arch, layers = MESH_TRAIN
+    cfg = get_config(arch).replace(n_layers=layers)
+    slots = PROMPT + MESH_DECODE_STEPS + 1
+    pre = steps.make_prefill_step(arch, mesh, shape=InputShape("smoke", slots, BATCH,
+                                                               "prefill"), cfg=cfg)
+    dec = steps.make_decode_step(arch, mesh, shape=InputShape("smoke", slots, BATCH, "decode"),
+                                 cfg=cfg)
+    model = build_model(cfg, dev)
+    params = tree_map(lambda t, a: t.to(a.dtype), model.init(0), pre.abstract_args[0])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), dtype=torch.int32,
+                           generator=gen, device=dev)
+
+    def greedy(lg):
+        return lg.argmax(-1).to(torch.int32)[:, None]
+
+    cache = model.init_cache(BATCH, slots, dtype=torch.bfloat16)
+    lg, cache = model.prefill(params, {"tokens": prompt}, cache)
+    want = [greedy(lg)]
+    for _ in range(MESH_DECODE_STEPS):
+        lg, cache = model.decode_step(params, want[-1], cache)
+        want.append(greedy(lg[:, -1]))
+    del cache
+    p, b, c = pre.shard(params, {"tokens": prompt}, model.init_cache(BATCH, slots,
+                                                                     dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    lg, c = pre.fn(p, b, c)
+    torch.cuda.synchronize()
+    pre_counts = {k: n for k, n in ops.launch_counts().items() if n}
+    got = [greedy(whole(lg))]
+    ops.reset_launch_counts()
+    for _ in range(MESH_DECODE_STEPS):
+        nxt, c = dec.fn(p, dec.place(1, got[-1]), c)
+        got.append(whole(nxt))
+    torch.cuda.synchronize()
+    dec_counts = {k: n for k, n in ops.launch_counts().items() if n}
+    assert pre_counts == {"flash_attention": layers}, pre_counts
+    assert dec_counts == {"decode_attention": layers * MESH_DECODE_STEPS}, dec_counts
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    assert same, ([t.flatten().tolist() for t in got], [t.flatten().tolist() for t in want])
+    log(f"mesh: {arch} prefill + {MESH_DECODE_STEPS} decode steps on the 1x1 mesh (bf16 "
+        f"params): {len(got)} greedy tokens equal Model.prefill / decode_step's; launches "
+        f"{pre_counts} in the prefill, {dec_counts} in the decode steps")
+    del p, b, c, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": layers, "batch": BATCH, "prompt": PROMPT,
+            "tokens": [t.flatten().tolist() for t in got],
+            "prefill_launches": pre_counts, "decode_launches": dec_counts}
+
+
+def run_mesh(dev):
+    """Phase 10: the step builders on the 1x1 mesh of cuda:0 (a one-rank
+    nccl group) and the dry run on the abstract 16x16 mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    t0 = time.perf_counter()
+    procs = start_dryruns()
+    try:
+        mesh = make_smoke_mesh()
+        log(f"mesh: {mesh} ({dist.get_backend()}), "
+            f"{time.perf_counter() - t0:.1f} s")
+        out = {"train": mesh_train(dev, mesh), "accumulate": mesh_accumulate(dev, mesh),
+               "serve": mesh_serve(dev, mesh)}
+        dist.destroy_process_group()
+        out["dryrun"] = finish_dryruns(procs)
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"mesh: phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not PORT_TREE.is_dir():
         print(f"chip_smoke: {PORT_TREE} is missing: this script drives the port "
@@ -3001,6 +3371,8 @@ def main():
         slices.append(stats)
     # phase 9, training, after the slices
     train = run_train(dev)
+    # phase 10, the mesh layer, last
+    mesh = run_mesh(dev)
     kernels = ([{**k, "launches": launches[k["name"]]} for k in kernels]
                + [planner_kernel, tables_kernel])
     timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms",
@@ -3027,6 +3399,7 @@ def main():
           flush=True)
     print(json.dumps({"controller": {**controller_stats, "gpu": smi}}), flush=True)
     print(json.dumps({"train": {**train, "gpu": smi}}), flush=True)
+    print(json.dumps({"mesh": {**mesh, "gpu": smi}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0

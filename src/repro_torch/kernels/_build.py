@@ -178,6 +178,14 @@ def refuse_grad(name: str, entry: str, *tensors):
                            f"backward; call {entry}, which differentiates it")
 
 
+def check_device(name: str, t):
+    """The wrappers take CPU and CUDA tensors, and DTensors (the dry run's
+    hold meta shards, which reach the custom op's fake implementation)."""
+    from repro_torch.distributed.sharding import is_dtensor
+    if t.device.type not in ("cpu", "cuda") and not is_dtensor(t):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
 def strides_arg(*tensors_dims):
     """Pack (tensor, dims) pairs into the kernels' int64 stride array."""
     vals = [t.stride(d) for t, dims in tensors_dims for d in dims]

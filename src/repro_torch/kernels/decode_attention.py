@@ -14,6 +14,10 @@ k and v may be any strided view whose head dimension is contiguous, so
 the engine hands over its heads-major cache ``(B, KV, S, hd)`` as
 ``cache.k.transpose(1, 2)`` without a copy.
 
+The launch goes through the custom op ``torch.ops.repro.decode_attention``
+(a fake implementation for ``FakeTensorMode`` and meta tensors;
+``sharding_rule`` and ``flops`` for ``kernels.ops.register_mesh_rules``).
+
 ``decode_attention.launches`` counts the calls that launched the kernel.
 """
 from __future__ import annotations
@@ -102,9 +106,16 @@ def decode_attention(q, k, v, q_positions, kv_positions, *,
     """q: (B, 1, H, hd); k, v: (B, S, KV, hd); q_positions: (B,) int32;
     kv_positions: (B, S) int32.  Returns (B, 1, H, hd)."""
     _validate(q, k, v, q_positions, kv_positions, window)
+    _build.check_device("decode_attention", q)
+    return _decode_op(q, k, v, q_positions, kv_positions, window)
+
+
+@torch.library.custom_op("repro::decode_attention", mutates_args=())
+def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_positions: torch.Tensor,
+               kv_positions: torch.Tensor, window: Optional[int]) -> torch.Tensor:
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, q_positions, kv_positions,
-                                        window=window)
+                                        window=window).contiguous()
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, _, H, hd = q.shape
@@ -135,6 +146,32 @@ def decode_attention(q, k, v, q_positions, kv_positions, *,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
+    return out
+
+
+@_decode_op.register_fake
+def _(q, k, v, q_positions, kv_positions, window):
+    return q.new_empty(q.shape)
+
+
+def flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
+    """QKᵀ and PV against every cache slot, 2 flops per FMA: which slots
+    are valid is data the count does not read (``chip_smoke.py``'s bound
+    counts only the valid ones)."""
+    B, _, H, hd = q_shape
+    return 4 * hd * H * B * k_shape[1]
+
+
+def sharding_rule(q, k, v, q_positions, kv_positions, window):
+    """Batch may shard (positions with it), and heads as for
+    ``flash_attention``; the cache's slots and the head dimension may not."""
+    from torch.distributed.tensor import Replicate, Shard
+    R = Replicate()
+    out = [([R], [R, R, R, R, R, None]),
+           ([Shard(0)], [Shard(0), Shard(0), Shard(0), Shard(0), Shard(0), None])]
+    H, KV = q.shape[2], k.shape[2]
+    if H == KV or KV % q.mesh.size() == 0:
+        out.append(([Shard(2)], [Shard(2), Shard(2), Shard(2), R, R, None]))
     return out
 
 

@@ -10,6 +10,12 @@ runs the plain ``ref.attention_ref``.  There is no other path, and no
 backward: under grad mode an input that requires grad is refused (the
 differentiable entry is ``repro_torch.models.attention.flash_attention``).
 
+The launch goes through the custom op ``torch.ops.repro.flash_attention``:
+its fake implementation gives the output's shape to ``FakeTensorMode`` and
+meta tensors (the dry run), and ``sharding_rule`` / ``flops`` are the
+DTensor sharding rule and the flop formula ``kernels.ops.register_mesh_rules``
+registers.
+
 ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -50,8 +56,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
     differ from S only for causal=False without a window."""
     _validate(q, k, v, causal, window)
     _build.refuse_grad("flash_attention", "repro_torch.models.attention.flash_attention", q, k, v)
+    _build.check_device("flash_attention", q)
+    return _flash_op(q, k, v, causal, window)
+
+
+@torch.library.custom_op("repro::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              window: Optional[int]) -> torch.Tensor:
     if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window)
+        # contiguous, as the fake implementation's (and the kernel's) output
+        return ref.attention_ref(q, k, v, causal=causal, window=window).contiguous()
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, S, H, hd = q.shape
@@ -72,6 +86,40 @@ def flash_attention(q, k, v, *, causal: bool = True,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    return out
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window):
+    return q.new_empty(q.shape)
+
+
+def attention_pairs(S: int, Skv: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs a head attends to under the mask."""
+    import numpy as np
+    i = np.arange(S, dtype=np.int64)
+    hi = np.minimum(i + 1, Skv) if causal else np.full(S, Skv, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window is not None else np.zeros(S, dtype=np.int64)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def flops(q_shape, k_shape, v_shape, causal, window, *args, out_shape=None, **kwargs):
+    """QKᵀ and PV over the unmasked pairs, 2 flops per FMA (the bound's
+    count in ``chip_smoke.py``)."""
+    B, S, H, hd = q_shape
+    return 4 * hd * H * B * attention_pairs(S, k_shape[1], causal, window)
+
+
+def sharding_rule(q, k, v, causal, window):
+    """Batch may shard, and heads where the kv heads split evenly over the
+    whole mesh (or there is one query head a kv head): a query head's group
+    then stays on its rank.  The sequence and the head dimension may not."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [([Replicate()], [Replicate(), Replicate(), Replicate(), None, None]),
+           ([Shard(0)], [Shard(0), Shard(0), Shard(0), None, None])]
+    H, KV = q.shape[2], k.shape[2]
+    if H == KV or KV % q.mesh.size() == 0:
+        out.append(([Shard(2)], [Shard(2), Shard(2), Shard(2), None, None]))
     return out
 
 

@@ -7,6 +7,8 @@ tensor's device.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.grant_loop import alloc_all
@@ -22,6 +24,39 @@ KERNELS = {"flash_attention": flash_attention,
            "tables": tables}
 
 
+_MESH_RULES = []
+
+
+def register_mesh_rules():
+    """Register, once a process, each model kernel's DTensor sharding rule
+    (``register_sharding``) and flop formula (``register_flop_formula``) on
+    its custom op.  The mesh layer calls it; the served path never imports
+    ``torch.distributed.tensor``."""
+    if _MESH_RULES:
+        return
+    from torch.distributed.tensor.experimental import register_sharding
+    from torch.utils.flop_counter import register_flop_formula
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.kernels import ssd_scan as ss
+    for mod, op in ((fa, torch.ops.repro.flash_attention), (da, torch.ops.repro.decode_attention),
+                    (rw, torch.ops.repro.rwkv6_scan), (ss, torch.ops.repro.ssd_scan)):
+        register_sharding(op.default)(mod.sharding_rule)
+        register_flop_formula(op)(mod.flops)
+        _MESH_RULES.append(op)
+    register_sharding(torch.ops.aten.fill_.Tensor)(_fill_rule)
+
+
+def _fill_rule(self, value):
+    """``t.fill_(v)`` (the caches' position counters) on a DTensor, which
+    DTensor has no rule for: any layout of t, the 0-d value replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [([Replicate()], [Replicate(), Replicate()])] + [
+        ([Shard(d)], [Shard(d), Replicate()]) for d in range(len(self.shape))]
+
+
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
@@ -32,4 +67,5 @@ def launch_counts() -> dict:
 
 
 __all__ = ["flash_attention", "decode_attention", "rwkv6_scan", "ssd_scan",
-           "alloc_all", "tables", "reset_launch_counts", "launch_counts"]
+           "alloc_all", "tables", "reset_launch_counts", "launch_counts",
+           "register_mesh_rules"]

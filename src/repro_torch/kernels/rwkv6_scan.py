@@ -13,9 +13,15 @@ mode an input that requires grad is refused (the differentiable entry is
 ``>= LOGW_CLAMP = -2`` (``models/rwkv.py`` does), as for the TPU kernel:
 the chunked factorisation takes exponents up to 64 at that floor.
 
+The launch goes through the custom op ``torch.ops.repro.rwkv6_scan``
+(a fake implementation for ``FakeTensorMode`` and meta tensors;
+``sharding_rule`` and ``flops`` for ``kernels.ops.register_mesh_rules``).
+
 ``rwkv6_scan.launches`` counts kernel launches.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,9 +52,16 @@ def rwkv6_scan(r, k, v, logw, u, *, s0=None):
     (B, H, hd, hd) float32)."""
     _validate(r, k, v, logw, u, s0)
     _build.refuse_grad("rwkv6_scan", "repro_torch.models.rwkv.wkv", r, k, v, logw, u, s0)
+    _build.check_device("rwkv6_scan", r)
+    return _rwkv6_op(r, k, v, logw, u, s0)
+
+
+@torch.library.custom_op("repro::rwkv6_scan", mutates_args=())
+def _rwkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+              u: torch.Tensor, s0: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     if r.device.type == "cpu":
         y, s_fin = ref.rwkv6_ref(r, k, v, logw, u, s0)
-        return y.to(r.dtype), s_fin
+        return y.to(r.dtype).contiguous(), s_fin.contiguous()
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
     B, S, H, hd = r.shape
@@ -74,6 +87,30 @@ def rwkv6_scan(r, k, v, logw, u, *, s0=None):
     _build.check(err, "rwkv6_scan")
     rwkv6_scan.launches += 1
     return y, s_fin
+
+
+@_rwkv6_op.register_fake
+def _(r, k, v, logw, u, s0):
+    B, S, H, hd = r.shape
+    return r.new_empty((B, S, H, hd)), r.new_empty((B, H, hd, hd), dtype=torch.float32)
+
+
+def flops(r_shape, *args, out_shape=None, **kwargs):
+    """The state's read-out r·S and its rank-1 update kᵀv per step and
+    head, 2 flops per FMA (the bound's count in ``chip_smoke.py``)."""
+    B, S, H, hd = r_shape
+    return B * S * H * 4 * hd * hd
+
+
+def sharding_rule(r, k, v, logw, u, s0):
+    """Batch or heads may shard; the sequence and the head dimension may not."""
+    from torch.distributed.tensor import Replicate, Shard
+    R, s = Replicate(), None if s0 is None else Replicate()
+    out = [([R, R], [R, R, R, R, R, s])]
+    b, h = Shard(0), Shard(2)
+    out.append(([b, b], [b, b, b, b, R, None if s0 is None else b]))
+    out.append(([h, Shard(1)], [h, h, h, h, Shard(0), None if s0 is None else Shard(1)]))
+    return out
 
 
 rwkv6_scan.launches = 0

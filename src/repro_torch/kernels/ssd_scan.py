@@ -16,9 +16,15 @@ B and C are read through their strides, so the Mamba2 block passes its
 group-form (B, S, N) tensors as ``Bm[:, :, None].expand(B, S, H, N)``: a
 head stride of 0 and no copy.
 
+The launch goes through the custom op ``torch.ops.repro.ssd_scan`` (a
+fake implementation for ``FakeTensorMode`` and meta tensors;
+``sharding_rule`` and ``flops`` for ``kernels.ops.register_mesh_rules``).
+
 ``ssd_scan.launches`` counts kernel launches.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,9 +57,16 @@ def ssd_scan(xdt, Bm, Cm, dA, *, h0=None):
     H, hd) in xdt's dtype, final state (B, H, hd, N) float32)."""
     _validate(xdt, Bm, Cm, dA, h0)
     _build.refuse_grad("ssd_scan", "repro_torch.models.ssm.ssd", xdt, Bm, Cm, dA, h0)
+    _build.check_device("ssd_scan", xdt)
+    return _ssd_op(xdt, Bm, Cm, dA, h0)
+
+
+@torch.library.custom_op("repro::ssd_scan", mutates_args=())
+def _ssd_op(xdt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, dA: torch.Tensor,
+            h0: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     if xdt.device.type == "cpu":
         y, h_fin = ref.ssd_ref(xdt, Bm, Cm, dA, h0)
-        return y.to(xdt.dtype), h_fin
+        return y.to(xdt.dtype).contiguous(), h_fin.contiguous()
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {xdt.device}")
     B, S, H, hd = xdt.shape
@@ -81,6 +94,31 @@ def ssd_scan(xdt, Bm, Cm, dA, *, h0=None):
     _build.check(err, "ssd_scan")
     ssd_scan.launches += 1
     return y, h_fin
+
+
+@_ssd_op.register_fake
+def _(xdt, Bm, Cm, dA, h0):
+    B, S, H, hd = xdt.shape
+    N = Bm.shape[-1]
+    return xdt.new_empty((B, S, H, hd)), xdt.new_empty((B, H, hd, N), dtype=torch.float32)
+
+
+def flops(xdt_shape, Bm_shape, *args, out_shape=None, **kwargs):
+    """The read-out C·S and the rank-1 update xdtᵀB per step and head, 2
+    flops per FMA (the bound's count in ``chip_smoke.py``)."""
+    B, S, H, hd = xdt_shape
+    return B * S * H * 4 * hd * Bm_shape[-1]
+
+
+def sharding_rule(xdt, Bm, Cm, dA, h0):
+    """Batch or heads may shard; the sequence and the state dimensions may
+    not."""
+    from torch.distributed.tensor import Replicate, Shard
+    R, hs = Replicate(), None if h0 is None else Replicate()
+    b, h = Shard(0), Shard(2)
+    return [([R, R], [R, R, R, R, hs]),
+            ([b, b], [b, b, b, b, None if h0 is None else b]),
+            ([h, Shard(1)], [h, h, h, h, None if h0 is None else Shard(1)])]
 
 
 ssd_scan.launches = 0

@@ -6,8 +6,11 @@ pipeline, the step and checkpoints, on cuda:0 (raises without CUDA):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --steps 100
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 2
 
-``--dry-run`` (the JAX launcher's production-mesh compile check) is not
-ported yet and exits non-zero.
+The production-mesh check of the full config (``launch.dryrun.run_one``
+of train_4k on the abstract 16x16 mesh; nothing is allocated), which
+prints the record as one JSON line:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --dry-run
 """
 import argparse
 import sys
@@ -22,14 +25,18 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower and compile the full config on the production mesh "
-                         "(not ported: refused)")
+                    help="run the full config's train_4k step once on the abstract "
+                         "16x16 production mesh (meta shards: nothing is allocated) "
+                         "and print its dry-run record")
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        print("repro_torch.launch.train: --dry-run needs the mesh and dry-run tooling, "
-              "not ported yet (ROADMAP Queue 1, item 13)", file=sys.stderr)
-        return 2
+        import json
+
+        from repro_torch.launch.dryrun import run_one
+        from repro_torch.launch.mesh import make_production_mesh
+        print(json.dumps(run_one(args.arch, "train_4k", make_production_mesh())))
+        return 0
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.training.loop import train

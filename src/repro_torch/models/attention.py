@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import P, is_dtensor, merge_dims, split_dim, unshard_dim
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import rope as rope_lib
@@ -60,6 +61,16 @@ def init_attention(generator, cfg, device):
     return p
 
 
+def specs_attention(cfg):
+    p = {"wq": P("fsdp", "tp"), "wk": P("fsdp", "tp"), "wv": P("fsdp", "tp"),
+         "wo": P("tp", "fsdp")}
+    if cfg.qkv_bias:
+        p.update(bq=P("tp"), bk=P("tp"), bv=P("tp"))
+    if cfg.qk_norm:
+        p.update(q_norm=P(None), k_norm=P(None))
+    return p
+
+
 # ---------------------------------------------------------------------------
 # Projections
 # ---------------------------------------------------------------------------
@@ -69,7 +80,7 @@ def _project_q(p, x, cfg):
     q = mm(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    q = split_dim(q, -1, cfg.n_heads, cfg.hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     return q
@@ -84,8 +95,8 @@ def project_kv(p, x, cfg):
     v = mm(x, p["wv"])
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    k = split_dim(k, -1, KV, hd)
+    v = split_dim(v, -1, KV, hd)
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return k, v
@@ -133,12 +144,12 @@ def full_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
     dtype.  The JAX package's ``full_attention`` (S <= 4096)."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
-    qg = (q.float() / math.sqrt(hd)).reshape(B, Sq, KV, H // KV, hd)
+    qg = split_dim(q.float() / math.sqrt(hd), 2, KV, H // KV)
     s = torch.einsum("bqkgd,bskd->bqkgs", qg, k.float())
     s = torch.where(_mask(q_positions, kv_positions, causal, window), s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bqkgs,bskd->bqkgd", w, v.float())
-    return o.reshape(B, Sq, H, hd).to(q.dtype)
+    return merge_dims(o, 2).to(q.dtype)
 
 
 def kv_blockwise_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
@@ -149,7 +160,7 @@ def kv_blockwise_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qg = (q.float() / math.sqrt(hd)).reshape(B, Sq, KV, G, hd)
+    qg = split_dim(q.float() / math.sqrt(hd), 2, KV, G)
     n = max(1, Skv // kv_chunk)
     while Skv % n:
         n -= 1
@@ -169,7 +180,7 @@ def kv_blockwise_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
         acc = acc * alpha[..., None] + torch.einsum("bqkgs,bskd->bqkgd", p, vb)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    return merge_dims(out, 2).to(q.dtype)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -178,7 +189,8 @@ class FlashAttention(torch.autograd.Function):
     recomputed through ``full_attention`` (``kv_blockwise_attention`` when
     S or Skv passes 4096), as the JAX package's ``attention_forward``
     switches, and differentiated by autograd; it launches no kernel of
-    ``ops``.  Gradients come back in the inputs' dtypes."""
+    ``ops``.  Gradients come back in the inputs' dtypes.  On DTensors the
+    recompute runs on each rank's shard (``_recompute_on_mesh``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -191,13 +203,53 @@ class FlashAttention(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         B, S, Skv = q.shape[0], q.shape[1], k.shape[1]
         with torch.profiler.record_function("flash_attention.backward"), torch.enable_grad():
-            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-            pos = lambda n: torch.arange(n, device=q.device)[None].expand(B, n)
             fn = full_attention if S <= FULL_MAX and Skv <= FULL_MAX else kv_blockwise_attention
-            o = fn(q, k, v, q_positions=pos(S), kv_positions=pos(Skv),
-                   causal=ctx.causal, window=ctx.window)
-            grads = torch.autograd.grad(o, (q, k, v), grad_out)
+            if is_dtensor(q):
+                return (*_recompute_on_mesh(fn, q, k, v, grad_out, ctx.causal, ctx.window),
+                        None, None)
+            pos = lambda n: torch.arange(n, device=q.device)[None].expand(B, n)
+            grads = _recompute(fn, q, k, v, grad_out, pos(S), pos(Skv), ctx.causal, ctx.window)
         return (*grads, None, None)
+
+
+def _recompute(fn, q, k, v, grad_out, q_pos, kv_pos, causal, window):
+    """Gradients of q, k, v: ``fn``'s output recomputed and differentiated."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    o = fn(q, k, v, q_positions=q_pos, kv_positions=kv_pos, causal=causal, window=window)
+    return torch.autograd.grad(o, (q, k, v), grad_out)
+
+
+def _recompute_on_mesh(fn, q, k, v, grad_out, causal, window):
+    """``_recompute`` on each rank's shard (``local_map``): the batch rows
+    as q has them, every head, and the query rows split over the mesh dims
+    that shard no batch, as the JAX package's ``seq_spec`` splits its
+    scores (the kernel's forward cannot take such a split: it numbers a
+    shard's queries from 0), where they split evenly.  Each rank's query
+    positions come with its rows; k and v are whole on it, and their
+    gradients are the sum over the query split (``Partial``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    batch = [isinstance(p, Shard) and p.dim == 0 for p in q.placements]
+    if q.shape[0] % math.prod(mesh.size(i) for i, b in enumerate(batch) if b):
+        batch = [False] * len(batch)       # an uneven batch split: rows whole instead
+    free = [mesh.size(i) for i, b in enumerate(batch) if not b and mesh.size(i) > 1]
+    split = q.shape[1] % math.prod(free) == 0
+    pick = lambda on_batch, other: tuple(
+        Replicate() if mesh.size(i) == 1 else on_batch if b else other if split else Replicate()
+        for i, b in enumerate(batch))
+    rows, whole = pick(Shard(0), Shard(1)), pick(Shard(0), Replicate())
+    pos = lambda n, pl: DTensor.from_local(
+        torch.arange(n, device=q.device)[None], mesh, [Replicate()] * mesh.ndim,
+        run_check=False).redistribute(mesh, pl)
+    q_pos = pos(q.shape[1], pick(Replicate(), Shard(1)))
+    kv_pos = pos(k.shape[1], pick(Replicate(), Replicate()))
+    run = local_map(lambda *a: _recompute(fn, *a, causal, window),
+                    out_placements=(rows, pick(Shard(0), Partial()), pick(Shard(0), Partial())),
+                    in_placements=(rows, whole, whole, rows, pick(Replicate(), Shard(1)),
+                                   pick(Replicate(), Replicate())),
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(q, k, v, grad_out, q_pos, kv_pos)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None):
@@ -241,6 +293,27 @@ def init_kv_cache(batch, max_len, cfg, *, window: Optional[int] = None,
     )
 
 
+def _write_slot_on_mesh(buf_t, new, idx):
+    """A DTensor cache (B, KV, S_buf, hd) takes the new column (B, KV, 1,
+    hd) at slot ``idx``: each rank rewrites its own shard, masked to the
+    slot where it holds it (DTensor's ``index_copy_`` mislabels a cache
+    sharded over its slots).  A full read and write of the shard."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, pl = buf_t.device_mesh, list(buf_t.placements)
+    slots = lambda p: isinstance(p, Shard) and p.dim == 2
+    hit = (torch.arange(buf_t.shape[2], device=idx.device) == idx).view(1, 1, -1, 1)
+    hit = DTensor.from_local(hit.to_local() if is_dtensor(hit) else hit, mesh,
+                             [Replicate()] * mesh.ndim, run_check=False)
+
+    def write(b, n, h):
+        b.copy_(torch.where(h, n, b))
+    local_map(write, out_placements=None,
+              in_placements=(pl, [Replicate() if slots(p) else p for p in pl],
+                             [Shard(2) if slots(p) else Replicate() for p in pl]),
+              device_mesh=mesh, redistribute_inputs=True)(buf_t, new, hit)
+
+
 def update_kv_cache(cache: KVCache, k_new, v_new):
     """Append one token in place. k_new: (B, 1, KV, hd).
 
@@ -250,6 +323,11 @@ def update_kv_cache(cache: KVCache, k_new, v_new):
     buf = cache.k.shape[2]
     pos0 = cache.pos.max()
     idx = pos0 % buf if cache.rolling else torch.clamp(pos0, max=buf - 1)
+    if is_dtensor(cache.k):
+        for buf_t, new in ((cache.k, k_new), (cache.v, v_new)):
+            _write_slot_on_mesh(buf_t, new.transpose(1, 2).to(buf_t.dtype), idx)
+        cache.pos += 1
+        return cache
     idx = idx.reshape(1).long()
     cache.k.index_copy_(2, idx, k_new.transpose(1, 2).to(cache.k.dtype))
     cache.v.index_copy_(2, idx, v_new.transpose(1, 2).to(cache.v.dtype))
@@ -280,12 +358,29 @@ def _store_prefix_kv(cache: KVCache, k, v, S: int) -> KVCache:
     if cache.rolling and S > buf:
         kw = torch.roll(kw, shifts=S % buf, dims=2)
         vw = torch.roll(vw, shifts=S % buf, dims=2)
+    if is_dtensor(cache.k):
+        for buf_t, new in ((cache.k, kw), (cache.v, vw)):
+            _write_prefix_on_mesh(buf_t, new)
+        cache.pos.fill_(S)
+        return cache
     cache.k[:, :, :take] = kw
     cache.v[:, :, :take] = vw
     cache.k[:, :, take:] = 0
     cache.v[:, :, take:] = 0
     cache.pos.fill_(S)
     return cache
+
+
+def _write_prefix_on_mesh(buf_t, new):
+    """A DTensor cache (B, KV, S_buf, hd) takes ``new`` (B, KV, take, hd) in
+    slots 0..take-1 and zeros past them: the whole buffer is built, laid
+    out as the cache and copied shard by shard (DTensor's slice assignment
+    on a cache sharded over its slots writes each shard's own first
+    slots)."""
+    new = unshard_dim(new, 2).to(buf_t.dtype)
+    full = torch.cat([new, new.new_zeros(new.shape[:2] + (buf_t.shape[2] - new.shape[2],)
+                                         + new.shape[3:])], dim=2)
+    buf_t.to_local().copy_(full.redistribute(buf_t.device_mesh, buf_t.placements).to_local())
 
 
 # ---------------------------------------------------------------------------
@@ -306,9 +401,14 @@ def attention_decode(p, x, cfg, cache: KVCache, *, positions_thw=None):
     if not cache.rolling:
         # the JAX path's kv_valid_len = pos: slots at or past it are unwritten
         kv_pos = torch.where(kv_pos < cache.pos[:, None], kv_pos, -1)
-    o = ops.decode_attention(q, cache.k.transpose(1, 2), cache.v.transpose(1, 2),
-                             positions[:, 0], kv_pos, window=cfg.sliding_window)
-    return mm(o.reshape(B, 1, cfg.n_heads * cfg.hd), p["wo"]), cache
+    # a float32 bias beside bfloat16 matrices (the mesh's serving params)
+    # makes q float32: it meets the cache in the cache's dtype
+    # the kernel reads whole caches: a DTensor cache sharded over its slots
+    # is gathered first
+    k, v = (unshard_dim(t, 2).transpose(1, 2) for t in (cache.k, cache.v))
+    o = ops.decode_attention(q.to(k.dtype), k, v, positions[:, 0], kv_pos,
+                             window=cfg.sliding_window)
+    return mm(merge_dims(o, 2), p["wo"]), cache
 
 
 def _prompt_attention(p, x, cfg, *, causal, window=None, positions_thw=None):
@@ -320,7 +420,7 @@ def _prompt_attention(p, x, cfg, *, causal, window=None, positions_thw=None):
     q, k, v = _project_qkv(p, x, cfg)
     q, k = _apply_positions(q, k, positions, cfg, positions_thw)
     o = flash_attention(q, k, v, causal=causal, window=window)
-    return mm(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"]), k, v
+    return mm(merge_dims(o, 2), p["wo"]), k, v
 
 
 def attention_prefill(p, x, cfg, cache: KVCache, *, positions_thw=None):
@@ -343,7 +443,7 @@ def cross_attention_prefill(p, x, cfg, k, v):
     B, S, _ = x.shape
     q = _project_q(p, x, cfg)
     o = flash_attention(q, k, v, causal=False)
-    return mm(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
+    return mm(merge_dims(o, 2), p["wo"])
 
 
 def attention_forward(p, x, cfg, *, positions_thw=None, causal: bool = True, x_kv=None):
@@ -369,5 +469,5 @@ def cross_attention_decode(p, x, cfg, k, v):
     q = _project_q(p, x, cfg)
     kv_pos = torch.arange(Se, dtype=torch.int32, device=x.device)[None].expand(B, Se)
     q_pos = torch.full((B,), Se - 1, dtype=torch.int32, device=x.device)
-    o = ops.decode_attention(q, k, v, q_pos, kv_pos)
-    return mm(o.reshape(B, 1, cfg.n_heads * cfg.hd), p["wo"])
+    o = ops.decode_attention(q.to(k.dtype), k, v, q_pos, kv_pos)
+    return mm(merge_dims(o, 2), p["wo"])

@@ -14,6 +14,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (P, gather_fsdp, gather_inner, gather_inner_grad,
+                                              is_dtensor, replicated)
+
 
 def _dense_init(shape, generator, device, in_axis: int = 0,
                 dtype=torch.float32):
@@ -29,11 +32,15 @@ def mm(x, w):
     """x @ w, promoted as JAX promotes a product: under the bfloat16 compute
     cast the vectors stay float32, and a float32 operand (an activation a
     vector touched) makes the product float32, the other operand cast up.
-    One dtype: a plain product."""
+    One dtype: a plain product.  On DTensors x's inner leading dims are
+    gathered first, and so are those of the product's gradient, and w's
+    fsdp shards (``sharding.gather_inner``, ``gather_inner_grad``,
+    ``gather_fsdp``)."""
+    x, w = gather_inner(x), gather_fsdp(w)
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
-    return x @ w
+    return gather_inner_grad(x @ w)
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +74,13 @@ def init_norm(d, device, *, with_bias: bool = False):
             "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
+def specs_norm(*, with_bias: bool = False):
+    p = {"scale": P(None)}
+    if with_bias:
+        p["bias"] = P(None)
+    return p
+
+
 def apply_norm(p, x, eps=1e-5):
     if "bias" in p:
         return layer_norm(x, p["scale"], p["bias"], eps)
@@ -92,6 +106,14 @@ def init_mlp(generator, d, ff, device, act_fn: str = "silu"):
     }
 
 
+def specs_mlp(act_fn: str = "silu"):
+    if act_fn == "silu":
+        return {"w_gate": P("fsdp", "tp"), "w_up": P("fsdp", "tp"),
+                "w_down": P("tp", "fsdp")}
+    return {"w_up": P("fsdp", "tp"), "b_up": P("tp"),
+            "w_down": P("tp", "fsdp"), "b_down": P(None)}
+
+
 def apply_mlp(p, x, act_fn: str = "silu"):
     if act_fn == "silu":
         h = F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"])
@@ -110,12 +132,26 @@ def init_embedding(generator, vocab, d, device):
     return {"table": _dense_init((vocab, d), generator, device, in_axis=1)}
 
 
+def specs_embedding():
+    return {"table": P("tp", "fsdp")}
+
+
 def embed(p, tokens):
+    """The table's rows of ``tokens``.  For tokens sharded over a mesh, an
+    embedding over the gathered table (the same rows: DTensor's rule for
+    the indexing's backward, an index_put with sharded indices, fails in
+    torch 2.11)."""
+    if is_dtensor(tokens) and not all(pl.is_replicate() for pl in tokens.placements):
+        return F.embedding(tokens, replicated(p["table"]))
     return p["table"][tokens]
 
 
 def init_head(generator, d, vocab, device):
     return {"w": _dense_init((d, vocab), generator, device)}
+
+
+def specs_head():
+    return {"w": P("fsdp", "tp")}
 
 
 # ---------------------------------------------------------------------------
@@ -145,21 +181,34 @@ def _ce_chunks(S: int, chunk: int) -> int:
     return n
 
 
+def _is_label(logits, labels):
+    """(..., V) bool: each row's label column."""
+    return torch.arange(logits.shape[-1], device=logits.device) == labels[..., None]
+
+
 class _ChunkedCrossEntropy(torch.autograd.Function):
     """Mean token cross-entropy, chunk by chunk over the sequence, logits in
     float32.  The forward keeps no logits; the backward recomputes each
-    chunk's (B, s, V) logits, so one chunk's live at a time in both."""
+    chunk's (B, s, V) logits, so one chunk's live at a time in both.
+    ``hint``, if given, lays out each chunk's logits (a sharding hint).  On
+    DTensors, whose vocabulary may be sharded, the gold logit is a masked
+    sum over the vocabulary and its gradient a masked subtraction (the same
+    values as the gather and scatter, which DTensor shards only through
+    data-dependent masks)."""
 
     @staticmethod
-    def forward(ctx, x, table, labels, n):
+    def forward(ctx, x, table, labels, n, hint=None):
         ctx.save_for_backward(x, table, labels)
-        ctx.n = n
+        ctx.n, ctx.hint = n, hint or (lambda t: t)
         with torch.profiler.record_function("cross_entropy.forward"):
-            tf = table.float()
+            tf = gather_fsdp(table).float()
             total = x.new_zeros((), dtype=torch.float32)
             for xc, lc in zip(x.chunk(n, dim=1), labels.chunk(n, dim=1)):
-                logits = xc.float() @ tf.T
-                gold = logits.gather(-1, lc[..., None].long())[..., 0]
+                logits = ctx.hint(gather_inner(xc.float()) @ tf.T)
+                if is_dtensor(logits):
+                    gold = torch.where(_is_label(logits, lc), logits, 0.0).sum(-1)
+                else:
+                    gold = logits.gather(-1, lc[..., None].long())[..., 0]
                 total = total + (torch.logsumexp(logits, dim=-1) - gold).sum()
         return total / labels.numel()
 
@@ -167,21 +216,29 @@ class _ChunkedCrossEntropy(torch.autograd.Function):
     def backward(ctx, grad):
         x, table, labels = ctx.saved_tensors
         with torch.profiler.record_function("cross_entropy.backward"):
-            tf = table.float()
+            tf = gather_fsdp(table).float()
             scale = grad / labels.numel()
             gx, gt = [], torch.zeros_like(tf)
             for xc, lc in zip(x.chunk(ctx.n, dim=1), labels.chunk(ctx.n, dim=1)):
-                xf = xc.float()
-                g = torch.softmax(xf @ tf.T, dim=-1)          # d(lse - gold)/d logits
-                g.scatter_add_(-1, lc[..., None].long(), -torch.ones_like(g[..., :1]))
+                xf = gather_inner(xc.float())
+                g = torch.softmax(ctx.hint(xf @ tf.T), dim=-1)   # d(lse - gold)/d logits
+                if is_dtensor(g):
+                    g = g - _is_label(g, lc).to(g.dtype)
+                else:
+                    g.scatter_add_(-1, lc[..., None].long(), -torch.ones_like(g[..., :1]))
                 g.mul_(scale)
                 gx.append((g @ tf).to(x.dtype))
-                gt.addmm_(g.flatten(0, 1).T, xf.flatten(0, 1))
-        return torch.cat(gx, dim=1), gt.to(table.dtype), None, None
+                if is_dtensor(gt):      # in place, its layout could not change
+                    gt = gt + g.flatten(0, 1).T @ xf.flatten(0, 1)
+                else:
+                    gt.addmm_(g.flatten(0, 1).T, xf.flatten(0, 1))
+        return torch.cat(gx, dim=1), gt.to(table.dtype), None, None, None
 
 
-def chunked_cross_entropy(x, table, labels, *, chunk: int = 512):
+def chunked_cross_entropy(x, table, labels, *, chunk: int = 512, constrain_logits=None):
     """Mean token cross-entropy (float32 scalar) over sequence chunks, the
     JAX package's ``chunked_cross_entropy``: x (B, S, D) final hidden
-    states, table (V, D) the unembedding, labels (B, S) int."""
-    return _ChunkedCrossEntropy.apply(x, table, labels, _ce_chunks(x.shape[1], chunk))
+    states, table (V, D) the unembedding, labels (B, S) int;
+    ``constrain_logits`` lays out each chunk's logits (the logits hint)."""
+    return _ChunkedCrossEntropy.apply(x, table, labels, _ce_chunks(x.shape[1], chunk),
+                                      constrain_logits)

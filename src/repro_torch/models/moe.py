@@ -1,8 +1,8 @@
 """Mixture-of-Experts layer (Mixtral / DBRX style top-k routing).
 
-Counterpart of the JAX package's ``models/moe.py`` (``apply_moe``; the
-expert-parallel ``apply_moe_ep`` is not ported).  It computes the same
-function:
+Counterpart of the JAX package's ``models/moe.py``: ``apply_moe``, and
+``apply_moe_ep``, the expert-parallel layer for a mesh (below).
+``apply_moe`` computes the same function:
 
 * router logits in float32, a softmax, the top k with ties to the lower
   expert index (as ``jax.lax.top_k``: a stable descending sort, since
@@ -30,6 +30,12 @@ is the reference's one-hot dispatch and combine einsums, line for line:
 the yardstick of the tests and of ``chip_smoke.py``, never on the served
 path.
 
+``apply_moe_ep`` moves tokens instead of weights, on a ``DeviceMesh``
+whose expert axis holds one virtual expert per rank: ``local_map`` hands
+each rank its shards, which go through the reference's layout with
+functional collectives (an all-to-all over the expert axis, an
+all-gather and a reduce-scatter over tp, an all-to-all back).
+
 ``apply_moe`` counts, per ``layer``, the assignments it saw and those it
 dropped (``drop_counts``, ``reset_drop_counts``), as the kernels count
 their launches; the dropped count stays on the tensor's device until it
@@ -45,6 +51,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import P, constrain, is_dtensor, mesh_shape, placements
 from repro_torch.models.layers import _dense_init, mm
 
 _drops: dict = {}          # layer -> (dropped assignments (tensor), assignments)
@@ -70,6 +77,16 @@ def init_moe(generator, cfg, device):
         "w_gate": _dense_init((Ev, d, Fv), generator, device, in_axis=1),
         "w_up": _dense_init((Ev, d, Fv), generator, device, in_axis=1),
         "w_down": _dense_init((Ev, Fv, d), generator, device, in_axis=1),
+    }
+
+
+def specs_moe(cfg):
+    del cfg
+    return {
+        "router": P(None, None),
+        "w_gate": P("exp", "fsdp", "tp"),
+        "w_up": P("exp", "fsdp", "tp"),
+        "w_down": P("exp", "tp", "fsdp"),
     }
 
 
@@ -153,23 +170,160 @@ def _experts_chunk(xc, idc, gtc, w, E: int, C: int, ks: int):
     return y, (~keep).sum()
 
 
-def apply_moe(p, x, cfg, *, chunk: int = 512, layer: int = 0):
-    """x: (B, S, D) -> (y, aux_loss); counts drops under ``layer``."""
+def _experts_chunk_on_mesh(xc, idc, gtc, w, E: int, C: int, ks: int):
+    """``_experts_chunk`` on DTensors: each rank takes its batch rows (an
+    assignment's slot is counted within its row, so rows split exactly)
+    through its tp slice of the experts' F columns (the weights' hint
+    layout), and the partial outputs sum over tp, as the reference's
+    layout of ``apply_moe`` computes it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xc.device_mesh
+    names = mesh.mesh_dim_names
+    # the batch axes split the rows where they divide them evenly
+    axes = {"pod", "data"} if xc.shape[0] % math.prod(
+        mesh.size(i) for i, n in enumerate(names) if n in ("pod", "data")) == 0 else set()
+    on = lambda table: tuple(table.get(n, Replicate()) if mesh.size(i) > 1 else Replicate()
+                             for i, n in enumerate(names))
+    split = lambda p: {n: p for n in axes}
+    rows = on(split(Shard(0)))
+    # each rank's gradients are partial: a row's over tp (its F slice), a
+    # weight's over the batch axes (its rows)
+    rows_grad = on({**split(Shard(0)), "model": Partial()})
+    fn = local_map(lambda a, b, c, wg, wu, wd: _experts_chunk(a, b, c, (wg, wu, wd), E, C, ks),
+                   out_placements=(on({**split(Shard(0)), "model": Partial()}),
+                                   on(split(Partial()))),
+                   in_placements=(rows, rows, rows, on({"model": Shard(2)}),
+                                  on({"model": Shard(2)}), on({"model": Shard(1)})),
+                   in_grad_placements=(rows_grad, rows, rows_grad,
+                                       on({**split(Partial()), "model": Shard(2)}),
+                                       on({**split(Partial()), "model": Shard(2)}),
+                                       on({**split(Partial()), "model": Shard(1)})),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(xc, idc, gtc, *w)
+
+
+def apply_moe(p, x, cfg, *, chunk: int = 512, layer: int = 0,
+              w_specs=(None, None), mesh=None):
+    """x: (B, S, D) -> (y, aux_loss); counts drops under ``layer``.
+    ``w_specs``: the layouts of the cast expert weights on ``mesh``, the
+    in (E, D, F) and out (E, F, D) ones (the JAX package's once-per-layer
+    gather); without a mesh they do nothing."""
     B, S, D = x.shape
     E, K, ks = cfg.n_experts, cfg.top_k, cfg.expert_shards
     n, Sc, C = _chunking(S, cfg, chunk)
     ids, gates, probs = _route(p["router"], x, K)
     aux = _aux_loss(ids, probs, cfg)
-    w = tuple(p[k].to(x.dtype) for k in ("w_gate", "w_up", "w_down"))
+    w_in, w_out = w_specs
+    w = (constrain(p["w_gate"].to(x.dtype), w_in, mesh),
+         constrain(p["w_up"].to(x.dtype), w_in, mesh),
+         constrain(p["w_down"].to(x.dtype), w_out, mesh))
     ys, dropped = [], 0
+    run = _experts_chunk_on_mesh if is_dtensor(x) else _experts_chunk
     for i in range(n):
         part = slice(i * Sc, (i + 1) * Sc)
-        yc, d = _experts_chunk(x[:, part], ids[:, part], gates[:, part], w, E, C, ks)
+        yc, d = run(x[:, part], ids[:, part], gates[:, part], w, E, C, ks)
         ys.append(yc)
         dropped = dropped + d
     seen, total = _drops.get(layer, (0, 0))
     _drops[layer] = (seen + dropped, total + B * S * K)
     return (ys[0] if n == 1 else torch.cat(ys, 1)), aux
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism
+# ---------------------------------------------------------------------------
+
+def _funcol(name: str):
+    """A differentiable functional collective, under its newer name where
+    this torch has it (``all_gather_single_autograd``), else the older."""
+    import torch.distributed._functional_collectives as funcol
+    for n in (f"{name}_single_autograd", f"{name}_tensor_autograd"):
+        if hasattr(funcol, n):
+            return getattr(funcol, n)
+    raise AttributeError(f"torch.distributed._functional_collectives has no {name}")
+
+
+def _wait(t):
+    import torch.distributed._functional_collectives as funcol
+    return funcol.wait_tensor(t)
+
+
+def _on_mesh(t, mesh):
+    """A DTensor as it is; a plain tensor (the same on every rank) as a
+    replicated DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def apply_moe_ep(p, x, cfg, *, mesh, ep_axis: str = "data", batch_axes=("data",),
+                 tp_axis: str = "model"):
+    """Expert-parallel MoE: tokens move (all-to-all), weights stay resident.
+    x: (B, S, D), a DTensor on ``mesh`` or a plain tensor equal on every
+    rank -> (y, aux_loss) as DTensors.
+
+    Requires n_experts · expert_shards == mesh[ep_axis] (dbrx's 16 experts
+    on the 16-way data axis).  The reference's layout:
+
+      * x arrives sequence-sharded over the tp axis (the residual's
+        layout), so each (data, model) rank dispatches only its own
+        S-chunk, with a capacity C = max(K, ceil(S_loc·K·cf/E)) a row;
+      * token blocks all-to-all over the expert axis to the expert owner;
+      * the owner all-gathers tokens over tp, runs the F-tensor-parallel
+        expert FFN, and reduce-scatters the partial outputs back to each
+        tp rank's own token chunk;
+      * blocks all-to-all back and combine locally.
+
+    Routing and the aux loss are computed on the whole DTensor, as the
+    reference computes them outside its ``shard_map``.  Each collective's
+    result is waited on before it is used."""
+    from torch.distributed.tensor.experimental import local_map
+    B, S, D = x.shape
+    E, K, cf, ksh = cfg.n_experts, cfg.top_k, cfg.capacity_factor, cfg.expert_shards
+    Ev = E * ksh
+    ms = mesh_shape(mesh)
+    if Ev != ms.get(ep_axis):
+        raise ValueError(f"apply_moe_ep: {Ev} virtual experts on a {ep_axis} axis of "
+                         f"{ms.get(ep_axis)}")
+    M = ms.get(tp_axis, 1)
+    dtype = x.dtype
+    x = _on_mesh(x, mesh)
+    ids, gates, probs = _route(_on_mesh(p["router"], mesh), x, K)
+    aux = _aux_loss(ids, probs, cfg)
+
+    bspec = tuple(batch_axes) if len(batch_axes) > 1 else batch_axes[0]
+    seq = tp_axis if (S % M == 0 and tp_axis in ms) else None
+    act = placements(P(bspec, seq, None), mesh)
+    tp = tp_axis if tp_axis in ms else None
+    w_in = placements(P(ep_axis, None, tp), mesh)
+    w_out = placements(P(ep_axis, tp, None), mesh)
+    ep_group = mesh.get_group(ep_axis)
+    tp_group = mesh.get_group(tp_axis) if tp else None
+    all_to_all, all_gather, reduce_scatter = (
+        _funcol("all_to_all"), _funcol("all_gather"), _funcol("reduce_scatter"))
+
+    def local_fn(xb, idb, gtb, wg, wu, wd):
+        # xb: (B_loc, S_loc, D); wg/wu: (1, D, F_loc); wd: (1, F_loc, D)
+        Bl, Sl, _ = xb.shape
+        C = max(K, int(math.ceil(Sl * K * cf / E)))
+        dispatch, combine = _dispatch_combine(idb, gtb, E, C, ksh)
+        send = torch.einsum("bsd,bsec->ebcd", xb, dispatch.to(xb.dtype))
+        recv = _wait(all_to_all(send.contiguous(), None, None, ep_group))   # (E_src,Bl,C,D)
+        toks = recv if tp_group is None else _wait(all_gather(recv, 0, tp_group))
+        flat = toks.reshape(-1, D)                                     # (M·E·Bl·C, D)
+        h = F.silu(flat @ wg[0]) * (flat @ wu[0])                      # F_loc columns
+        out = (h @ wd[0]).reshape((toks.shape[0],) + recv.shape[1:])   # partial over tp
+        red = out if tp_group is None else _wait(reduce_scatter(out, "sum", 0, tp_group))
+        back = _wait(all_to_all(red.to(xb.dtype).contiguous(), None, None, ep_group))
+        return (torch.einsum("ebcd,bsec->bsd", back, combine.to(xb.dtype)),)
+
+    fn = local_map(local_fn, out_placements=(act,),
+                   in_placements=(act, act, act, w_in, w_in, w_out),
+                   device_mesh=mesh, redistribute_inputs=True)
+    w = [_on_mesh(p[k], mesh).to(dtype) for k in ("w_gate", "w_up", "w_down")]
+    return fn(x, ids, gates, *w)[0], aux
 
 
 # ---------------------------------------------------------------------------

@@ -51,7 +51,7 @@ def apply_m_rope(x, positions_thw, theta: float, sections: Tuple[int, int, int])
     freqs = rope_freqs(hd, theta, x.device)
     # section id per frequency band: 0 -> t, 1 -> h, 2 -> w
     sec = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                  torch.tensor(sections, device=x.device))
+                                  torch.tensor(sections, device=x.device), output_size=hd // 2)
     coords = positions_thw.float()[..., sec]                   # (B, S, hd/2)
     return _apply_angles(x, coords * freqs)
 

@@ -27,6 +27,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import P, merge_dims, split_dim
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _dense_init, mm
 
@@ -74,6 +75,19 @@ def init_rwkv6(generator, cfg, device):
     }
 
 
+def specs_rwkv6(cfg):
+    del cfg
+    return {
+        "mu": P(None, None), "tm_w1": P("fsdp", None), "tm_w2": P(None, None, None),
+        "w0": P(None), "dw1": P("fsdp", None), "dw2": P(None, None),
+        "u": P(None, None),
+        "wr": P("fsdp", "tp"), "wk": P("fsdp", "tp"), "wv": P("fsdp", "tp"),
+        "wg": P("fsdp", "tp"), "wo": P("tp", "fsdp"), "ln_x": P(None),
+        "mu_ck": P(None), "mu_cr": P(None),
+        "cm_k": P("fsdp", "tp"), "cm_v": P("tp", "fsdp"), "cm_r": P("fsdp", "tp"),
+    }
+
+
 @dataclasses.dataclass
 class RWKVCache:
     x_tm: torch.Tensor    # (B, d) previous token input (time-mix shift)
@@ -104,8 +118,7 @@ def _ddlerp(p, x, xs):
     """Data-dependent token shift for r, k, v, w, g: five mixed tensors."""
     dx = xs - x
     base = x + dx * p["mu"][0]
-    B_, S = x.shape[0], x.shape[1]
-    lora = torch.tanh(mm(base, p["tm_w1"])).reshape(B_, S, 5, LORA_R)
+    lora = split_dim(torch.tanh(mm(base, p["tm_w1"])), -1, 5, LORA_R)
     adj = torch.einsum("bsfr,frd->bsfd", lora, p["tm_w2"].to(lora.dtype))   # (B,S,5,d)
     return [x + dx * (p["mu"][i + 1] + adj[:, :, i, :]) for i in range(5)]
 
@@ -113,23 +126,21 @@ def _ddlerp(p, x, xs):
 def _rkvwg(p, x, xs, cfg):
     xr, xk, xv, xw, xg = _ddlerp(p, x, xs)
     H, hd = _dims(cfg)
-    B_, S = x.shape[0], x.shape[1]
-    r = mm(xr, p["wr"]).reshape(B_, S, H, hd)
-    k = mm(xk, p["wk"]).reshape(B_, S, H, hd)
-    v = mm(xv, p["wv"]).reshape(B_, S, H, hd)
+    r = split_dim(mm(xr, p["wr"]), -1, H, hd)
+    k = split_dim(mm(xk, p["wk"]), -1, H, hd)
+    v = split_dim(mm(xv, p["wv"]), -1, H, hd)
     g = F.silu(mm(xg, p["wg"]))
     logw = -torch.exp(p["w0"] + mm(torch.tanh(mm(xw, p["dw1"])), p["dw2"]))   # (B,S,d) < 0
-    logw = torch.clamp(logw, min=LOGW_CLAMP).reshape(B_, S, H, hd)
+    logw = split_dim(torch.clamp(logw, min=LOGW_CLAMP), -1, H, hd)
     return r, k, v, g, logw
 
 
 def _group_norm(y, scale, H, eps=64e-5):
     """Per-head group norm (ln_x). y: (B,S,H,hd) -> (B,S,H*hd)."""
-    B_, S, _, hd = y.shape
     mu = y.mean(dim=-1, keepdim=True)
     var = (y - mu).square().mean(dim=-1, keepdim=True)
     yn = (y - mu) * torch.rsqrt(var + eps)
-    return yn.reshape(B_, S, H * hd) * scale
+    return merge_dims(yn, 2) * scale
 
 
 def wkv_chunked(r, k, v, logw, u, *, q: int = 32, s0=None):

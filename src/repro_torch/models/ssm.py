@@ -24,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import P
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _dense_init, mm, rms_norm
 
@@ -52,6 +53,20 @@ def init_mamba2(generator, cfg, device):
         "dt_bias": dt + torch.log(-torch.expm1(-dt)),      # inverse-softplus init
         "norm": torch.zeros((d_in,), **f32),
         "out_proj": _dense_init((d_in, d), generator, device),
+    }
+
+
+def specs_mamba2(cfg):
+    del cfg
+    return {
+        "in_proj": P("fsdp", "tp"),
+        "conv_w": P(None, "tp"),
+        "conv_b": P("tp"),
+        "A_log": P(None),
+        "D": P(None),
+        "dt_bias": P(None),
+        "norm": P("tp"),
+        "out_proj": P("tp", "fsdp"),
     }
 
 

@@ -9,7 +9,8 @@ Counterpart of the JAX package's ``models/transformer.py``: for serving
 ``init_params``, ``init_cache``, ``prefill`` and ``decode_step``, plus
 ``reset_cache``; for training ``cast_params``, ``forward`` and
 ``train_loss``, whose gradient reaches the kernels through their
-``torch.autograd.Function`` wrappers.  Parameters mirror the JAX tree
+``torch.autograd.Function`` wrappers; for the mesh ``param_specs``,
+``abstract_params`` and ``ShardingHints``.  Parameters mirror the JAX tree
 except that ``params["blocks"]`` and ``params["encoder"]`` are lists with
 one dict per layer where JAX stacks a leading layer axis; the JAX
 ``lax.scan`` over layers (and over zamba2's groups) becomes a Python loop.
@@ -25,12 +26,14 @@ ints (they follow from shapes).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import P, constrain
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -57,6 +60,33 @@ def check_supported(cfg: ArchConfig):
             f"{cfg.name}: encoders, cross-attention, frontends and M-RoPE need attention blocks")
     if cfg.cross_attention != bool(cfg.encoder_layers):
         raise NotImplementedError(f"{cfg.name}: cross-attention reads an encoder's output")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingHints:
+    """Resolved specs injected by the launch layer (``launch/steps.py``).
+
+    Each names the layout an activation takes at the JAX package's
+    ``with_sharding_constraint`` sites: where the tensor is a DTensor on
+    ``mesh`` it is redistributed to the spec's placements, and anything
+    else passes as it is, so the default (no hints) leaves the served and
+    trained paths unchanged."""
+    residual: Optional[P] = None      # (B, S, D)
+    logits: Optional[P] = None        # (B, s_chunk, V)
+    kv: Optional[P] = None            # (B, S, KV, hd)
+    # MoE: specs for the per-layer expert weights after the compute cast
+    moe_w_in: Optional[P] = None      # (E, D, F)
+    moe_w_out: Optional[P] = None     # (E, F, D)
+    # expert parallelism (tokens move): (ep_axis, batch_axes) or None
+    moe_ep: Optional[tuple] = None
+    mesh: Any = None                  # the DeviceMesh the specs name
+
+
+NO_HINTS = ShardingHints()
+
+
+def _c(x, spec, shard: ShardingHints):
+    return constrain(x, spec, shard.mesh)
 
 
 def _kind(cfg: ArchConfig) -> str:
@@ -119,6 +149,62 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return p
 
 
+def _specs_block(cfg: ArchConfig, kind: str, *, cross: bool = False):
+    """One layer's logical specs: the JAX package's stacked spec without
+    its leading None (the port keeps one dict per layer)."""
+    if kind == "attn":
+        ln_bias = cfg.family == "encdec"
+        p = {"ln1": L.specs_norm(with_bias=ln_bias),
+             "attn": attn_lib.specs_attention(cfg),
+             "ln2": L.specs_norm(with_bias=ln_bias)}
+        if cfg.is_moe:
+            p["moe"] = moe_lib.specs_moe(cfg)
+        else:
+            p["ffn"] = L.specs_mlp(cfg.act_fn)
+        if cross:
+            p["ln_c"] = L.specs_norm(with_bias=ln_bias)
+            p["cross"] = attn_lib.specs_attention(cfg)
+        return p
+    if kind == "mamba2":
+        return {"ln1": L.specs_norm(), "mamba": ssm_lib.specs_mamba2(cfg)}
+    return {"ln1": L.specs_norm(with_bias=True), "ln2": L.specs_norm(with_bias=True),
+            "rwkv": rwkv_lib.specs_rwkv6(cfg)}
+
+
+def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    """Logical specs (``P``) in the parameter tree's structure."""
+    check_supported(cfg)
+    s: Dict[str, Any] = {
+        "embed": L.specs_embedding(),
+        "final_norm": L.specs_norm(with_bias=cfg.family == "encdec"),
+        "blocks": [_specs_block(cfg, _kind(cfg), cross=cfg.cross_attention)
+                   for _ in range(cfg.n_layers)],
+    }
+    if not cfg.tie_embeddings:
+        s["head"] = L.specs_head()
+    if cfg.shared_attn_every:
+        s["shared_attn"] = _specs_block(cfg, "attn")
+    if cfg.encoder_layers:
+        s["encoder"] = [_specs_block(cfg, "attn") for _ in range(cfg.encoder_layers)]
+        s["enc_norm"] = L.specs_norm(with_bias=True)
+    if cfg.frontend == "vision" and cfg.frontend_dim:
+        s["vis_proj"] = {"w": P("fsdp", "tp"), "b": P(None)}
+    return s
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16):
+    """The parameter tree on the meta device: shapes and dtypes only, no
+    storage and no random draw (``init_params`` with no generator there).
+    As in the JAX package, whose per-layer leaves carry a stacked layer
+    axis, matrices and every per-layer leaf take ``dtype``; the other
+    vectors stay float32."""
+    shapes = init_params(cfg, None, torch.device("meta"))
+    cast = lambda a: a.to(dtype)
+    keep_vectors = lambda a: a.to(dtype) if a.dim() >= 2 else a
+    return {k: tree_map(cast if k in ("blocks", "encoder") else keep_vectors, v)
+            for k, v in shapes.items()}
+
+
 def cast_params(params, dtype):
     """The compute cast: float32 matrices to ``dtype``, vectors (norm
     scales, biases) kept float32.  Differentiable, so the gradient reaches
@@ -127,12 +213,14 @@ def cast_params(params, dtype):
                     else a, params)
 
 
-def _logits(params, cfg: ArchConfig, x):
+def _logits(params, cfg: ArchConfig, x, shard: ShardingHints = NO_HINTS):
     """Final norm + unembedding in float32."""
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps).float()
     if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].float().T
-    return x @ params["head"]["w"].float()
+        logits = x @ params["embed"]["table"].float().T
+    else:
+        logits = x @ params["head"]["w"].float()
+    return logits if logits.dim() < 3 else _c(logits, shard.logits, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -190,20 +278,30 @@ def reset_cache(cache):
 # Prefill and decode
 # ---------------------------------------------------------------------------
 
-def _attn_block(bp, x, cfg: ArchConfig, attend, layer: int = 0, cross=None):
+def _attn_block(bp, x, cfg: ArchConfig, attend, layer: int = 0, cross=None,
+                shard: ShardingHints = NO_HINTS):
     """Attention, whisper's cross-attention (``cross``), then the MLP or the
-    MoE layer -> (x, the MoE aux loss or None).  Serving discards the aux
+    MoE layer -> (x, the MoE aux loss or None), the residual in
+    ``shard.residual``'s layout after each add.  Serving discards the aux
     loss; the JAX decode step's chunk=1 picks the default's one chunk at
     S = 1."""
     h, _ = attend(bp["attn"], L.apply_norm(bp["ln1"], x, cfg.norm_eps))
-    x = x + h
+    x = _c(x + h, shard.residual, shard)
     if cross is not None:
-        x = x + cross(bp["cross"], L.apply_norm(bp["ln_c"], x, cfg.norm_eps))
+        x = _c(x + cross(bp["cross"], L.apply_norm(bp["ln_c"], x, cfg.norm_eps)),
+               shard.residual, shard)
     xin = L.apply_norm(bp["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
-        h, aux = moe_lib.apply_moe(bp["moe"], xin, cfg, layer=layer)
-        return x + h, aux
-    return x + L.apply_mlp(bp["ffn"], xin, cfg.act_fn), None
+        if shard.moe_ep is not None:
+            ep_axis, baxes = shard.moe_ep
+            h, aux = moe_lib.apply_moe_ep(bp["moe"], xin, cfg, mesh=shard.mesh,
+                                          ep_axis=ep_axis, batch_axes=baxes)
+        else:
+            h, aux = moe_lib.apply_moe(bp["moe"], xin, cfg, layer=layer,
+                                       w_specs=(shard.moe_w_in, shard.moe_w_out),
+                                       mesh=shard.mesh)
+        return _c(x + h, shard.residual, shard), aux
+    return _c(x + L.apply_mlp(bp["ffn"], xin, cfg.act_fn), shard.residual, shard), None
 
 
 def _rwkv_prefill(bp, x, cfg, lc):
@@ -227,11 +325,13 @@ def _rwkv_decode(bp, x, cfg, lc):
     return x + h
 
 
-def _run_blocks(params, cfg: ArchConfig, x, cache, attend, mamba, rwkv, cross=None):
+def _run_blocks(params, cfg: ArchConfig, x, cache, attend, mamba, rwkv, cross=None,
+                shard: ShardingHints = NO_HINTS):
     """Every block in order; for zamba2 the shared attention block (with
     the KV cache of its application) before each group of Mamba2 layers;
     for whisper each block's cross-attention, ``cross(p, xin, k, v)``, to
-    its layer's cross K/V."""
+    its layer's cross K/V.  The residual takes ``shard.residual``'s layout
+    after each block (the prefill's hint; the decode step passes none)."""
     every, kind = cfg.shared_attn_every, _kind(cfg)
     for i, (bp, lc) in enumerate(zip(params["blocks"], cache["layers"])):
         if every and i % every == 0:
@@ -240,16 +340,17 @@ def _run_blocks(params, cfg: ArchConfig, x, cache, attend, mamba, rwkv, cross=No
         if kind == "attn":
             xc = None if cross is None else (
                 lambda p, xin, kv=cache["cross"][i]: cross(p, xin, *kv))
-            x, _ = _attn_block(bp, x, cfg, lambda p, xin, lc=lc: attend(p, xin, lc), i, xc)
+            x, _ = _attn_block(bp, x, cfg, lambda p, xin, lc=lc: attend(p, xin, lc), i, xc,
+                               shard)
         elif kind == "mamba2":
             h, _ = mamba(bp["mamba"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg, lc)
-            x = x + h
+            x = _c(x + h, shard.residual, shard)
         else:
-            x = rwkv(bp, x, cfg, lc)
+            x = _c(rwkv(bp, x, cfg, lc), shard.residual, shard)
     return x
 
 
-def _embed_inputs(params, cfg: ArchConfig, batch):
+def _embed_inputs(params, cfg: ArchConfig, batch, shard: ShardingHints = NO_HINTS):
     """Token embeddings and the modality stub's merge -> (x, positions_thw,
     mrope_delta).
 
@@ -277,7 +378,7 @@ def _embed_inputs(params, cfg: ArchConfig, batch):
                  rope_lib.text_positions_thw(txt[None].expand(B, S - Pn))], dim=1)
     if cfg.family == "encdec":
         x = x + L.sinusoidal_positions(S, cfg.d_model, device=x.device).to(x.dtype)[None]
-    return x, positions_thw, mrope_delta
+    return _c(x, shard.residual, shard), positions_thw, mrope_delta
 
 
 def _remat(fn, remat: bool):
@@ -288,27 +389,36 @@ def _remat(fn, remat: bool):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def _encoder_forward(params, cfg: ArchConfig, frames, remat: bool = False):
+def _encoder_forward(params, cfg: ArchConfig, frames, remat: bool = False,
+                     shard: ShardingHints = NO_HINTS):
     """whisper's encoder over precomputed frame embeddings (B, Se, d): the
     sinusoidal table, then bidirectional attention blocks, then enc_norm."""
     x = frames + L.sinusoidal_positions(frames.shape[1], cfg.d_model,
                                         device=frames.device).to(frames.dtype)[None]
     attend = lambda p, xin: (attn_lib.attention_encoder(p, xin, cfg), None)
     for i, bp in enumerate(params["encoder"]):
-        x = _remat(lambda x, bp=bp, i=i: _attn_block(bp, x, cfg, attend, i)[0], remat)(x)
+        x = _remat(lambda x, bp=bp, i=i: _attn_block(bp, x, cfg, attend, i, shard=shard)[0],
+                   remat)(x)
     return L.apply_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
-def prefill(params, cfg: ArchConfig, batch, cache):
+def _serving(shard: ShardingHints) -> ShardingHints:
+    """The hints a serving pass takes: the JAX package's prefill and decode
+    run the MoE layer without weight specs or expert parallelism."""
+    return dataclasses.replace(shard, moe_w_in=None, moe_w_out=None, moe_ep=None)
+
+
+def prefill(params, cfg: ArchConfig, batch, cache, *, shard: ShardingHints = NO_HINTS):
     """Run the prompt through the model in one pass; returns the last
     token's logits (B, V) in float32 and the filled cache (in place).
     ``batch`` holds ``tokens`` (B, S) and, for whisper, ``frames`` (B, Se,
     d); for qwen2-vl optionally ``patches`` (B, Pn, frontend_dim)."""
+    shard = _serving(shard)
     tokens = batch["tokens"]
-    x, positions_thw, mrope_delta = _embed_inputs(params, cfg, batch)
+    x, positions_thw, mrope_delta = _embed_inputs(params, cfg, batch, shard)
     cross = None
     if cfg.encoder_layers:
-        enc_out = _encoder_forward(params, cfg, batch["frames"].to(x.dtype))
+        enc_out = _encoder_forward(params, cfg, batch["frames"].to(x.dtype), shard=shard)
 
         def cross(p, xin, ck, cv):
             # the layer's cross K/V, projected once: they fill its cache
@@ -320,15 +430,16 @@ def prefill(params, cfg: ArchConfig, batch, cache):
     x = _run_blocks(params, cfg, x, cache,
                     lambda p, xin, lc: attn_lib.attention_prefill(
                         p, xin, cfg, lc, positions_thw=positions_thw),
-                    ssm_lib.mamba2_prefill, _rwkv_prefill, cross)
+                    ssm_lib.mamba2_prefill, _rwkv_prefill, cross, shard)
     cache["step"] = tokens.shape[1]
     if mrope_delta is not None:
         cache["mrope_delta"] = mrope_delta
     return _logits(params, cfg, x[:, -1, :]), cache
 
 
-def decode_step(params, cfg: ArchConfig, token, cache):
-    """token: (B, 1) int -> (logits (B, 1, V) float32, cache updated in place)."""
+def decode_step(params, cfg: ArchConfig, token, cache, *, shard: ShardingHints = NO_HINTS):
+    """token: (B, 1) int -> (logits (B, 1, V) float32, cache updated in place);
+    of the hints only the logits' applies, as in the JAX package."""
     x = L.embed(params["embed"], token)
     if cfg.family == "encdec":        # whisper: the sinusoidal table's row at this step
         x = x + L.sinusoidal_positions(1, cfg.d_model, cache["step"], x.device).to(x.dtype)
@@ -345,14 +456,15 @@ def decode_step(params, cfg: ArchConfig, token, cache):
                         p, xin, cfg, lc, positions_thw=positions_thw),
                     ssm_lib.mamba2_decode, _rwkv_decode, cross)
     cache["step"] += 1
-    return _logits(params, cfg, x), cache
+    return _logits(params, cfg, x, shard), cache
 
 
 # ---------------------------------------------------------------------------
 # Full-sequence forward and the training loss
 # ---------------------------------------------------------------------------
 
-def _train_attn_block(bp, x, cfg: ArchConfig, positions_thw=None, enc_out=None, layer: int = 0):
+def _train_attn_block(bp, x, cfg: ArchConfig, positions_thw=None, enc_out=None, layer: int = 0,
+                      shard: ShardingHints = NO_HINTS):
     """Causal self-attention (the model's window), whisper's cross-attention
     to ``enc_out``, then the MLP or MoE layer -> (x, aux or None)."""
     attend = lambda p, xin: (attn_lib.attention_forward(p, xin, cfg,
@@ -360,21 +472,23 @@ def _train_attn_block(bp, x, cfg: ArchConfig, positions_thw=None, enc_out=None, 
     cross = None
     if enc_out is not None:
         cross = lambda p, xin: attn_lib.attention_forward(p, xin, cfg, x_kv=enc_out)
-    return _attn_block(bp, x, cfg, attend, layer, cross)
+    return _attn_block(bp, x, cfg, attend, layer, cross, shard)
 
 
-def _rwkv_block_fwd(bp, x, cfg: ArchConfig):
+def _rwkv_block_fwd(bp, x, cfg: ArchConfig, shard: ShardingHints = NO_HINTS):
     h, _ = rwkv_lib.time_mix(bp["rwkv"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg)
-    x = x + h
+    x = _c(x + h, shard.residual, shard)
     h, _ = rwkv_lib.channel_mix(bp["rwkv"], L.apply_norm(bp["ln2"], x, cfg.norm_eps), cfg)
-    return x + h
+    return _c(x + h, shard.residual, shard)
 
 
-def _mamba_block_fwd(bp, x, cfg: ArchConfig):
-    return x + ssm_lib.apply_mamba2(bp["mamba"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg)
+def _mamba_block_fwd(bp, x, cfg: ArchConfig, shard: ShardingHints = NO_HINTS):
+    h = ssm_lib.apply_mamba2(bp["mamba"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg)
+    return _c(x + h, shard.residual, shard)
 
 
-def forward(params, cfg: ArchConfig, batch, *, remat: bool = False):
+def forward(params, cfg: ArchConfig, batch, *, remat: bool = False,
+            shard: ShardingHints = NO_HINTS):
     """Full-sequence decoder forward -> (final-normed hidden (B, S, d), MoE
     aux loss summed over layers, float32).  ``batch`` holds ``tokens`` and,
     for whisper, ``frames``; for qwen2-vl optionally ``patches``.  With
@@ -382,37 +496,39 @@ def forward(params, cfg: ArchConfig, batch, *, remat: bool = False):
     it) is recomputed in the backward instead of keeping its activations,
     as the JAX package's ``jax.checkpoint`` sites do."""
     check_supported(cfg)
-    x, positions_thw, _ = _embed_inputs(params, cfg, batch)
+    x, positions_thw, _ = _embed_inputs(params, cfg, batch, shard)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kind, every = _kind(cfg), cfg.shared_attn_every
     if every:          # zamba2: [shared attention + k Mamba2 layers] groups
         def group(x, g):
-            x, _ = _train_attn_block(params["shared_attn"], x, cfg)
+            x, _ = _train_attn_block(params["shared_attn"], x, cfg, shard=shard)
             for bp in params["blocks"][g * every:(g + 1) * every]:
-                x = _remat(lambda x, bp=bp: _mamba_block_fwd(bp, x, cfg), remat)(x)
+                x = _remat(lambda x, bp=bp: _mamba_block_fwd(bp, x, cfg, shard), remat)(x)
             return x
         for g in range(_groups(cfg)):
             x = _remat(lambda x, g=g: group(x, g), remat)(x)
         return L.apply_norm(params["final_norm"], x, cfg.norm_eps), aux
     enc_out = None
     if cfg.encoder_layers:
-        enc_out = _encoder_forward(params, cfg, batch["frames"].to(x.dtype), remat)
+        enc_out = _encoder_forward(params, cfg, batch["frames"].to(x.dtype), remat, shard)
     for i, bp in enumerate(params["blocks"]):
         if kind == "attn":
             x, a = _remat(lambda x, bp=bp, i=i: _train_attn_block(
-                bp, x, cfg, positions_thw, enc_out, i), remat)(x)
+                bp, x, cfg, positions_thw, enc_out, i, shard), remat)(x)
             if a is not None:
                 aux = aux + a
         elif kind == "rwkv6":
-            x = _remat(lambda x, bp=bp: _rwkv_block_fwd(bp, x, cfg), remat)(x)
+            x = _remat(lambda x, bp=bp: _rwkv_block_fwd(bp, x, cfg, shard), remat)(x)
         else:
-            x = _remat(lambda x, bp=bp: _mamba_block_fwd(bp, x, cfg), remat)(x)
+            x = _remat(lambda x, bp=bp: _mamba_block_fwd(bp, x, cfg, shard), remat)(x)
     return L.apply_norm(params["final_norm"], x, cfg.norm_eps), aux
 
 
-def train_loss(params, cfg: ArchConfig, batch, *, remat: bool = True):
+def train_loss(params, cfg: ArchConfig, batch, *, remat: bool = True,
+               shard: ShardingHints = NO_HINTS):
     """Mean next-token cross-entropy (float32) plus the MoE aux loss; the
     unembedding is the tied table or ``head["w"].T``."""
-    hidden, aux = forward(params, cfg, batch, remat=remat)
+    hidden, aux = forward(params, cfg, batch, remat=remat, shard=shard)
     table = params["embed"]["table"] if cfg.tie_embeddings else params["head"]["w"].T
-    return L.chunked_cross_entropy(hidden, table, batch["labels"]) + aux
+    hint = (lambda t: _c(t, shard.logits, shard)) if shard.logits is not None else None
+    return L.chunked_cross_entropy(hidden, table, batch["labels"], constrain_logits=hint) + aux

@@ -4,7 +4,10 @@ Counterpart of the JAX package's ``models/zoo.py``.  A ``Model`` is
 bound to a device; ``init(seed)`` draws its weights, and
 ``make_train_batch`` a random batch, from a ``torch.Generator`` on that
 device (not draw for draw with ``jax.random``: parity tests feed both
-packages the data pipeline's batches).
+packages the data pipeline's batches).  ``param_specs`` gives the logical
+sharding specs of the parameter tree and ``abstract_params`` its shapes
+and dtypes on the meta device (the mesh layer's inputs); the compute
+methods take the mesh's ``ShardingHints`` as ``shard``.
 """
 from __future__ import annotations
 
@@ -29,18 +32,24 @@ class Model:
         gen.manual_seed(seed)
         return T.init_params(self.cfg, gen, self.device)
 
+    def param_specs(self):
+        return T.param_specs(self.cfg)
+
+    def abstract_params(self, dtype=torch.bfloat16):
+        return T.abstract_params(self.cfg, dtype)
+
     # -- compute --------------------------------------------------------
-    def loss(self, params, batch, *, remat=True):
-        return T.train_loss(params, self.cfg, batch, remat=remat)
+    def loss(self, params, batch, *, remat=True, shard=T.NO_HINTS):
+        return T.train_loss(params, self.cfg, batch, remat=remat, shard=shard)
 
-    def forward(self, params, batch, *, remat=False):
-        return T.forward(params, self.cfg, batch, remat=remat)
+    def forward(self, params, batch, *, remat=False, shard=T.NO_HINTS):
+        return T.forward(params, self.cfg, batch, remat=remat, shard=shard)
 
-    def prefill(self, params, batch, cache):
-        return T.prefill(params, self.cfg, batch, cache)
+    def prefill(self, params, batch, cache, *, shard=T.NO_HINTS):
+        return T.prefill(params, self.cfg, batch, cache, shard=shard)
 
-    def decode_step(self, params, token, cache):
-        return T.decode_step(params, self.cfg, token, cache)
+    def decode_step(self, params, token, cache, *, shard=T.NO_HINTS):
+        return T.decode_step(params, self.cfg, token, cache, shard=shard)
 
     def init_cache(self, batch_size, max_len, *, dtype=torch.bfloat16,
                    window: Optional[int] = None):

@@ -18,6 +18,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import local_apply
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -60,7 +61,14 @@ def quantizable(shape) -> bool:
 
 
 def _quantize(x: torch.Tensor) -> QuantState:
+    """A DTensor leaf is quantized shard by shard with the block its whole
+    shape chooses (a block never straddles a shard of a last dim split up
+    to 16 ways), q and scale taking its placements."""
     block = choose_block(tuple(x.shape))
+    return local_apply(lambda t: _quantize_block(t, block), x)
+
+
+def _quantize_block(x: torch.Tensor, block: int) -> QuantState:
     lead, last = tuple(x.shape[:-1]), x.shape[-1]
     blocks = x.reshape(lead + (last // block, block))
     scale = blocks.abs().amax(dim=-1, keepdim=True) / 127.0
@@ -70,6 +78,11 @@ def _quantize(x: torch.Tensor) -> QuantState:
 
 
 def _dequantize(qs: QuantState, shape) -> torch.Tensor:
+    return local_apply(lambda q, s: _dequantize_local(QuantState(q, s), tuple(q.shape)),
+                       qs.q, qs.scale)
+
+
+def _dequantize_local(qs: QuantState, shape) -> torch.Tensor:
     lead, last = tuple(shape[:-1]), shape[-1]
     n_blocks = qs.scale.shape[-1]
     blocks = qs.q.float().reshape(lead + (n_blocks, last // n_blocks))
@@ -96,8 +109,8 @@ class AdamW:
                 and a.numel() >= self.quant_min_size and quantizable(tuple(a.shape)))
 
     def init(self, params) -> AdamWState:
-        def z(a):
-            zeros = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+        def z(a):      # zeros_like: a DTensor leaf's moments take its placements
+            zeros = torch.zeros_like(a, dtype=torch.float32)
             return _quantize(zeros) if self._quantized(a) else zeros
         device = tree_leaves(params)[0].device
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),

@@ -6,7 +6,7 @@ from carried-over params against the JAX loop's step body
 ``opt.update``) on the same pipeline batches; the reference's short
 training run mirrored; a run restored from its step-2 checkpoint
 continuing as the uninterrupted run; ``python -m
-repro_torch.launch.train`` on the CPU, and ``--dry-run`` refused.
+repro_torch.launch.train`` on the CPU, and ``--dry-run`` handed to the dry run.
 """
 import os
 
@@ -84,8 +84,19 @@ def test_restored_run_continues_the_uninterrupted_run(tmp_path):
     assert resumed.losses == whole.losses[2:]
 
 
-def test_launcher_trains_on_the_cpu_and_refuses_dry_run(capsys):
+def test_launcher_trains_on_the_cpu_and_refuses_dry_run(capsys, monkeypatch):
+    """The launcher trains on the CPU; ``--dry-run`` (once refused, now
+    ported) hands the arch's train_4k to ``launch.dryrun.run_one`` on the
+    production mesh and prints its record (the run itself:
+    tests/test_torch_dryrun.py, in a process of its own)."""
+    import json
+
+    from repro_torch.launch import dryrun, mesh
     assert launch_train.main(["--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "32"]) == 0
     assert capsys.readouterr().out.strip().splitlines()[-1].startswith("done: final loss ")
-    assert launch_train.main(["--dry-run"]) != 0
-    assert "Queue 1, item 13" in capsys.readouterr().err
+    monkeypatch.setattr(mesh, "make_production_mesh", lambda **kw: "mesh")
+    monkeypatch.setattr(dryrun, "run_one", lambda arch, shape, m: {
+        "arch": arch, "shape": shape, "mesh": m, "status": "ok"})
+    assert launch_train.main(["--dry-run", "--arch", "yi-6b"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec == {"arch": "yi-6b", "shape": "train_4k", "mesh": "mesh", "status": "ok"}
