@@ -11,9 +11,10 @@ Phases (any failure raises and exits non-zero):
                  (cuobjdump -sass) of every instantiation of the three
                  tensor-core kernels (flash_attn_kernel, ssd_scan_kernel,
                  rwkv6_scan_kernel) must hold tensor-core products (HGMMA /
-                 HMMA ... TF32), every decode_attn_kernel asynchronous
-                 copies (LDGSTS, or TMA's UBLKCP / UTMALDG), and no
-                 decode_attn_combine is left; TF32 stays off in torch
+                 HMMA ... TF32), every decode_attn_kernel (served and
+                 partial) asynchronous copies (LDGSTS, or TMA's UBLKCP /
+                 UTMALDG), and no decode_attn_combine is left; TF32 stays
+                 off in torch
   3. kernels  -- each CUDA kernel against its plain PyTorch version on the
                  card: the shape grid of tests/test_kernels.py in f32 and
                  bf16 (attention 2e-5 / 2e-2, the two scans 5x that), a
@@ -42,7 +43,21 @@ Phases (any failure raises and exits non-zero):
                  f32 and bf16); decode's cluster size at the served shapes
                  fills the card, but for the 16 (batch, kv head) pairs of
                  yi-6b and qwen2-vl-7b (logged); inputs no kernel is built
-                 for raise
+                 for raise.  decode_attention_partial (the decode step on a
+                 cache sharded over its slots: one segment's output in
+                 float32 and its log-sum-exp) against its plain version at
+                 every instantiation, a window, a ragged S, the served shape
+                 with a row with no valid slot and decode_32k's local shard
+                 (8, 2048 slots, 8, 128): o (float32 on both sides) within
+                 2e-5 in either input dtype, lse within 1e-5 where finite
+                 and NEG_INF exactly where no slot is valid; then the
+                 combine on one card: the partial kernel on
+                 2, 4 and 8 slot segments joined by combine_partials
+                 against the whole-cache kernel at qwen3-4b's served cache
+                 (f32, bf16) and at decode_32k's local shard (bf16), with an
+                 empty last segment and an empty row, one partial launch a
+                 segment (counted over each split alone; the kernels line's
+                 launches of decode_attention_partial are phase 10's)
   4. slices   -- for each served model (qwen3-4b, rwkv6-1.6b, zamba2-2.7b,
                  yi-6b, qwen1.5-4b, minitron-4b, mixtral-8x22b, dbrx-132b,
                  qwen2-vl-7b, whisper-large-v3) at full width (depth cut
@@ -82,7 +97,9 @@ Phases (any failure raises and exits non-zero):
                  head_dim 80, at mixtral's 48 / 8 heads, at qwen2-vl's 28 /
                  4 and at whisper's shapes (encoder, cross-attention at a kv
                  length of its own, decoder, decode on the self and the
-                 cross cache); one decode call launches exactly one kernel
+                 cross cache); one decode call launches exactly one kernel;
+                 the partial variant at qwen3-4b's served cache beside the
+                 served kernel
   6. planner  -- (run after phase 5, before phase 4) the Alg. 2 grant loop,
                  alloc_all_kernel (csrc/planner.cu, float64), against its
                  plain version on the card and against the port's numpy
@@ -190,20 +207,32 @@ Phases (any failure raises and exits non-zero):
                  on a 1x1 DeviceMesh of cuda:0 (one-rank nccl group,
                  make_smoke_mesh) build_step's steps over DTensors:
                  qwen3-4b (8 layers, batch 4 x 512) train at M = 1 without
-                 remat against loop.make_step (loss and every updated param
-                 within 1e-6 relative), at M = 2 against M = 1 in float32
+                 remat, its table and moments sharded over the table's rows
+                 (the lookup per vocabulary shard), against loop.make_step
+                 (loss and every updated param within 1e-6 relative), at M = 2 against M = 1 in float32
                  compute (loss and every gradient leaf within 1e-4 of its
                  max), flash 8 launches a microbatch and 16 with remat;
                  mixtral-8x22b (1 layer) one step with TRAIN_MICROBATCHES'
                  16 microbatches accumulated in bf16 (TRAIN_ACC_DTYPE) and
                  int8 moments (TRAIN_OPTIMIZER): loss, gradients and params
-                 finite; qwen3-4b prefill + 3 decode steps with bf16 params:
-                 the 4 greedy tokens equal Model.prefill / decode_step's,
-                 flash once a layer a prefill, decode_attention once a layer
-                 a step; the records' memory a device, fits_hbm, dominant
-                 term and roofline terms (H100 constants)
-Prints one {"kernels": [...]} line (the four kernels, alloc_all and
-tables_kernel), one {"slice": {...}} line per model, one {"planner": {...}}
+                 finite; qwen3-4b prefill + 3 decode steps with bf16 params,
+                 twice: with the cache as the steps place it (whole in its
+                 slots on a mesh dim of one device) and with every layer's
+                 K and V sharded over its slots on the model dim and the
+                 table over its rows: the 4 greedy tokens equal
+                 Model.prefill / decode_step's, the sharded run's caches
+                 within 1e-5 of their max; flash once a layer a prefill,
+                 decode_attention once a layer a step on the whole cache,
+                 decode_attention_partial (each rank's slots, the combine's
+                 nccl all-reduces) in its place on the sharded one, the
+                 kernels line's launches of it; the dry run of qwen3-4b decode_32k (full depth, its
+                 cache sharded over its slots on the 16-way model axis):
+                 collective term under 5 ms and not dominant, its saved ops
+                 (--save-hlo-dir) one partial kernel a layer and no gather
+                 of the cache; the records' memory a device, fits_hbm,
+                 dominant term and roofline terms (H100 constants)
+Prints one {"kernels": [...]} line (the four kernels, decode's partial
+variant, alloc_all and tables_kernel), one {"slice": {...}} line per model, one {"planner": {...}}
 line, one {"simulator": {...}} line, one {"controller": {...}} line, one
 {"train": {...}} line, one {"mesh": {...}} line (the steps' checks, times
 and launches, the dry-run records, the phase's seconds), and last
@@ -239,6 +268,10 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_F32_ACCURATE_TC_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES_S = 3.35e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the partial decode against its plain version: both take the cache's
+# values to float32 and compute in float32, in either input dtype
+PARTIAL_O_TOL = 2e-5                     # its float32 output
+PARTIAL_LSE_TOL = 1e-5                   # its log-sum-exp, absolute
 SCAN_TOL = {dt: 5 * tol for dt, tol in TOL.items()}  # tests/test_kernels.py: 5x for the scans
 RWKV_SHAPE = (4, 512, 32, 64)            # rwkv6-1.6b prefill: B, S, H, hd
 SSD_SHAPE = (4, 512, 80, 64, 64)         # zamba2-2.7b prefill: B, S, H, hd, N
@@ -503,7 +536,8 @@ ASYNC_COPY = (r"\bLDGSTS\b|\bUBLKCP\b|\bUTMALDG\b", "asynchronous copies (LDGSTS
 SASS_CHECKS = {"flash_attn_kernel": (2 * 4, *TENSOR_CORE),
                "ssd_scan_kernel": (2 * 2 * 3, *TENSOR_CORE),
                "rwkv6_scan_kernel": (2 * 2, *TENSOR_CORE),
-               "decode_attn_kernel": (2 * 4 * 3, *ASYNC_COPY),   # x G = 1, <= 4, <= 16
+               # x G = 1, <= 4, <= 16, x served / partial
+               "decode_attn_kernel": (2 * 4 * 3 * 2, *ASYNC_COPY),
                # the planner's grant loop, N = 1 .. 32: float64 arithmetic
                "alloc_all_kernel": (6, r"\bD(ADD|MUL)\b", "float64 arithmetic (DADD / DMUL)")}
 GONE_KERNELS = ("decode_attn_combine",)   # decode attention is one launch
@@ -624,6 +658,7 @@ def check_decode(dev, rng):
     log(f"kernels: decode_attention matches its plain version on {n + served + 3} cases "
         f"({served} at the served group sizes and cross caches); slice-shape max_abs_err "
         f"{err:.3g}")
+    check_decode_partial(dev, rng)
     # one launch of clusters; at the served shapes more blocks than SMs, but
     # for SMALL_DECODE_GRID: 4 x 4 (batch, kv head) pairs in clusters of at most 8
     from repro_torch.kernels.decode_attention import cluster_room, decode_cluster
@@ -642,6 +677,122 @@ def check_decode(dev, rng):
         f"the card {small}; room for clusters of 1..8 at one block per SM "
         f"{cluster_room(dev.index or 0)}")
     return err
+
+
+def partial_case(dev, rng, B, S, H, KV, hd, dt, window, qpos=None, kvpos=None, name=""):
+    """decode_attention_partial against its plain version on a heads-major
+    cache (B, KV, S, hd) read as a view: o (float32) within PARTIAL_O_TOL
+    in either input dtype, lse within PARTIAL_LSE_TOL where the plain version's is finite and NEG_INF
+    exactly where it is NEG_INF.  Positions as decode_case's."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_partial
+    q = rand(rng, (B, 1, H, hd), dt, dev)
+    k, v = (rand(rng, (B, KV, S, hd), dt, dev).transpose(1, 2) for _ in range(2))
+    if qpos is None:
+        qpos = torch.tensor([S // 2, S - 1] * (B // 2), dtype=torch.int32, device=dev)
+    if kvpos is None:
+        kvpos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+    case = f"decode partial {name}{B, S, H, KV, hd, dt, window}"
+    o, lse = decode_attention_partial(q, k, v, qpos, kvpos, window=window)
+    want_o, want_lse = ref.decode_attention_partial_ref(q, k, v, qpos, kvpos, window=window)
+    assert o.dtype == lse.dtype == torch.float32, (case, o.dtype, lse.dtype)
+    err = check_close(case, o, want_o, PARTIAL_O_TOL)
+    empty = want_lse == ref.NEG_INF
+    assert torch.equal(lse == ref.NEG_INF, empty), f"{case}: lse NEG_INF elsewhere"
+    lse_err = float((lse - want_lse)[~empty].abs().max()) if bool((~empty).any()) else 0.0
+    assert lse_err <= PARTIAL_LSE_TOL, f"{case}: lse max_abs_err {lse_err:.3g}"
+    return err, lse_err, int(empty.sum())
+
+
+def check_decode_partial(dev, rng):
+    """The partial variant (the decode step on a cache sharded over its
+    slots) against its plain version: every instantiation (f32 and bf16,
+    head_dim 32/64/80/128, 1, 4 and 16 query heads per kv head), a window,
+    a ragged S, the served shape with a row with no valid slot, and
+    decode_32k's local shard with only its first slots valid."""
+    n, errs, lse_errs, empties = 0, [], [], 0
+    for dt in (torch.float32, torch.bfloat16):
+        for hd in (32, 64, 80, 128):
+            for G in (1, 4, 16):
+                e, le, _ = partial_case(dev, rng, 2, 300, 16, 16 // G, hd, dt, None)
+                errs.append(e)
+                lse_errs.append(le)
+                n += 1
+        for S, window in ((65, None), (200, 20)):
+            e, le, _ = partial_case(dev, rng, 2, S, 8, 2, 64, dt, window)
+            errs.append(e)
+            lse_errs.append(le)
+            n += 1
+        S = PROMPT + DECODE + 8
+        kvpos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(BATCH, 1)
+        kvpos[1] = -1
+        e, le, k = partial_case(dev, rng, BATCH, S, 32, 8, 128, dt, None,
+                                torch.full((BATCH,), PROMPT, dtype=torch.int32, device=dev),
+                                kvpos, "served, row 1 empty ")
+        assert k == 32, k                     # row 1's heads
+        # decode_32k's shard: 2048 slots of 32768, a sequence early in the cache
+        e2, le2, k2 = partial_case(dev, rng, 8, 2048, 32, 8, 128, dt, None,
+                                   torch.tensor([5, 40] * 4, dtype=torch.int32, device=dev),
+                                   torch.arange(2048, dtype=torch.int32,
+                                                device=dev)[None].expand(8, 2048),
+                                   "decode_32k shard ")
+        errs += [e, e2]
+        lse_errs += [le, le2]
+        empties += k + k2
+        n += 2
+    log(f"kernels: decode_attention_partial matches its plain version on {n} cases: o "
+        f"max_abs_err {max(errs):.3g}, lse {max(lse_errs):.3g} where finite, NEG_INF on "
+        f"{empties} (row, head)s with no valid slot")
+
+
+SEGMENT_SHAPES = ((BATCH, PROMPT + DECODE + 8, torch.float32),     # qwen3-4b's served cache
+                  (BATCH, PROMPT + DECODE + 8, torch.bfloat16),
+                  (8, 2048, torch.bfloat16))                        # decode_32k's local shard
+
+
+def decode_segments(dev, rng):
+    """The decode step's path on a cache sharded over its slots, on one
+    card: the partial kernel on 2, 4 and 8 slot segments of a heads-major
+    cache (qwen3-4b's heads, SEGMENT_SHAPES), joined by combine_partials as
+    the ranks are joined, against the whole-cache kernel (TOL of the
+    cache's dtype).  Query positions leave the last segment without a
+    valid slot in rows 0 and 2, and row 3 has none at all.  The launch
+    counts are set to 0 before each split and read after it: one partial
+    launch a segment, none of the served kernel (a check's launches: the
+    kernels line counts phase 10's decode steps).  Returns max_abs_err."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (combine_partials, decode_attention,
+                                                      decode_attention_partial)
+    from repro_torch.kernels.ref import NEG_INF
+    H, KV, hd = 32, 8, 128
+    worst, launches = 0.0, 0
+    for B, S, dt in SEGMENT_SHAPES:
+        q = rand(rng, (B, 1, H, hd), dt, dev)
+        kc, vc = (rand(rng, (B, KV, S, hd), dt, dev) for _ in range(2))
+        kvpos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+        kvpos[3] = -1
+        qpos = torch.tensor([S // 2 - 1, S - 1] * (B // 2), dtype=torch.int32, device=dev)
+        whole = decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), qpos, kvpos)
+        for n in (2, 4, 8):
+            cuts = [i * S // n for i in range(n + 1)]
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            parts = [decode_attention_partial(q, kc[:, :, a:b].transpose(1, 2),
+                                              vc[:, :, a:b].transpose(1, 2), qpos,
+                                              kvpos[:, a:b]) for a, b in zip(cuts, cuts[1:])]
+            o, lse = (torch.stack(x) for x in zip(*parts))
+            got = combine_partials(o, lse, [b - a for a, b in zip(cuts, cuts[1:])])
+            torch.cuda.synchronize()
+            counts = {k: c for k, c in ops.launch_counts().items() if c}
+            assert counts == {"decode_attention_partial": n}, counts
+            launches += n
+            assert bool((lse[-1, 0] == NEG_INF).all()) and bool((lse[:, 3] == NEG_INF).all())
+            worst = max(worst, check_close(f"decode segments {B, S, dt} in {n}", got, whole,
+                                           TOL[dt]))
+    log(f"kernels: decode over 2, 4, 8 slot segments (partial kernel + combine_partials) "
+        f"equals the whole-cache kernel at {[s[:2] for s in SEGMENT_SHAPES]}: max_abs_err "
+        f"{worst:.3g}; {launches} partial launches, none of the served kernel")
+    return worst
 
 
 def decode_cross_case(dev, rng, B, Se, H, KV, hd, dt):
@@ -850,7 +1001,7 @@ def want_launches(cfg):
             "decode_attention": per_block * n_attn * (DECODE - 1) * PUMPS,
             "rwkv6_scan": cfg.n_layers * PUMPS if kind == "rwkv6" else 0,
             "ssd_scan": cfg.n_layers * PUMPS if kind == "mamba2" else 0,
-            "alloc_all": 0, "tables": 0}
+            "decode_attention_partial": 0, "alloc_all": 0, "tables": 0}
 
 
 def random_extras(cfg, B, S, dev, rng):
@@ -1269,15 +1420,22 @@ def time_flash(dev, rng, H=32, KV=8, hd=128, S=PROMPT, Skv=None, causal=True):
             "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes), **lib}
 
 
-def time_decode(dev, rng, H=32, KV=8, hd=128, cross_frames=None):
+def time_decode(dev, rng, H=32, KV=8, hd=128, cross_frames=None, partial=False):
     """Decode attention at a served model's first decode step (qwen3-4b's
     heads by default; cross_frames: an encoder-decoder model's cross cache
     of that many frames, (B, Se, KV, hd), q at position Se - 1), over
     enough cache copies to exceed the L2 cache: the kernel against its
     plain version on the first copy (max_abs_err), kernel, plain version
-    and SDPA device times, and bound."""
+    and SDPA device times, and bound.  partial: the partial variant
+    (decode_attention_partial, its output in float32 beside the lse) on
+    the same inputs; SDPA's yardstick computes its output only."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_partial
+    if partial:
+        decode_attention = lambda *a: decode_attention_partial(*a)[0]
+        plain = lambda *a: ref.decode_attention_partial_ref(*a)[0]
+    else:
+        plain = ref.decode_attention_ref
     n_copies = 8                                  # 8 x 17 MB of cache > 50 MB L2
     if cross_frames is None:
         q, caches, qpos, kvpos = decode_inputs(dev, rng, n_copies, H, KV, hd)
@@ -1297,14 +1455,13 @@ def time_decode(dev, rng, H=32, KV=8, hd=128, cross_frames=None):
     with torch.inference_mode():
         err = check_close(f"decode timed {B, S_buf, H, KV, hd}",
                           decode_attention(q, *views[0], qpos, kvpos),
-                          ref.decode_attention_ref(q, *views[0], qpos, kvpos), TOL[torch.float32])
+                          plain(q, *views[0], qpos, kvpos), TOL[torch.float32])
         per_call = {}
         ms = device_ms(lambda i: decode_attention(q, *views[i], qpos, kvpos), n_copies, 40,
                        per_call=per_call)
         assert list(per_call.values()) == [1] and "decode_attn_kernel" in next(iter(per_call)), \
             f"decode_attention: one kernel launch per call, got {per_call}"
-        plain_ms = device_ms(lambda i: ref.decode_attention_ref(q, *views[i], qpos, kvpos),
-                           n_copies, 16)
+        plain_ms = device_ms(lambda i: plain(q, *views[i], qpos, kvpos), n_copies, 16)
         lib = library_times(
             lambda: device_ms(lambda i: F.scaled_dot_product_attention(
                 qh, *expanded[i], attn_mask=mask[:, None, None, :]), n_copies, 40),
@@ -1314,8 +1471,10 @@ def time_decode(dev, rng, H=32, KV=8, hd=128, cross_frames=None):
     del expanded
     valid = int(mask.sum())                       # valid (b, slot) pairs
     flops = 4 * hd * H * valid
-    nbytes = 4 * (2 * B * KV * S_buf * hd + B * S_buf + B + 2 * B * H * hd)
-    return {"name": "decode_attention", "route": "cuda",
+    nbytes = 4 * (2 * B * KV * S_buf * hd + B * S_buf + B + 2 * B * H * hd
+                  + (B * H if partial else 0))
+    return {"name": "decode_attention_partial" if partial else "decode_attention",
+            "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:64",
             "shape": {"B": B, "slots": S_buf, "H": H, "KV": KV, "hd": hd,
@@ -2508,6 +2667,7 @@ TRAIN_MAIN = ("qwen3-4b", 8)
 # rwkv6-1.6b 4 of 24 layers, zamba2-2.7b 6 of 54 (one shared-attention group)
 TRAIN_RECURRENT = (("rwkv6-1.6b", 4), ("zamba2-2.7b", 6))
 TRAIN_RECURRENT_STEPS = 3
+TRAIN_PROFILE_ATTEMPTS = 3
 TRAIN_SMALL = ("qwen3-4b", "rwkv6-1.6b", "zamba2-2.7b", "mixtral-8x22b", "whisper-large-v3",
                "qwen2-vl-7b")
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}    # of max|g|, card against CPU
@@ -2801,22 +2961,31 @@ def train_run(dev, arch, layers, steps, ckpt_step=None, remat_check=False):
     timed = step_ms[1:] if steps > 2 else step_ms
     stats.update(losses=losses, step_ms=step_ms, median_step_ms=float(np.median(timed)),
                  tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (float(np.median(timed)) / 1e3))
-    # one more step, profiled (its result is dropped)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=ACTIVITIES) as prof:
-        step(params, state, batches[-1])
-        torch.cuda.synchronize()
-    groups, top_other = train_step_groups(prof)
-    busy = sum(groups.values())
-    stats["profile"] = {"device_ms": groups, "busy_ms": busy, "other_top_ms": top_other,
-                        "idle_share": max(0.0, 1.0 - busy / stats["median_step_ms"])}
+    # one more step, profiled (its result is dropped); each group the step
+    # runs must show device time.  The profiler loses a kernel's record
+    # now and then (see device_ms; zamba2-2.7b's step has one flash
+    # launch), so a profile missing a group is taken again, up to
+    # TRAIN_PROFILE_ATTEMPTS times
     want = ["cross_entropy", "optimizer", "matmul"]
     if "flash_attention" in per_step:
         want += ["flash_forward", "attention_backward"]
     if "rwkv6_scan" in per_step or "ssd_scan" in per_step:
         want += ["scan_forward", "scan_backward"]
-    for g in want:
-        assert groups[g] > 0, (g, groups)
+    for attempt in range(1, TRAIN_PROFILE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=ACTIVITIES) as prof:
+            step(params, state, batches[-1])
+            torch.cuda.synchronize()
+        groups, top_other = train_step_groups(prof)
+        missing = [g for g in want if not groups[g] > 0]
+        if not missing:
+            break
+        log(f"train: {arch} profile {attempt} shows no device time for {missing}")
+    assert not missing, (missing, groups)
+    busy = sum(groups.values())
+    stats["profile"] = {"device_ms": groups, "busy_ms": busy, "other_top_ms": top_other,
+                        "idle_share": max(0.0, 1.0 - busy / stats["median_step_ms"]),
+                        "attempts": attempt}
     log(f"train: {arch} profiled step, device ms {({k: round(v, 3) for k, v in groups.items()})}, "
         f"idle share {stats['profile']['idle_share']:.3f}")
     log(f"train: {arch}: {steps} steps, losses {[round(x, 4) for x in losses]}, median step "
@@ -2951,10 +3120,15 @@ MESH_TRAIN = ("qwen3-4b", 8)              # phase 9's main model and depth
 MESH_ACC = ("mixtral-8x22b", 1)           # bf16 accumulation, int8 moments: one layer
 MESH_ACC_SHAPE = (16, 128)                # 16 rows: TRAIN_MICROBATCHES' 16 of one row
 MESH_DECODE_STEPS = 3                     # + the prefill's token: 4 generated tokens
-# the dry run on the fake 16x16 mesh, in a process of its own: (arch, layers
-# or None for the full depth); dbrx-132b's 40 layers x 16 microbatches take
-# minutes, so the phase runs 2 (the full-depth row comes from the CLI)
-MESH_DRYRUN = (("qwen3-4b", None), ("dbrx-132b", 2))
+MESH_CACHE_TOL = 1e-5                     # of a cache's max, as tests/test_torch_mesh_ranks.py
+# the dry run on the fake 16x16 mesh, in a process of its own: (arch, shape,
+# layers or None for the full depth); dbrx-132b's 40 layers x 16
+# microbatches take minutes, so the phase runs 2 (the full-depth row comes
+# from the CLI); qwen3-4b's decode_32k decodes over a cache sharded over its
+# slots without gathering it
+MESH_DRYRUN = (("qwen3-4b", "train_4k", None), ("dbrx-132b", "train_4k", 2),
+               ("qwen3-4b", "decode_32k", None))
+DECODE_COLLECTIVE_MAX_S = 5e-3     # the decode row's collective term: no cache gathered
 MESH_DIR = PORT_TREE.parents[1] / "build" / "mesh_dryrun"   # git-ignored
 
 
@@ -2965,13 +3139,13 @@ def start_dryruns():
     MESH_DIR.mkdir(parents=True, exist_ok=True)
     env = {**os.environ, "PYTHONPATH": str(PORT_TREE.parent)}
     procs = []
-    for arch, layers in MESH_DRYRUN:
-        out = MESH_DIR / f"{arch}.json"
+    for arch, shape, layers in MESH_DRYRUN:
+        out = MESH_DIR / f"{arch}_{shape}.json"
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-               "--shape", "train_4k", "--out", str(out)]
+               "--shape", shape, "--out", str(out), "--save-hlo-dir", str(MESH_DIR)]
         if layers:
             cmd += ["--layers", str(layers)]
-        log_path = MESH_DIR / f"{arch}.log"
+        log_path = MESH_DIR / f"{arch}_{shape}.log"
         procs.append((arch, out, log_path, time.perf_counter(), subprocess.Popen(
             cmd, cwd=PORT_TREE.parents[1], env=env, stdout=open(log_path, "w"),
             stderr=subprocess.STDOUT)))
@@ -2979,7 +3153,11 @@ def start_dryruns():
 
 
 def finish_dryruns(procs, timeout=600):
-    """Wait for the dry runs; every record must have status "ok"."""
+    """Wait for the dry runs; every record must have status "ok".  A decode
+    record's collective term stays under DECODE_COLLECTIVE_MAX_S and is not
+    dominant, and its saved ops hold one partial kernel a layer and no
+    all-gather whose output has the cache's slot count."""
+    from repro_torch.launch.shapes import SHAPES
     records = []
     for arch, out, log_path, t0, proc in procs:
         try:
@@ -2993,8 +3171,19 @@ def finish_dryruns(procs, timeout=600):
         assert rec["status"] == "ok", rec
         assert rec["mesh_device"] == "cuda", rec       # the card's program, not a CPU mesh's
         rec["wall_s"] = time.perf_counter() - t0
+        if rec["shape"].startswith("decode"):
+            assert rec["collective_s"] < DECODE_COLLECTIVE_MAX_S, rec
+            assert rec["dominant"] != "collective", rec
+            ops_path = MESH_DIR / f"{arch}_{rec['shape']}_{rec['mesh']}.ops"
+            ops = [json.loads(line) for line in ops_path.open()]
+            slots = str(SHAPES[rec["shape"]].seq_len)
+            assert not any(slots in o for r in ops if r.get("collective") == "all-gather"
+                           for o in r["out"]), f"{ops_path}: the cache is gathered"
+            partial = sum(r["op"].startswith("repro.decode_attention_partial") for r in ops)
+            assert partial == rec["layers"], (partial, rec["layers"])
+            rec["partial_kernels"] = partial
         mem = rec["temp_bytes_per_dev"] + rec["arg_bytes_per_dev"]
-        log(f"mesh: dry run {arch} train_4k {rec['mesh']} {rec['mesh_device']} mesh, torch "
+        log(f"mesh: dry run {arch} {rec['shape']} {rec['mesh']} {rec['mesh_device']} mesh, torch "
             f"{rec['torch']} ({rec['layers']} layers): "
             f"{mem / 2**30:.2f} GiB a device (args {rec['arg_bytes_per_dev'] / 2**30:.2f}, "
             f"temp {rec['temp_bytes_per_dev'] / 2**30:.2f}), fits_hbm {rec['fits_hbm']}, "
@@ -3046,8 +3235,9 @@ def leaf_rel(a, b):
 
 def mesh_train(dev, mesh):
     """The train step of qwen3-4b (8 layers, batch 4 x 512) built on the
-    mesh: at M = 1 without remat equal to loop.make_step (bf16 compute,
-    loss and every updated param within 1e-6 relative); at M = 2 the loss
+    mesh: at M = 1 without remat, with the table and its moments sharded
+    over its rows (``rows_sharded``), equal to loop.make_step (bf16
+    compute, loss and every updated param within 1e-6 relative); at M = 2 the loss
     and every gradient leaf equal M = 1's within 1e-4 of their max (float32
     compute: bf16 rounds a product to 4e-3 of its size, and halving the
     batch changes what it rounds); flash 8 launches a microbatch without
@@ -3074,7 +3264,10 @@ def mesh_train(dev, mesh):
     want_p = [t.clone() for t in tree_leaves(want_p)]
     st = steps.make_train_step(arch, mesh, shape=shape, cfg=cfg, remat=False,
                                microbatches=1, opt=opt)
-    args = st.shard(params, opt.init(params), batch)
+    p, o, b = st.shard(params, opt.init(params), batch)
+    args = (rows_sharded(p, mesh), o._replace(mu=rows_sharded(o.mu, mesh),
+                                              nu=rows_sharded(o.nu, mesh)), b)
+    del p, o, b
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3191,11 +3384,47 @@ def mesh_accumulate(dev, mesh):
     return out
 
 
+def on_model_dim(t, mesh, shard):
+    """A DTensor placed over the mesh's "model" dim as ``shard`` says, as
+    the step's specs place it where that dim has more than one device
+    (``placements`` replicates a dim of one device, so the 1x1 mesh would
+    otherwise take the paths of a table whole in its rows and a cache
+    whole in its slots)."""
+    pl = list(t.placements)
+    pl[mesh.mesh_dim_names.index("model")] = shard
+    return t.redistribute(mesh, pl)
+
+
+def rows_sharded(tree, mesh):
+    """A params-shaped tree with its embedding table sharded over its rows:
+    the lookup and its gradient per vocabulary shard (layers.embed)."""
+    from torch.distributed.tensor import Shard
+    return {**tree, "embed": {**tree["embed"],
+                              "table": on_model_dim(tree["embed"]["table"], mesh, Shard(0))}}
+
+
+def on_slot_shards(p, c, mesh):
+    """The serving arguments with the table sharded over its rows and every
+    layer's K and V over its slots (``kv_seq_shard``)."""
+    import dataclasses
+    from torch.distributed.tensor import Shard
+    c = {**c, "layers": [dataclasses.replace(kv, k=on_model_dim(kv.k, mesh, Shard(2)),
+                                             v=on_model_dim(kv.v, mesh, Shard(2)))
+                         for kv in c["layers"]]}
+    return rows_sharded(p, mesh), c
+
+
 def mesh_serve(dev, mesh):
-    """The prefill and decode steps of qwen3-4b (8 layers) built on the mesh,
-    with the serving steps' bf16 params: MESH_DECODE_STEPS + 1 greedy tokens
-    equal to Model.prefill / decode_step's on the same params; flash once a
-    layer in the prefill, decode_attention once a layer a decode step."""
+    """The prefill and decode steps of qwen3-4b (8 layers) built on the mesh
+    (``build_step``), with the serving steps' bf16 params, twice: as they
+    place the cache on the 1x1 mesh (whole in its slots) and with the cache
+    sharded over its slots (``on_slot_shards``).  Each run's
+    MESH_DECODE_STEPS + 1 greedy tokens equal Model.prefill /
+    decode_step's on the same params; the slot-sharded run's caches too,
+    within MESH_CACHE_TOL of each one's max.  Launches: flash once a layer in each prefill;
+    decode_attention once a layer a decode step on the whole cache, the
+    partial kernel (each rank's slots, ``combine_partials`` over the slots'
+    mesh dim) in its place on the sharded one."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
@@ -3205,10 +3434,10 @@ def mesh_serve(dev, mesh):
     arch, layers = MESH_TRAIN
     cfg = get_config(arch).replace(n_layers=layers)
     slots = PROMPT + MESH_DECODE_STEPS + 1
-    pre = steps.make_prefill_step(arch, mesh, shape=InputShape("smoke", slots, BATCH,
-                                                               "prefill"), cfg=cfg)
-    dec = steps.make_decode_step(arch, mesh, shape=InputShape("smoke", slots, BATCH, "decode"),
-                                 cfg=cfg)
+    pre = steps.build_step(arch, "prefill_32k", mesh,
+                           shape=InputShape("smoke", slots, BATCH, "prefill"), cfg=cfg)
+    dec = steps.build_step(arch, "decode_32k", mesh,
+                           shape=InputShape("smoke", slots, BATCH, "decode"), cfg=cfg)
     model = build_model(cfg, dev)
     params = tree_map(lambda t, a: t.to(a.dtype), model.init(0), pre.abstract_args[0])
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -3224,34 +3453,54 @@ def mesh_serve(dev, mesh):
     for _ in range(MESH_DECODE_STEPS):
         lg, cache = model.decode_step(params, want[-1], cache)
         want.append(greedy(lg[:, -1]))
-    del cache
-    p, b, c = pre.shard(params, {"tokens": prompt}, model.init_cache(BATCH, slots,
-                                                                     dtype=torch.bfloat16))
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    lg, c = pre.fn(p, b, c)
-    torch.cuda.synchronize()
-    pre_counts = {k: n for k, n in ops.launch_counts().items() if n}
-    got = [greedy(whole(lg))]
-    ops.reset_launch_counts()
-    for _ in range(MESH_DECODE_STEPS):
-        nxt, c = dec.fn(p, dec.place(1, got[-1]), c)
-        got.append(whole(nxt))
-    torch.cuda.synchronize()
-    dec_counts = {k: n for k, n in ops.launch_counts().items() if n}
-    assert pre_counts == {"flash_attention": layers}, pre_counts
-    assert dec_counts == {"decode_attention": layers * MESH_DECODE_STEPS}, dec_counts
-    same = all(torch.equal(a, b) for a, b in zip(got, want))
-    assert same, ([t.flatten().tolist() for t in got], [t.flatten().tolist() for t in want])
-    log(f"mesh: {arch} prefill + {MESH_DECODE_STEPS} decode steps on the 1x1 mesh (bf16 "
-        f"params): {len(got)} greedy tokens equal Model.prefill / decode_step's; launches "
-        f"{pre_counts} in the prefill, {dec_counts} in the decode steps")
-    del p, b, c, params, model
+    out = {"arch": arch, "layers": layers, "batch": BATCH, "prompt": PROMPT}
+    for run in ("whole_cache", "slot_sharded"):
+        p, b, c = pre.shard(params, {"tokens": prompt}, model.init_cache(BATCH, slots,
+                                                                         dtype=torch.bfloat16))
+        if run == "slot_sharded":
+            p, c = on_slot_shards(p, c, mesh)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        lg, c = pre.fn(p, b, c)
+        torch.cuda.synchronize()
+        pre_counts = {k: n for k, n in ops.launch_counts().items() if n}
+        got = [greedy(whole(lg))]
+        ops.reset_launch_counts()
+        for _ in range(MESH_DECODE_STEPS):
+            nxt, c = dec.fn(p, dec.place(1, got[-1]), c)
+            got.append(whole(nxt))
+        torch.cuda.synchronize()
+        dec_counts = {k: n for k, n in ops.launch_counts().items() if n}
+        kernel = "decode_attention_partial" if run == "slot_sharded" else "decode_attention"
+        assert pre_counts == {"flash_attention": layers}, (run, pre_counts)
+        assert dec_counts == {kernel: layers * MESH_DECODE_STEPS}, (run, dec_counts)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        assert same, (run, [t.flatten().tolist() for t in got],
+                      [t.flatten().tolist() for t in want])
+        stats = {"tokens": [t.flatten().tolist() for t in got],
+                 "prefill_launches": pre_counts, "decode_launches": dec_counts}
+        msg = ""
+        if run == "slot_sharded":
+            got_c = whole(c)
+            stats["cache_rel_err"] = max(
+                leaf_rel(getattr(a, f), getattr(w, f))
+                for a, w in zip(got_c["layers"], cache["layers"]) for f in ("k", "v"))
+            assert stats["cache_rel_err"] <= MESH_CACHE_TOL, stats["cache_rel_err"]
+            assert all(torch.equal(a.pos, w.pos) for a, w in zip(got_c["layers"],
+                                                                  cache["layers"]))
+            msg = (f", every layer's K and V within {stats['cache_rel_err']:.3g} of its "
+                   f"max")
+            del got_c
+        log(f"mesh: {arch} prefill + {MESH_DECODE_STEPS} decode steps on the 1x1 mesh, "
+            f"{run.replace('_', ' ')} (bf16 params): {len(got)} greedy tokens equal "
+            f"Model.prefill / decode_step's{msg}; launches {pre_counts} in the prefill, "
+            f"{dec_counts} in the decode steps")
+        out[run] = stats
+        del p, b, c
+    del params, model, cache
     gc.collect()
     torch.cuda.empty_cache()
-    return {"arch": arch, "layers": layers, "batch": BATCH, "prompt": PROMPT,
-            "tokens": [t.flatten().tolist() for t in got],
-            "prefill_launches": pre_counts, "decode_launches": dec_counts}
+    return out
 
 
 def run_mesh(dev):
@@ -3315,12 +3564,17 @@ def main():
         errs = {"flash_attention": check_flash(dev, rng),
                 "decode_attention": check_decode(dev, rng),
                 "rwkv6_scan": check_rwkv(dev, rng), "ssd_scan": check_ssd(dev, rng)}
+        # the combine of a cache sharded over its slots, as segments on one card
+        segments_err = decode_segments(dev, rng)
         for kernel, counts in sass.result().items():
             log(f"sass: every {kernel} instantiation holds {SASS_CHECKS[kernel][2]}: "
                 f"{counts}")
     # phase 5 before phase 4: the larger the profiler runs before a timing,
     # the more kernel records it drops (see device_ms)
     kernels = [time_flash(dev, rng), time_decode(dev, rng)]
+    kernels.append({**time_decode(dev, rng, partial=True), "segments_max_abs_err": segments_err,
+                    "launches_on": "phase 10's decode steps on a cache sharded over its "
+                                   "slots (mesh_serve)"})
     for name, timer in (("rwkv6_scan", time_rwkv), ("ssd_scan", time_ssd)):
         kernels.append(timer(dev, rng, errs[name]))
     for k in kernels:
@@ -3373,6 +3627,8 @@ def main():
     train = run_train(dev)
     # phase 10, the mesh layer, last
     mesh = run_mesh(dev)
+    launches["decode_attention_partial"] = (
+        mesh["serve"]["slot_sharded"]["decode_launches"]["decode_attention_partial"])
     kernels = ([{**k, "launches": launches[k["name"]]} for k in kernels]
                + [planner_kernel, tables_kernel])
     timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms",

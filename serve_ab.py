@@ -16,6 +16,13 @@ new, old, so a drift of the host shows as a difference between the two
 runs of one tree).  OLD is a second checkout, e.g. ``git archive`` of the
 parent unpacked into a directory that ``.gitignore`` lists.  One JSON
 line per run, then a last line with each tree's medians.  Needs a GPU.
+
+``--decode-kernel`` also times, in each run, the served decode kernel at
+qwen3-4b's first decode step's cache (4, 8, 524, 128) through the
+checkout's own ``chip_smoke.time_decode`` (device ms a call, phase 5);
+with it ``--model`` may be left out:
+
+    python3 serve_ab.py --tree OLD --tree . --order 0110 --decode-kernel
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ KEYS = ("p50_ms", "p99_ms", "tokens_per_s", "prefill_ms", "decode_step_ms",
 
 CHILD = r"""
 import json, sys, time
+import numpy as np
 import torch
 sys.path.insert(0, ".")
 import chip_smoke as c
@@ -52,7 +60,11 @@ for arch, layers, encoder_layers in json.loads(sys.argv[1]):
                                        "decode_step_ms")},
                  "pump_ms": st["profile"]["pump_ms"],
                  "idle_share": st["profile"]["idle_share"]})
-print("SLICES " + json.dumps(rows), flush=True)
+out = {"slices": rows}
+if sys.argv[2] == "1":
+    with torch.inference_mode():
+        out["decode_kernel_ms"] = c.time_decode(dev, np.random.default_rng(0))["ms"]
+print("SLICES " + json.dumps(out), flush=True)
 """
 
 
@@ -63,8 +75,9 @@ def parse_model(text):
     return arch, depth[0], depth[1]
 
 
-def run(tree: Path, models, timeout: int):
-    proc = subprocess.run([sys.executable, "-c", CHILD, json.dumps(models)], cwd=tree,
+def run(tree: Path, models, timeout: int, decode_kernel: bool = False):
+    proc = subprocess.run([sys.executable, "-c", CHILD, json.dumps(models),
+                           "1" if decode_kernel else "0"], cwd=tree,
                           capture_output=True, text=True, timeout=timeout,
                           env={**os.environ, "PYTHONPATH": ""})
     sys.stderr.write(proc.stderr[-4000:])
@@ -78,21 +91,26 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", required=True, type=Path)
     ap.add_argument("--order", default="0110")
-    ap.add_argument("--model", action="append", required=True, type=parse_model)
+    ap.add_argument("--model", action="append", default=[], type=parse_model)
+    ap.add_argument("--decode-kernel", action="store_true",
+                    help="also time the served decode kernel at qwen3-4b's cache")
     ap.add_argument("--timeout", type=int, default=600, help="seconds a run may take")
     args = ap.parse_args(argv)
+    if not args.model and not args.decode_kernel:
+        ap.error("give --model, --decode-kernel or both")
     runs = {}
     for i in args.order:
         tree = args.tree[int(i)].resolve()
-        rows = run(tree, args.model, args.timeout)
-        print(json.dumps({"tree": str(tree), "run": len(runs.get(i, [])), "slices": rows}),
-              flush=True)
-        runs.setdefault(i, []).append(rows)
+        out = run(tree, args.model, args.timeout, args.decode_kernel)
+        print(json.dumps({"tree": str(tree), "run": len(runs.get(i, [])), **out}), flush=True)
+        runs.setdefault(i, []).append(out)
     medians = {}
     for i, rs in sorted(runs.items()):
-        medians[str(args.tree[int(i)])] = {
-            row["arch"]: {k: float(np.median([r[j][k] for r in rs])) for k in KEYS}
-            for j, row in enumerate(rs[0])}
+        med = {row["arch"]: {k: float(np.median([r["slices"][j][k] for r in rs])) for k in KEYS}
+               for j, row in enumerate(rs[0]["slices"])}
+        if args.decode_kernel:
+            med["decode_kernel_ms"] = float(np.median([r["decode_kernel_ms"] for r in rs]))
+        medians[str(args.tree[int(i)])] = med
     print(json.dumps({"medians": medians}), flush=True)
     return 0
 

@@ -87,6 +87,9 @@ def _bind(lib):
     lib.repro_decode_attention.argtypes = [
         i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i64p, i32, f32, vp]
     lib.repro_decode_attention.restype = i32
+    lib.repro_decode_attention_partial.argtypes = [
+        i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i64p, i32, f32, vp]
+    lib.repro_decode_attention_partial.restype = i32
     lib.repro_decode_cluster_room.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
     lib.repro_decode_cluster_room.restype = i32
     lib.repro_rwkv6_scan.argtypes = [

@@ -73,6 +73,14 @@
 //   memory.  K/V are read through element strides, so the engine passes its
 //   heads-major cache (B, KV, S, hd) as a (B, S, KV, hd) view without
 //   copying it.
+//   The partial variant (PARTIAL = true, repro_decode_attention_partial)
+//   runs the same loop over one segment of a cache's slots, a rank's shard
+//   of a cache sharded over its slots: it writes its normalised output in
+//   float32 and the row's log-sum-exp, max + log(sum), beside it, NEG_INF
+//   where the segment holds no valid slot, so that segments combine
+//   (decode_attention.py::combine_partials) with nothing lost to the
+//   cache's type and an empty segment's mean(V) weighing nothing.  The
+//   served launch is the PARTIAL = false instantiation, unchanged.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -355,7 +363,8 @@ struct DecodeArgs {
   const void* v;
   const int* q_pos;   // (B,)
   const int* kv_pos;  // (B, S), row stride kvp_sb
-  void* o;            // (B, 1, H, hd), contiguous
+  void* o;            // (B, 1, H, hd), contiguous; float32 in the partial variant
+  float* lse;         // (B, H), contiguous: the partial variant only
   int B, S, H, KV;
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, kvp_sb;  // elements
   int window;  // <= 0: no window
@@ -394,8 +403,9 @@ __host__ __device__ constexpr size_t decode_smem_bytes(int g) {
 // empty) in steps of DA_TILE, and warp w the rows [4 w, 4 w + 4) of each
 // step.  GMAX (1, 4 or 16) bounds G = H / KV: the registers of the output
 // sums scale with it.  GMAX <= 4 keeps three blocks an SM, but for hd 80
-// at GMAX = 4, whose 80 registers would spill.
-template <typename T, int HD, int GMAX>
+// at GMAX = 4, whose 80 registers would spill.  PARTIAL: write the output
+// in float32 and the log-sum-exp (the partial variant).
+template <typename T, int HD, int GMAX, bool PARTIAL>
 __global__ void __launch_bounds__(DA_THREADS, GMAX == 16 ? 1 : GMAX == 4 && HD == 80 ? 2 : 3)
     decode_attn_kernel(DecodeArgs a) {
   constexpr int NST = DecodeRing<T, HD>::NST, C4 = HD / 4;
@@ -697,17 +707,27 @@ __global__ void __launch_bounds__(DA_THREADS, GMAX == 16 ? 1 : GMAX == 4 && HD =
       l = fmaf(e, ml.y, l);
     }
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* dst = op + 4 * o;
-    dst[0] = from_f32<T>(x.x * inv);
-    dst[1] = from_f32<T>(x.y * inv);
-    dst[2] = from_f32<T>(x.z * inv);
-    dst[3] = from_f32<T>(x.w * inv);
+    if constexpr (PARTIAL) {
+      // a (row, head) with no valid slot keeps mx = NEG_INF: its lse is
+      // NEG_INF, so its mean(V) weighs nothing beside another segment's
+      float* dst = static_cast<float*>(a.o) + ((long long)b * a.H + (long long)kvh * G) * HD +
+                   4 * o;
+      *reinterpret_cast<float4*>(dst) = make_float4(x.x * inv, x.y * inv, x.z * inv, x.w * inv);
+      if (o % C4 == 0)
+        a.lse[(long long)b * a.H + kvh * G + g] = mx > NEG_INF ? mx + logf(l) : NEG_INF;
+    } else {
+      T* dst = op + 4 * o;
+      dst[0] = from_f32<T>(x.x * inv);
+      dst[1] = from_f32<T>(x.y * inv);
+      dst[2] = from_f32<T>(x.z * inv);
+      dst[3] = from_f32<T>(x.w * inv);
+    }
   }
 }
 
-template <typename T, int HD, int GMAX>
+template <typename T, int HD, int GMAX, bool PARTIAL>
 cudaError_t launch_decode_g(const DecodeArgs& a, int cluster, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<T, HD, GMAX>,
+  cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<T, HD, GMAX, PARTIAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)decode_smem_bytes<T, HD>(GMAX));
   if (err != cudaSuccess) return err;
@@ -723,28 +743,45 @@ cudaError_t launch_decode_g(const DecodeArgs& a, int cluster, cudaStream_t strea
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_attn_kernel<T, HD, GMAX>, a);
+  err = cudaLaunchKernelEx(&cfg, decode_attn_kernel<T, HD, GMAX, PARTIAL>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool PARTIAL>
 cudaError_t launch_decode(const DecodeArgs& a, int cluster, cudaStream_t stream) {
   const int g = a.H / a.KV;
-  return g == 1   ? launch_decode_g<T, HD, 1>(a, cluster, stream)
-         : g <= 4 ? launch_decode_g<T, HD, 4>(a, cluster, stream)
-                  : launch_decode_g<T, HD, DA_MAXG>(a, cluster, stream);
+  return g == 1   ? launch_decode_g<T, HD, 1, PARTIAL>(a, cluster, stream)
+         : g <= 4 ? launch_decode_g<T, HD, 4, PARTIAL>(a, cluster, stream)
+                  : launch_decode_g<T, HD, DA_MAXG, PARTIAL>(a, cluster, stream);
 }
 
-template <typename T>
+template <typename T, bool PARTIAL>
 cudaError_t dispatch_decode(const DecodeArgs& a, int hd, int cluster, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_decode<T, 32>(a, cluster, stream);
-    case 64: return launch_decode<T, 64>(a, cluster, stream);
-    case 80: return launch_decode<T, 80>(a, cluster, stream);
-    case 128: return launch_decode<T, 128>(a, cluster, stream);
+    case 32: return launch_decode<T, 32, PARTIAL>(a, cluster, stream);
+    case 64: return launch_decode<T, 64, PARTIAL>(a, cluster, stream);
+    case 80: return launch_decode<T, 80, PARTIAL>(a, cluster, stream);
+    case 128: return launch_decode<T, 128, PARTIAL>(a, cluster, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool PARTIAL>
+int decode_entry(int dtype, int hd, const void* q, const void* k, const void* v,
+                 const int* q_pos, const int* kv_pos, void* o, float* lse, int cluster, int B,
+                 int S, int H, int KV, const long long* strides, int window, float sm_scale,
+                 void* stream) {
+  if (S < 1 || KV < 1 || H % KV != 0 || H / KV > DA_MAXG) return cudaErrorInvalidValue;
+  if (cluster < 1 || cluster > DA_MAX_CLUSTER || cluster > S) return cudaErrorInvalidValue;
+  DecodeArgs a{q, k, v, q_pos, kv_pos, o, lse, B, S, H, KV,
+               strides[0], strides[1], strides[2], strides[3], strides[4],
+               strides[5], strides[6], strides[7], strides[8],
+               window, sm_scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_decode<float, PARTIAL>(a, hd, cluster, st);
+  if (dtype == 1) return dispatch_decode<__nv_bfloat16, PARTIAL>(a, hd, cluster, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -782,16 +819,20 @@ extern "C" int repro_decode_attention(int dtype, int hd, const void* q, const vo
                                       void* o, int cluster, int B, int S, int H, int KV,
                                       const long long* strides,  // q b,h  k b,s,h  v b,s,h  kv_pos b
                                       int window, float sm_scale, void* stream) {
-  if (S < 1 || KV < 1 || H % KV != 0 || H / KV > DA_MAXG) return cudaErrorInvalidValue;
-  if (cluster < 1 || cluster > DA_MAX_CLUSTER || cluster > S) return cudaErrorInvalidValue;
-  DecodeArgs a{q, k, v, q_pos, kv_pos, o, B, S, H, KV,
-               strides[0], strides[1], strides[2], strides[3], strides[4],
-               strides[5], strides[6], strides[7], strides[8],
-               window, sm_scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_decode<float>(a, hd, cluster, st);
-  if (dtype == 1) return dispatch_decode<__nv_bfloat16>(a, hd, cluster, st);
-  return cudaErrorInvalidValue;
+  return decode_entry<false>(dtype, hd, q, k, v, q_pos, kv_pos, o, nullptr, cluster, B, S, H,
+                             KV, strides, window, sm_scale, stream);
+}
+
+// The partial variant: o (B, 1, H, hd) and lse (B, H) float32, contiguous;
+// otherwise as repro_decode_attention.
+extern "C" int repro_decode_attention_partial(int dtype, int hd, const void* q, const void* k,
+                                              const void* v, const int* q_pos,
+                                              const int* kv_pos, float* o, float* lse,
+                                              int cluster, int B, int S, int H, int KV,
+                                              const long long* strides, int window,
+                                              float sm_scale, void* stream) {
+  return decode_entry<true>(dtype, hd, q, k, v, q_pos, kv_pos, o, lse, cluster, B, S, H, KV,
+                            strides, window, sm_scale, stream);
 }
 
 // room: clusters of `cluster` blocks the card holds at once when each SM
@@ -805,7 +846,7 @@ extern "C" int repro_decode_cluster_room(int cluster, int* room) {
     err = cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   if (err != cudaSuccess) return err;
   const int one_per_sm = smem_sm / 2 + 1024;
-  auto kernel = decode_attn_kernel<float, 128, 4>;
+  auto kernel = decode_attn_kernel<float, 128, 4, false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, one_per_sm);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];

@@ -19,18 +19,26 @@ The launch goes through the custom op ``torch.ops.repro.decode_attention``
 ``sharding_rule`` and ``flops`` for ``kernels.ops.register_mesh_rules``).
 
 ``decode_attention.launches`` counts the calls that launched the kernel.
+
+``decode_attention_partial`` (custom op ``repro::decode_attention_partial``)
+is the same kernel over one segment of the slots, instantiated to write
+its output in float32 beside the segment's log-sum-exp; its own counter
+is ``decode_attention_partial.launches``.  ``combine_partials`` joins the
+segments, on one card or, over a cache sharded across ranks by its slots,
+with two all-reduces (``models/attention.py`` decodes so on a mesh).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import DTYPES
+from repro_torch.kernels.ref import NEG_INF
 
 TILE = 32                 # cache slots a block takes per step (DA_TILE in csrc/attention.cu)
 MAX_CLUSTER = 8           # blocks of a thread-block cluster that any sm_90 card schedules
@@ -116,6 +124,16 @@ def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_positions: t
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, q_positions, kv_positions,
                                         window=window).contiguous()
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(q, k, v, q_positions, kv_positions, window, out, None)
+    decode_attention.launches += 1
+    return out
+
+
+def _launch(q, k, v, q_positions, kv_positions, window, out, lse):
+    """One launch of ``decode_attn_kernel`` on CUDA tensors: the served
+    kernel when ``lse`` is None, else its partial variant (float32 ``out``
+    and ``lse``)."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, _, H, hd = q.shape
@@ -133,20 +151,19 @@ def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_positions: t
     for t in (k, v):
         _build.check_vector_aligned("decode_attention", t, (0, 1, 2))
     lib = _build.load()
-    out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
     cluster = decode_cluster(B, KV, S, q.device)
     strides = _build.strides_arg((q, (0, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
                                  (kv_positions, (0,)))
+    args = (DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q_positions.data_ptr(), kv_positions.data_ptr(), out.data_ptr())
+    rest = (cluster, B, S, H, KV, strides, 0 if window is None else window,
+            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(q.device):
-        err = lib.repro_decode_attention(
-            DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            q_positions.data_ptr(), kv_positions.data_ptr(), out.data_ptr(),
-            cluster, B, S, H, KV, strides,
-            0 if window is None else window, 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream().cuda_stream)
+        if lse is None:
+            err = lib.repro_decode_attention(*args, *rest)
+        else:
+            err = lib.repro_decode_attention_partial(*args, lse.data_ptr(), *rest)
     _build.check(err, "decode_attention")
-    decode_attention.launches += 1
-    return out
 
 
 @_decode_op.register_fake
@@ -176,3 +193,78 @@ def sharding_rule(q, k, v, q_positions, kv_positions, window):
 
 
 decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The partial variant: one segment of a cache's slots, combined afterwards
+# ---------------------------------------------------------------------------
+
+def decode_attention_partial(q, k, v, q_positions, kv_positions, *,
+                             window: Optional[int] = None):
+    """``decode_attention`` over one segment of the slots (a rank's shard of
+    a cache sharded over its slots): returns (o (B, 1, H, hd) float32, lse
+    (B, H) float32), o normalised over the segment and lse its log-sum-exp,
+    NEG_INF where the segment holds no valid slot for the row.
+    ``combine_partials`` joins segments.  The same kernel as the served
+    call, instantiated to write float32 and lse.  It runs on a rank's
+    local shard, so meta tensors (the dry run's shards) are taken too and
+    reach the fake implementation."""
+    _validate(q, k, v, q_positions, kv_positions, window)
+    if q.device.type != "meta":
+        _build.check_device("decode_attention_partial", q)
+    return _decode_partial_op(q, k, v, q_positions, kv_positions, window)
+
+
+@torch.library.custom_op("repro::decode_attention_partial", mutates_args=())
+def _decode_partial_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                       window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        o, lse = ref.decode_attention_partial_ref(q, k, v, q_positions, kv_positions,
+                                                  window=window)
+        return o.contiguous(), lse.contiguous()
+    B, _, H, _ = q.shape
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    _launch(q, k, v, q_positions, kv_positions, window, out, lse)
+    decode_attention_partial.launches += 1
+    return out, lse
+
+
+@_decode_partial_op.register_fake
+def _(q, k, v, q_positions, kv_positions, window):
+    return (q.new_empty(q.shape, dtype=torch.float32),
+            q.new_empty(q.shape[:1] + q.shape[2:3], dtype=torch.float32))
+
+
+def combine_partials(o, lse, slots, group=None):
+    """Join ``decode_attention_partial``'s segments into what
+    ``decode_attention`` gives on the whole cache, in float32: with M the
+    largest lse, segment s weighs w_s = exp(lse_s - M) and the output is
+    sum w_s o_s / sum w_s.  Where no segment holds a valid slot (M is
+    NEG_INF) the segments weigh their slot counts ``slots``, which gives
+    mean(V) over the whole cache, as the kernel does; a segment with no
+    valid slot beside one that has weighs exp(NEG_INF - M) = 0.
+
+    Without ``group``, o (n, B, 1, H, hd) and lse (n, B, H) stack n
+    segments and ``slots`` holds their n slot counts.  With ``group`` (a
+    ``(DeviceMesh, mesh dim)`` that shards the slots), o and lse are this
+    rank's segment, ``slots`` its slot count, and the max and the sums are
+    ``_c10d_functional`` all-reduces over that group: one of lse, one of
+    the weighted outputs and weights packed together."""
+    if group is None:
+        n = o.shape[0]
+        slots = torch.as_tensor(slots, dtype=torch.float32, device=o.device).reshape(n, 1, 1)
+        big = lse.amax(0)
+        w = torch.where(big > NEG_INF / 2, torch.exp(lse - big), slots)
+        num = (w[..., None] * o[:, :, 0]).sum(0)
+        return (num / w.sum(0)[..., None])[:, None]
+    import torch.distributed._functional_collectives as funcol
+    big = funcol.wait_tensor(funcol.all_reduce(lse, "max", group))
+    w = torch.where(big > NEG_INF / 2, torch.exp(lse - big), float(slots))
+    packed = torch.cat([w[..., None] * o[:, 0], w[..., None]], dim=-1)
+    packed = funcol.wait_tensor(funcol.all_reduce(packed, "sum", group))
+    return (packed[..., :-1] / packed[..., -1:])[:, None]
+
+
+decode_attention_partial.launches = 0

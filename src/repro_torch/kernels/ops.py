@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (combine_partials, decode_attention,
+                                                   decode_attention_partial)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.grant_loop import alloc_all
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
@@ -18,6 +19,7 @@ from repro_torch.kernels.tables import tables
 
 KERNELS = {"flash_attention": flash_attention,
            "decode_attention": decode_attention,
+           "decode_attention_partial": decode_attention_partial,
            "rwkv6_scan": rwkv6_scan,
            "ssd_scan": ssd_scan,
            "alloc_all": alloc_all,
@@ -46,6 +48,11 @@ def register_mesh_rules():
         register_sharding(op.default)(mod.sharding_rule)
         register_flop_formula(op)(mod.flops)
         _MESH_RULES.append(op)
+    # the partial variant runs on plain local shards (inside local_map):
+    # a flop formula and no sharding rule
+    partial = torch.ops.repro.decode_attention_partial
+    register_flop_formula(partial)(da.flops)
+    _MESH_RULES.append(partial)
     register_sharding(torch.ops.aten.fill_.Tensor)(_fill_rule)
 
 
@@ -66,6 +73,7 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["flash_attention", "decode_attention", "rwkv6_scan", "ssd_scan",
+__all__ = ["flash_attention", "decode_attention", "decode_attention_partial",
+           "combine_partials", "rwkv6_scan", "ssd_scan",
            "alloc_all", "tables", "reset_launch_counts", "launch_counts",
            "register_mesh_rules"]

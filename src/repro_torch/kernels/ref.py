@@ -60,6 +60,32 @@ def decode_attention_ref(q, k, v, q_positions, kv_positions, *,
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def decode_attention_partial_ref(q, k, v, q_positions, kv_positions, *,
+                                 window: Optional[int] = None):
+    """``decode_attention_ref`` over one segment of a cache's slots, with
+    what it takes to combine segments: (o (B,1,H,hd) float32, lse (B,H)
+    float32), o normalised over the segment and lse the log of its softmax
+    denominator, max + log(sum).  A (row, head) with no valid slot in the
+    segment gets mean(V) of the segment and lse = NEG_INF."""
+    B, _, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd).float() / math.sqrt(hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float())
+    kp = kv_positions[:, None, None, :]
+    qp = q_positions[:, None, None, None]
+    mask = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        mask &= kp > qp - window
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float()) / l[..., None]
+    lse = torch.where(m > NEG_INF / 2, m + torch.log(l), NEG_INF)
+    return o.reshape(B, 1, H, hd), lse.reshape(B, H)
+
+
 def rwkv6_ref(r, k, v, logw, u, s0=None):
     """Exact sequential RWKV6 recurrence, one step at a time:
         y_t = r_t (S + diag(u) k_t^T v_t),   S <- diag(exp(logw_t)) S + k_t^T v_t

@@ -26,7 +26,13 @@ would fake too.)  Each record holds:
   * mesh, mesh_device, torch -- where it was counted: the mesh's shape,
                           its device type and the torch version
 
-The JAX CLI's ``--save-hlo-dir`` has no counterpart: there is no HLO.
+``--save-hlo-dir DIR`` (the JAX CLI's flag) writes, beside each record,
+``DIR/{arch}_{shape}_{mesh}.ops``: there is no HLO, so the file holds the
+program the record was counted from, one JSON line per op that
+``StepAnalysis`` counted on rank 0 (the op, its inputs' and outputs'
+dtypes and shapes, its flops and bytes, and for a collective its kind,
+group size and ring bytes).  Its flops and ring bytes sum to the record's
+``flops_per_dev`` and ``collective_bytes_per_dev``.
 
 A fake process group of 512 ranks cannot share a process with a real one,
 so the dry run runs in a process of its own (the CLI, a subprocess).
@@ -37,6 +43,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --multi-pod      # 512-device mesh
   PYTHONPATH=src python -m repro_torch.launch.dryrun --out results.json
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch dbrx-132b --shape train_4k --layers 4
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape decode_32k --save-hlo-dir ops/
 
 ``--layers N`` cuts every config to N decoder layers (the record's
 ``layers``), a depth cut for a quick run; the widths stay.
@@ -45,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 import traceback
 
@@ -83,18 +91,22 @@ def _where(mesh) -> dict:
             "torch": torch.__version__}
 
 
-def run_one(arch: str, shape_name: str, mesh, **step_kw):
+def run_one(arch: str, shape_name: str, mesh, save_ops=None, **step_kw):
     """Build the step on ``mesh`` and run it once on meta shards under
-    ``StepAnalysis``; the record of the reference's fields."""
+    ``StepAnalysis``; the record of the reference's fields.  ``save_ops``:
+    a path for the counted ops, one JSON line each."""
     t0 = time.time()
     # the MoE layers' drop counters add up over calls: a step on another
     # layout could not add its counts to an earlier step's
     moe.reset_drop_counts()
     st = build_step(arch, shape_name, mesh, **step_kw)
     args = st.abstract_dtensors()
-    with SA.StepAnalysis(device="meta") as a:
+    with SA.StepAnalysis(device="meta", record=save_ops is not None) as a:
         out = st.fn(*args)
     del out, args
+    if save_ops is not None:
+        with open(save_ops, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in a.records)
     elapsed = time.time() - t0
     r = SA.roofline(a)
     n_dev = mesh.size()
@@ -143,6 +155,8 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     ap.add_argument("--layers", type=int, default=None,
                     help="cut every config to this many decoder layers")
+    ap.add_argument("--save-hlo-dir", default=None,
+                    help="write each step's counted ops to DIR/{arch}_{shape}_{mesh}.ops")
     args = ap.parse_args(argv)
 
     from repro_torch.launch.mesh import make_production_mesh
@@ -166,6 +180,10 @@ def main(argv=None):
                 kw = {}
                 if args.layers:
                     kw["cfg"] = effective_config(arch, shape_name).replace(n_layers=args.layers)
+                if args.save_hlo_dir:
+                    os.makedirs(args.save_hlo_dir, exist_ok=True)
+                    kw["save_ops"] = os.path.join(args.save_hlo_dir,
+                                                  f"{arch}_{shape_name}_{name}.ops")
                 try:
                     rec = run_one(arch, shape_name, mesh, **kw)
                     records.append(rec)

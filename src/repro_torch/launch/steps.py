@@ -225,19 +225,27 @@ def _value_and_grad(loss_fn, params, batch):
     return loss.detach(), list(grads)
 
 
-def _microbatch(batch, m: int, M: int):
-    """Microbatch m of M: rows m·b/M .. (m+1)·b/M of each rank's own b rows
-    (on one rank, the reference's contiguous split of the batch)."""
-    def cut(t):
-        if sh.is_dtensor(t):
-            from torch.distributed.tensor import DTensor
-            loc = t.to_local()
-            n = loc.shape[0] // M
-            return DTensor.from_local(loc[m * n:(m + 1) * n], t.device_mesh, t.placements,
-                                      run_check=False)
+def _microbatches(batch, M: int):
+    """The reference's M microbatches (``a.reshape((M, B // M) + ...)``):
+    microbatch m holds the global rows m·B/M .. (m+1)·B/M, sharded over the
+    batch axes as the batch was (replicated where they do not divide B/M).
+    A DTensor batch moves once a step, not once a microbatch: its rows are
+    gathered (the int32 tokens and labels), viewed as (M, B/M, ...), and
+    each rank keeps its share of the B/M dim."""
+    def split(t):
         n = t.shape[0] // M
-        return t[m * n:(m + 1) * n]
-    return {k: cut(t) for k, t in batch.items()}
+        if not sh.is_dtensor(t):
+            return t.reshape((M, n) + tuple(t.shape[1:]))
+        from torch.distributed.tensor import Replicate, Shard
+        mesh, pl = t.device_mesh, list(t.placements)
+        rows = [i for i, p in enumerate(pl) if p.is_shard(0)]
+        even = n % math.prod(mesh.size(i) for i in rows) == 0
+        whole = [Replicate() if i in rows else p for i, p in enumerate(pl)]
+        part = [Shard(1) if i in rows and even else p for i, p in enumerate(whole)]
+        v = t.redistribute(mesh, whole).reshape((M, n) + tuple(t.shape[1:]))
+        return v.redistribute(mesh, part)
+    parts = {k: split(t) for k, t in batch.items()}
+    return [{k: v[m] for k, v in parts.items()} for m in range(M)]
 
 
 def make_train_step(arch: str, mesh, *, shape: Optional[InputShape] = None,
@@ -303,8 +311,8 @@ def make_train_step(arch: str, mesh, *, shape: Optional[InputShape] = None,
                     mb_loss, target = loss_fn, params
                     grads = [torch.zeros_like(t, dtype=acc_dtype) for t in tree_leaves(params)]
                 loss = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-                for m in range(M):
-                    lm, gm = _value_and_grad(mb_loss, target, _microbatch(batch, m, M))
+                for mb in _microbatches(batch, M):
+                    lm, gm = _value_and_grad(mb_loss, target, mb)
                     grads = [a + g.to(a.dtype) for a, g in zip(grads, gm)]
                     loss = loss + lm
                 loss = loss / M

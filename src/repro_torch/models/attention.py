@@ -293,25 +293,57 @@ def init_kv_cache(batch, max_len, cfg, *, window: Optional[int] = None,
     )
 
 
+def _slot_mesh_dim(t):
+    """The mesh dim that shards a DTensor cache (B, KV, S_buf, hd) over its
+    slots, or None (a plain tensor, or a cache whole in its slots)."""
+    if not is_dtensor(t):
+        return None
+    from torch.distributed.tensor import Shard
+    dims = [i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim == 2]
+    if len(dims) > 1:
+        raise ValueError(f"a cache's slots sharded over mesh dims {dims}: one at most")
+    return dims[0] if dims else None
+
+
+def _slot_offset(t) -> int:
+    """This rank's first slot of a DTensor cache (0 unless its slots are
+    sharded): shards of ceil(S_buf / n) slots, as DTensor cuts them."""
+    dim = _slot_mesh_dim(t)
+    if dim is None:
+        return 0
+    n = t.device_mesh.size(dim)
+    return t.device_mesh.get_coordinate()[dim] * -(-t.shape[2] // n)
+
+
+def _replicated(x, mesh):
+    """A 0-d index the same on every rank (all sequences decode in
+    lockstep) as a replicated DTensor, without a collective."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(x.to_local() if is_dtensor(x) else x, mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)
+
+
 def _write_slot_on_mesh(buf_t, new, idx):
     """A DTensor cache (B, KV, S_buf, hd) takes the new column (B, KV, 1,
-    hd) at slot ``idx``: each rank rewrites its own shard, masked to the
-    slot where it holds it (DTensor's ``index_copy_`` mislabels a cache
-    sharded over its slots).  A full read and write of the shard."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    hd) at slot ``idx``, each rank into its own shard on plain tensors
+    (DTensor's ``index_copy_`` mislabels a cache sharded over its slots):
+    one slot's ``index_copy_``, at ``idx`` clamped into the shard, of the
+    new column where the rank holds the slot and of the slot's own column
+    where it does not."""
+    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh, pl = buf_t.device_mesh, list(buf_t.placements)
-    slots = lambda p: isinstance(p, Shard) and p.dim == 2
-    hit = (torch.arange(buf_t.shape[2], device=idx.device) == idx).view(1, 1, -1, 1)
-    hit = DTensor.from_local(hit.to_local() if is_dtensor(hit) else hit, mesh,
-                             [Replicate()] * mesh.ndim, run_check=False)
+    lo = _slot_offset(buf_t)
 
-    def write(b, n, h):
-        b.copy_(torch.where(h, n, b))
+    def write(b, n, i):
+        j = (i - lo).clamp(0, b.shape[2] - 1).reshape(1).long()
+        own = (i >= lo) & (i < lo + b.shape[2])
+        b.index_copy_(2, j, torch.where(own, n, b.index_select(2, j)))
+    slots = lambda p: isinstance(p, Shard) and p.dim == 2
     local_map(write, out_placements=None,
               in_placements=(pl, [Replicate() if slots(p) else p for p in pl],
-                             [Shard(2) if slots(p) else Replicate() for p in pl]),
-              device_mesh=mesh, redistribute_inputs=True)(buf_t, new, hit)
+                             [Replicate()] * mesh.ndim),
+              device_mesh=mesh, redistribute_inputs=True)(buf_t, new, _replicated(idx, mesh))
 
 
 def update_kv_cache(cache: KVCache, k_new, v_new):
@@ -338,14 +370,70 @@ def update_kv_cache(cache: KVCache, k_new, v_new):
 def cache_kv_positions(cache: KVCache):
     """Absolute position of every buffer slot (rolling-aware). (B, S_buf)
     int32, -1 for slots never written."""
-    B, buf = cache.k.shape[0], cache.k.shape[2]
-    slots = torch.arange(buf, dtype=torch.int32, device=cache.k.device)[None, :]
-    if not cache.rolling:
-        return slots.expand(B, buf)
+    buf = cache.k.shape[2]
+    slots = torch.arange(buf, dtype=torch.int32, device=cache.k.device)
+    return _slot_positions(slots, cache.pos, buf, cache.rolling)
+
+
+def _slot_positions(slots, pos, buf: int, rolling: bool):
+    """Absolute positions (B, n) int32 of buffer ``slots`` (n,) of a
+    ``buf``-slot cache whose sequences are at ``pos`` (B,); -1 for a
+    rolling slot never written."""
+    slots = slots[None, :]
+    if not rolling:
+        return slots.expand(pos.shape[0], slots.shape[1])
     # slot s holds absolute position: the largest p < pos with p % buf == s
-    pos = cache.pos[:, None]
+    pos = pos[:, None]
     cand = pos - 1 - torch.remainder(pos - 1 - slots, buf)
     return torch.where(cand >= 0, cand, -1).to(torch.int32)
+
+
+def _valid_positions(kv_pos, pos, rolling: bool):
+    """A linear buffer's slots at or past ``pos`` are unwritten (the JAX
+    path's kv_valid_len = pos): -1 there."""
+    return kv_pos if rolling else torch.where(kv_pos < pos[:, None], kv_pos, -1)
+
+
+def _decode_on_slot_shards(q, cache: KVCache, q_positions, window):
+    """``decode_attention`` over a DTensor cache sharded over its slots,
+    without gathering it: each rank runs the partial kernel on its own
+    shard at its slots' absolute positions (its slot offset, rolling-aware),
+    and ``combine_partials`` joins the ranks with two all-reduces over the
+    mesh dim of the slots, as GSPMD splits the reference's softmax.  q
+    comes whole in its heads on every rank (gathered over that dim where
+    it is head-sharded: B·H·hd elements).  Returns (B, 1, H, hd) in the
+    cache's dtype, batch-sharded as the cache and head-sharded over the
+    slots' mesh dim where it divides the heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, pl = cache.k.device_mesh, list(cache.k.placements)
+    if any(isinstance(p, Shard) and p.dim not in (0, 2) for p in pl):
+        raise ValueError(f"a slot-sharded cache of placements {pl}: only its batch and "
+                         "slots may shard")
+    dim = _slot_mesh_dim(cache.k)
+    lo, buf, rolling = _slot_offset(cache.k), cache.k.shape[2], cache.rolling
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl]
+    # the output leaves head-sharded over the slots' dim where the heads
+    # split evenly: the output projection's rows are sharded so
+    H, m = q.shape[2], mesh.size(dim)
+    heads = H % m == 0
+    h0 = mesh.get_coordinate()[dim] * (H // m)
+    out = [Shard(1) if i == dim and heads else p for i, p in enumerate(rows)]
+
+    def local(q, k, v, q_pos, pos):
+        n = k.shape[2]
+        slots = torch.arange(lo, lo + n, dtype=torch.int32, device=k.device)
+        kv_pos = _valid_positions(_slot_positions(slots, pos, buf, rolling), pos, rolling)
+        o, lse = ops.decode_attention_partial(q.to(k.dtype), k.transpose(1, 2),
+                                              v.transpose(1, 2), q_pos, kv_pos, window=window)
+        o = ops.combine_partials(o, lse, n, group=(mesh, dim)).to(k.dtype)[:, 0]
+        return o[:, h0:h0 + H // m].contiguous() if heads else o
+    # (B, H, hd) out of local_map: DTensor gives a local output's size-1
+    # dims strides that no product can fold (torch.matmul would copy wo)
+    return local_map(local, out_placements=(out,),
+                     in_placements=(rows, pl, pl, rows, rows),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, cache.k, cache.v, q_positions, cache.pos).unsqueeze(1)
 
 
 def _store_prefix_kv(cache: KVCache, k, v, S: int) -> KVCache:
@@ -397,15 +485,13 @@ def attention_decode(p, x, cfg, cache: KVCache, *, positions_thw=None):
     q, k_new, v_new = _project_qkv(p, x, cfg)
     q, k_new = _apply_positions(q, k_new, positions, cfg, positions_thw)
     cache = update_kv_cache(cache, k_new, v_new)
-    kv_pos = cache_kv_positions(cache)
-    if not cache.rolling:
-        # the JAX path's kv_valid_len = pos: slots at or past it are unwritten
-        kv_pos = torch.where(kv_pos < cache.pos[:, None], kv_pos, -1)
+    if _slot_mesh_dim(cache.k) is not None:
+        o = _decode_on_slot_shards(q, cache, positions[:, 0], cfg.sliding_window)
+        return mm(merge_dims(o, 2), p["wo"]), cache
+    kv_pos = _valid_positions(cache_kv_positions(cache), cache.pos, cache.rolling)
     # a float32 bias beside bfloat16 matrices (the mesh's serving params)
     # makes q float32: it meets the cache in the cache's dtype
-    # the kernel reads whole caches: a DTensor cache sharded over its slots
-    # is gathered first
-    k, v = (unshard_dim(t, 2).transpose(1, 2) for t in (cache.k, cache.v))
+    k, v = (t.transpose(1, 2) for t in (cache.k, cache.v))
     o = ops.decode_attention(q.to(k.dtype), k, v, positions[:, 0], kv_pos,
                              window=cfg.sliding_window)
     return mm(merge_dims(o, 2), p["wo"]), cache

@@ -137,13 +137,60 @@ def specs_embedding():
 
 
 def embed(p, tokens):
-    """The table's rows of ``tokens``.  For tokens sharded over a mesh, an
-    embedding over the gathered table (the same rows: DTensor's rule for
-    the indexing's backward, an index_put with sharded indices, fails in
-    torch 2.11)."""
+    """The table's rows of ``tokens``.  A table sharded over its rows is
+    never gathered: each rank looks the tokens up in its own rows, zeros
+    where it holds none, and the rows sum over the mesh dim of the
+    vocabulary (an all-reduce of (B, S, d)), as GSPMD partitions a gather
+    on a sharded operand.  For tokens sharded over a mesh beside a table
+    whole in its rows, an embedding over the gathered table (the same
+    rows: DTensor's rule for the indexing's backward, an index_put with
+    sharded indices, fails in torch 2.11)."""
+    table = p["table"]
+    if _vocab_mesh_dim(table) is not None:
+        return _embed_on_vocab_shards(table, tokens)
     if is_dtensor(tokens) and not all(pl.is_replicate() for pl in tokens.placements):
-        return F.embedding(tokens, replicated(p["table"]))
-    return p["table"][tokens]
+        return F.embedding(tokens, replicated(table))
+    return table[tokens]
+
+
+def _vocab_mesh_dim(table):
+    """The one mesh dim that shards a DTensor table's rows, else None."""
+    if not is_dtensor(table):
+        return None
+    dims = [i for i, pl in enumerate(table.placements) if pl.is_shard(0)]
+    return dims[0] if len(dims) == 1 else None
+
+
+def _embed_on_vocab_shards(table, tokens):
+    """``embed`` on a table whose rows one mesh dim shards (``local_map``):
+    the output is partial over that dim.  The table's gradient is a rank's
+    own tokens' rows: partial over the mesh dims that shard the tokens."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh, dim = table.device_mesh, _vocab_mesh_dim(table)
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    lo = mesh.get_coordinate()[dim] * -(-table.shape[0] // mesh.size(dim))
+    # tokens flattened: DTensor gives a local output's size-1 dims strides
+    # that no product can fold (torch.matmul would copy its weight a row)
+    flat = tokens.reshape(-1)
+    tok = [Replicate() if i == dim else pl for i, pl in enumerate(flat.placements)]
+    rows = [pl if i == dim else Replicate() for i, pl in enumerate(table.placements)]
+    rows_grad = [pl if i == dim else Partial() if t.is_shard() else Replicate()
+                 for i, (pl, t) in enumerate(zip(table.placements, tok))]
+
+    # indexing, as the plain path: its backward accumulates a token's rows
+    # as that path's does (F.embedding's CUDA backward rounds a bf16 table's
+    # repeated rows otherwise)
+    def local(t, ids):
+        ids = ids.long() - lo
+        hit = (ids >= 0) & (ids < t.shape[0])
+        return t[ids.clamp(0, t.shape[0] - 1)] * hit[..., None].to(t.dtype)
+    out = local_map(local, out_placements=([Partial() if i == dim else pl
+                                            for i, pl in enumerate(tok)],),
+                    in_placements=(rows, tok), in_grad_placements=(rows_grad, tok),
+                    device_mesh=mesh, redistribute_inputs=True)(table, flat)
+    return out.reshape(tuple(tokens.shape) + (table.shape[1],))
 
 
 def init_head(generator, d, vocab, device):

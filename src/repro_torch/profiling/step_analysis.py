@@ -25,6 +25,16 @@ tensors, is left out.  It counts, per device:
   * peak_bytes       -- the most bytes of tensors created in the step that
                         were alive at once (storages, so views count once;
                         the step's arguments are not counted)
+  * records          -- with ``record=True``, one dict per counted op: the
+                        op, its inputs' and outputs' shapes and dtypes, its
+                        flops and bytes, and for a collective its kind,
+                        group size and ring bytes (the dry run's ``.ops``
+                        file, the program the counts were taken from)
+
+An in-place write of a few slots (``index_copy_``) moves twice what it
+writes, and ``index_select`` twice what it reads, as the reference counts
+a dynamic-update-slice and a dynamic-slice: the buffer they index is not
+read whole (a decode step's cache write).
 
 ``StepAnalysis(device="meta")`` counts only ops on that device's tensors:
 the dry run's shards are meta tensors, and the plain CPU tensors DTensor
@@ -56,6 +66,9 @@ _COLLECTIVES = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all")
 _NO_TRAFFIC = {"empty", "empty_strided", "empty_like", "detach", "alias", "lift_fresh",
                "wait_tensor", "device", "dim", "sym_size", "sym_stride", "sym_numel",
                "sym_storage_offset", "_local_scalar_dense"}
+# ops that touch only the slots they index: twice the slots' bytes
+_INDEXED_WRITE = {"index_copy_"}
+_INDEXED_READ = {"index_select"}
 # DTensor's sharding propagation runs ops on fake global tensors to learn
 # the output's shape; they are not the rank's work
 _PROPAGATION = {"_propagate_tensor_meta_non_cached", "_propagate_tensor_meta"}
@@ -63,6 +76,12 @@ _PROPAGATION = {"_propagate_tensor_meta_non_cached", "_propagate_tensor_meta"}
 
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
+
+
+def _describe(t) -> str:
+    """A tensor's dtype and shape, as ``bf16[8,1,32,128]``."""
+    dt = str(t.dtype).replace("torch.", "").replace("bfloat16", "bf16").replace("float", "f")
+    return f"{dt}[{','.join(map(str, t.shape))}]"
 
 
 def _group_size(func, args) -> int:
@@ -90,7 +109,7 @@ class StepAnalysis(TorchDispatchMode):
     """Counts flops, bytes, collectives and peak live bytes of the ops run
     under it (``with StepAnalysis() as a: step(...)``)."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, record: bool = False):
         super().__init__()
         self.device = None if device is None else torch.device(device).type
         from torch.distributed.tensor import DTensor
@@ -103,6 +122,7 @@ class StepAnalysis(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self.ops = 0
+        self.records = [] if record else None
         self._storages = weakref.WeakKeyDictionary()
 
     def _free(self, n):
@@ -140,14 +160,29 @@ class StepAnalysis(TorchDispatchMode):
         self._track(flat_out, new=True)
         self.ops += 1
         packet = func._overloadpacket
+        flops = 0
         if packet in self._flops:
-            self.flops += self._flops[packet](*args, **kwargs, out_val=out)
+            flops = self._flops[packet](*args, **kwargs, out_val=out)
+            self.flops += flops
+        rec = None
+        if self.records is not None:
+            rec = {"op": str(func), "in": [_describe(t) for t in flat_in],
+                   "out": [_describe(t) for t in flat_out], "flops": flops, "bytes": 0}
+            self.records.append(rec)
         name = packet.__name__
         if getattr(func, "is_view", False) or name in _NO_TRAFFIC:
             return out
         in_b = sum(_nbytes(t) for t in flat_in)
         out_b = sum(_nbytes(t) for t in flat_out)
-        self.hbm_bytes += in_b + out_b
+        if name in _INDEXED_WRITE:
+            moved = 2 * (in_b - _nbytes(flat_in[0]))     # all but the buffer written
+        elif name in _INDEXED_READ:
+            moved = 2 * out_b
+        else:
+            moved = in_b + out_b
+        self.hbm_bytes += moved
+        if rec is not None:
+            rec["bytes"] = moved
         kind = next((c for c in _COLLECTIVES if c in name), None)
         if kind is not None and "_c10d_functional" in func.namespace:
             g = _group_size(func, args)
@@ -156,6 +191,8 @@ class StepAnalysis(TorchDispatchMode):
                 kind, ring * in_b)
             self.collective_bytes += eff
             self.per_collective[kind.replace("_", "-")] += eff
+            if rec is not None:
+                rec.update(collective=kind.replace("_", "-"), group=g, ring_bytes=eff)
         return out
 
 

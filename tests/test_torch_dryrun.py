@@ -1,5 +1,6 @@
 """The port's dry run (``launch/dryrun.py``): ``run_one`` on reduced
-configs over a fake 2x2 mesh, and ``launch.train --dry-run`` on the full
+configs over a fake 2x2 mesh, with the ops it counted saved as
+``--save-hlo-dir`` saves them, and ``launch.train --dry-run`` on the full
 qwen3-4b over the fake 16x16 mesh.
 
 A fake process group cannot share the test process with another group,
@@ -39,10 +40,11 @@ mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", 
 shape = InputShape("reduced", %(S)d, %(B)d, "train")
 out = {}
 out["qwen3-4b"] = run_one("qwen3-4b", "train_4k", mesh, shape=shape,
-                          cfg=reduced(REGISTRY["qwen3-4b"]))
+                          cfg=reduced(REGISTRY["qwen3-4b"]), save_ops=sys.argv[1] + "/qwen3-4b.ops")
 # two experts on the 2-way data axis: the expert-parallel layer, two microbatches
 out["dbrx-132b"] = run_one("dbrx-132b", "train_4k", mesh, shape=shape, microbatches=2,
-                           cfg=reduced(REGISTRY["dbrx-132b"]).replace(n_experts=2, top_k=1))
+                           cfg=reduced(REGISTRY["dbrx-132b"]).replace(n_experts=2, top_k=1),
+                           save_ops=sys.argv[1] + "/dbrx-132b.ops")
 print("RECORDS " + json.dumps(out))
 """ % {"S": S, "B": B}
 
@@ -53,10 +55,15 @@ def _env(tmp):
 
 
 @pytest.fixture(scope="module")
-def records(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("dryrun")
-    out = subprocess.run([sys.executable, "-c", RUN], capture_output=True, text=True,
-                         cwd=REPO, timeout=600, env=_env(tmp))
+def dryrun_dir(tmp_path_factory):
+    return tmp_path_factory.mktemp("dryrun")
+
+
+@pytest.fixture(scope="module")
+def records(dryrun_dir):
+    tmp = dryrun_dir
+    out = subprocess.run([sys.executable, "-c", RUN, str(tmp)], capture_output=True,
+                         text=True, cwd=REPO, timeout=600, env=_env(tmp))
     assert out.returncode == 0, out.stderr[-3000:]
     line = next(l for l in out.stdout.splitlines() if l.startswith("RECORDS "))
     return json.loads(line[len("RECORDS "):])
@@ -91,6 +98,25 @@ def test_arg_bytes_are_the_local_shards(records):
         math.prod(sh.local_shape(a.shape, s, MESH)) * a.element_size()), abstract, specs)
     batch = 2 * (B // MESH["data"]) * S * 4              # tokens and labels
     assert records["qwen3-4b"]["arg_bytes_per_dev"] == 3 * sum(local) + 4 + batch
+
+
+def test_saved_ops_sum_to_the_record(records, dryrun_dir):
+    """The saved ops (one JSON line each) are the program the record was
+    counted from: their flops, bytes and ring bytes sum to the record's
+    ``flops_per_dev``, ``hbm_bytes_per_dev`` and collective term, one line
+    per counted op, each collective naming its kind and group size."""
+    for arch, rec in records.items():
+        ops = [json.loads(line) for line in (dryrun_dir / f"{arch}.ops").open()]
+        assert len(ops) == rec["ops_per_dev"], arch
+        assert sum(r["flops"] for r in ops) == pytest.approx(rec["flops_per_dev"], rel=1e-12)
+        assert sum(r["bytes"] for r in ops) == pytest.approx(rec["hbm_bytes_per_dev"], rel=1e-12)
+        ring = sum(r.get("ring_bytes", 0.0) for r in ops)
+        assert ring == pytest.approx(rec["collective_bytes_per_dev"], rel=1e-12)
+        assert ring / 450e9 == pytest.approx(rec["collective_s"], rel=1e-12)
+        coll = [r for r in ops if "collective" in r]
+        assert coll and all(r["group"] == 2 for r in coll), arch
+        kinds = {r["collective"] for r in coll}
+        assert kinds == {k for k, v in rec["per_collective"].items() if v > 0}, arch
 
 
 def test_train_launcher_dry_run(tmp_path):

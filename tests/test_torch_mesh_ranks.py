@@ -9,10 +9,11 @@ vocabulary-sharded logits, the attention backward per rank, MoE experts
 per rank, a decode cache sharded over its slots (``kv_seq_shard`` at 2048
 slots), int8 moments quantized per shard.
 
-On more than one data rank a microbatch is each rank's share of its own
-rows (``steps._microbatch``); the one-process run takes its batch in the
-order that makes its contiguous microbatches the same rows, which matters
-where a loss term is not a mean over rows (the MoE load-balance loss).
+Both runs take the same batch: a microbatch is the global batch's
+contiguous rows on the mesh as in one process (``steps._microbatches``),
+which matters where a loss term is not a mean over rows (the MoE
+load-balance loss).  The decode steps run the partial kernel on each
+rank's slots and combine the ranks (``attention._decode_on_slot_shards``).
 
 The ranks run in one subprocess for the four cases (a process group
 cannot share the test process); rank 0 also runs the one-process
@@ -78,13 +79,7 @@ def train(case, arch, mesh, out, *, dtype, M, opt, moe_ep=None):
     g, o, loss = whole(st.fn(*st.shard(params, opt.init(params), batch)))
     if dist.get_rank():
         return
-    # microbatch m of the mesh: rows m*n .. (m+1)*n of each data rank's b rows
-    D = mesh.size(0)
-    b = B // D
-    n = b // M
-    perm = [r * b + m * n + i for m in range(M) for r in range(D) for i in range(n)]
-    pb = {k: v[perm] for k, v in batch.items()}
-    pg, po, ploss = st.fn(params, opt.init(params), pb)
+    pg, po, ploss = st.fn(params, opt.init(params), batch)
     out.update({f"{case}/loss": float(loss), f"{case}/plain_loss": float(ploss)})
     out.update(flat(f"{case}/g", g))
     out.update(flat(f"{case}/plain_g", pg))
@@ -94,7 +89,7 @@ def train(case, arch, mesh, out, *, dtype, M, opt, moe_ep=None):
     else:
         # the float32 step the bf16 runs round, and the moments the
         # optimizer gives the mesh's own gradients in one process
-        g32, _, loss32 = build(cfg.replace(dtype="float32")).fn(params, opt.init(params), pb)
+        g32, _, loss32 = build(cfg.replace(dtype="float32")).fn(params, opt.init(params), batch)
         out[f"{case}/f32_loss"] = float(loss32)
         out.update(flat(f"{case}/f32_g", g32))
         out.update(flat(f"{case}/own_mu", opt.update(g, opt.init(params), params)[1].mu))
@@ -121,9 +116,27 @@ def serve(case, arch, mesh, out, max_len=2048):
     logits, c = pre.fn(p, b, c)
     logits = whole(logits)
     toks = [logits.argmax(-1).to(torch.int32)[:, None]]
-    for _ in range(3):
-        nxt, c = dec.fn(p, dec.place(1, toks[-1]), c)
-        toks.append(whole(nxt))
+    # the decode steps' calls of the served and of the partial kernel
+    from repro_torch.kernels import ops
+    calls = dict.fromkeys(("decode_attention", "decode_attention_partial"), 0)
+    kept = {name: getattr(ops, name) for name in calls}
+
+    def counting(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return kept[name](*a, **kw)
+        return call
+    for name in calls:
+        setattr(ops, name, counting(name))
+    try:
+        for _ in range(3):
+            nxt, c = dec.fn(p, dec.place(1, toks[-1]), c)
+            toks.append(whole(nxt))
+    finally:
+        for name, fn in kept.items():
+            setattr(ops, name, fn)
+    out[f"{case}/decode_calls"] = np.array([calls["decode_attention"],
+                                            calls["decode_attention_partial"], cfg.n_layers])
     c = whole(c)
     if dist.get_rank():
         return
@@ -223,9 +236,13 @@ def test_prefill_and_decode_steps_on_2x2(ranks):
     """reduced qwen3-4b served from a 2048-slot cache sharded over its slots
     and batch rows over data: the prefill's logits (1e-5 of max|logit|),
     four greedy tokens, and every layer's cache after three decode steps
-    equal ``Model.prefill`` / ``decode_step``'s."""
+    equal ``Model.prefill`` / ``decode_step``'s.  Each decode step runs the
+    partial kernel once a layer on each rank's slots, and the served
+    kernel never."""
     d = ranks
     assert bool(d["serve/slots_sharded"])
+    served, partial, layers = d["serve/decode_calls"].tolist()
+    assert (served, partial) == (0, 3 * layers), (served, partial, layers)
     assert np.array_equal(d["serve/toks"], d["serve/plain_toks"])
     lg, want = d["serve/logits"], d["serve/plain_logits"]
     assert np.max(np.abs(lg - want)) <= 1e-5 * np.max(np.abs(want))
