@@ -1,0 +1,7 @@
+"""idle_share.w6: share of the traced window with no device operation, in %
+(device trace)."""
+from harness.readers import idle_share
+
+
+def read(run):
+    return idle_share(run)

@@ -1,0 +1,7 @@
+"""pass_ms.w5: the window's pumps' summed wall time over their number
+(host clock; model step)."""
+from harness.readers import pass_ms
+
+
+def read(run):
+    return pass_ms(run)
