@@ -23,6 +23,11 @@ cache's state, as in JAX; ``reset_cache`` zeros every recurrent state,
 conv tail and token shift and qwen2-vl's M-RoPE offset, so a reused cache
 starts where a fresh one does.  ``step`` and ``mrope_delta`` are host
 ints (they follow from shapes).
+
+While a profiler records, ``prefill`` and ``decode_step`` emit the spans
+``model.embed``, ``model.mix`` and ``model.ffn`` (each block's mixer and
+its MLP or channel mix, each with its norm) and ``model.head``
+(``profiling/spans.py``); ``forward`` emits none.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rope as rope_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.profiling.spans import span
 from repro_torch.tree import tree_map
 
 
@@ -278,18 +284,20 @@ def reset_cache(cache):
 # Prefill and decode
 # ---------------------------------------------------------------------------
 
-def _attn_block(bp, x, cfg: ArchConfig, attend, layer: int = 0, cross=None,
-                shard: ShardingHints = NO_HINTS):
-    """Attention, whisper's cross-attention (``cross``), then the MLP or the
-    MoE layer -> (x, the MoE aux loss or None), the residual in
-    ``shard.residual``'s layout after each add.  Serving discards the aux
-    loss; the JAX decode step's chunk=1 picks the default's one chunk at
-    S = 1."""
+def _attn_mix(bp, x, cfg: ArchConfig, attend, cross=None, shard: ShardingHints = NO_HINTS):
+    """Attention, then whisper's cross-attention (``cross``), each after its
+    norm, the residual in ``shard.residual``'s layout after each add."""
     h, _ = attend(bp["attn"], L.apply_norm(bp["ln1"], x, cfg.norm_eps))
     x = _c(x + h, shard.residual, shard)
     if cross is not None:
         x = _c(x + cross(bp["cross"], L.apply_norm(bp["ln_c"], x, cfg.norm_eps)),
                shard.residual, shard)
+    return x
+
+
+def _attn_ffn(bp, x, cfg: ArchConfig, layer: int = 0, shard: ShardingHints = NO_HINTS):
+    """The MLP or the MoE layer after its norm -> (x, the MoE aux loss or
+    None)."""
     xin = L.apply_norm(bp["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
         if shard.moe_ep is not None:
@@ -304,25 +312,48 @@ def _attn_block(bp, x, cfg: ArchConfig, attend, layer: int = 0, cross=None,
     return _c(x + L.apply_mlp(bp["ffn"], xin, cfg.act_fn), shard.residual, shard), None
 
 
+def _attn_block(bp, x, cfg: ArchConfig, attend, layer: int = 0, cross=None,
+                shard: ShardingHints = NO_HINTS):
+    """Attention, whisper's cross-attention (``cross``), then the MLP or the
+    MoE layer -> (x, the MoE aux loss or None).  Serving discards the aux
+    loss; the JAX decode step's chunk=1 picks the default's one chunk at
+    S = 1."""
+    return _attn_ffn(bp, _attn_mix(bp, x, cfg, attend, cross, shard), cfg, layer, shard)
+
+
+def _served_attn_block(bp, x, cfg: ArchConfig, attend, layer: int = 0, cross=None,
+                       shard: ShardingHints = NO_HINTS):
+    """``_attn_block`` in a serving pass, its halves under the spans
+    ``model.mix`` and ``model.ffn``; the aux loss discarded."""
+    with span("model.mix"):
+        x = _attn_mix(bp, x, cfg, attend, cross, shard)
+    with span("model.ffn"):
+        return _attn_ffn(bp, x, cfg, layer, shard)[0]
+
+
 def _rwkv_prefill(bp, x, cfg, lc):
-    h, (last_x, s_fin) = rwkv_lib.time_mix(
-        bp["rwkv"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg, s0=lc.state)
-    x = x + h
-    h, last_cm = rwkv_lib.channel_mix(
-        bp["rwkv"], L.apply_norm(bp["ln2"], x, cfg.norm_eps), cfg)
-    lc.x_tm.copy_(last_x)
-    lc.x_cm.copy_(last_cm)
-    lc.state.copy_(s_fin)
-    return x + h
+    with span("model.mix"):
+        h, (last_x, s_fin) = rwkv_lib.time_mix(
+            bp["rwkv"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg, s0=lc.state)
+        lc.x_tm.copy_(last_x)
+        lc.state.copy_(s_fin)
+        x = x + h
+    with span("model.ffn"):
+        h, last_cm = rwkv_lib.channel_mix(
+            bp["rwkv"], L.apply_norm(bp["ln2"], x, cfg.norm_eps), cfg)
+        lc.x_cm.copy_(last_cm)
+        return x + h
 
 
 def _rwkv_decode(bp, x, cfg, lc):
-    h, _ = rwkv_lib.rwkv6_decode(bp["rwkv"], L.apply_norm(bp["ln1"], x, cfg.norm_eps),
-                                 cfg, lc)
-    x = x + h
-    h, _ = rwkv_lib.channel_mix_decode(
-        bp["rwkv"], L.apply_norm(bp["ln2"], x, cfg.norm_eps), cfg, lc)
-    return x + h
+    with span("model.mix"):
+        h, _ = rwkv_lib.rwkv6_decode(bp["rwkv"], L.apply_norm(bp["ln1"], x, cfg.norm_eps),
+                                     cfg, lc)
+        x = x + h
+    with span("model.ffn"):
+        h, _ = rwkv_lib.channel_mix_decode(
+            bp["rwkv"], L.apply_norm(bp["ln2"], x, cfg.norm_eps), cfg, lc)
+        return x + h
 
 
 def _run_blocks(params, cfg: ArchConfig, x, cache, attend, mamba, rwkv, cross=None,
@@ -331,20 +362,24 @@ def _run_blocks(params, cfg: ArchConfig, x, cache, attend, mamba, rwkv, cross=No
     the KV cache of its application) before each group of Mamba2 layers;
     for whisper each block's cross-attention, ``cross(p, xin, k, v)``, to
     its layer's cross K/V.  The residual takes ``shard.residual``'s layout
-    after each block (the prefill's hint; the decode step passes none)."""
+    after each block (the prefill's hint; the decode step passes none).
+    Each block's mixer runs under the span ``model.mix``, its MLP or
+    channel mix under ``model.ffn``."""
     every, kind = cfg.shared_attn_every, _kind(cfg)
     for i, (bp, lc) in enumerate(zip(params["blocks"], cache["layers"])):
         if every and i % every == 0:
-            x, _ = _attn_block(params["shared_attn"], x, cfg,
-                               lambda p, xin, sc=cache["shared"][i // every]: attend(p, xin, sc))
+            x = _served_attn_block(params["shared_attn"], x, cfg,
+                                   lambda p, xin, sc=cache["shared"][i // every]:
+                                   attend(p, xin, sc))
         if kind == "attn":
             xc = None if cross is None else (
                 lambda p, xin, kv=cache["cross"][i]: cross(p, xin, *kv))
-            x, _ = _attn_block(bp, x, cfg, lambda p, xin, lc=lc: attend(p, xin, lc), i, xc,
-                               shard)
+            x = _served_attn_block(bp, x, cfg, lambda p, xin, lc=lc: attend(p, xin, lc), i,
+                                   xc, shard)
         elif kind == "mamba2":
-            h, _ = mamba(bp["mamba"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg, lc)
-            x = _c(x + h, shard.residual, shard)
+            with span("model.mix"):
+                h, _ = mamba(bp["mamba"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg, lc)
+                x = _c(x + h, shard.residual, shard)
         else:
             x = _c(rwkv(bp, x, cfg, lc), shard.residual, shard)
     return x
@@ -415,7 +450,8 @@ def prefill(params, cfg: ArchConfig, batch, cache, *, shard: ShardingHints = NO_
     d); for qwen2-vl optionally ``patches`` (B, Pn, frontend_dim)."""
     shard = _serving(shard)
     tokens = batch["tokens"]
-    x, positions_thw, mrope_delta = _embed_inputs(params, cfg, batch, shard)
+    with span("model.embed"):
+        x, positions_thw, mrope_delta = _embed_inputs(params, cfg, batch, shard)
     cross = None
     if cfg.encoder_layers:
         enc_out = _encoder_forward(params, cfg, batch["frames"].to(x.dtype), shard=shard)
@@ -434,15 +470,18 @@ def prefill(params, cfg: ArchConfig, batch, cache, *, shard: ShardingHints = NO_
     cache["step"] = tokens.shape[1]
     if mrope_delta is not None:
         cache["mrope_delta"] = mrope_delta
-    return _logits(params, cfg, x[:, -1, :]), cache
+    with span("model.head"):
+        return _logits(params, cfg, x[:, -1, :]), cache
 
 
 def decode_step(params, cfg: ArchConfig, token, cache, *, shard: ShardingHints = NO_HINTS):
     """token: (B, 1) int -> (logits (B, 1, V) float32, cache updated in place);
     of the hints only the logits' applies, as in the JAX package."""
-    x = L.embed(params["embed"], token)
-    if cfg.family == "encdec":        # whisper: the sinusoidal table's row at this step
-        x = x + L.sinusoidal_positions(1, cfg.d_model, cache["step"], x.device).to(x.dtype)
+    with span("model.embed"):
+        x = L.embed(params["embed"], token)
+        if cfg.family == "encdec":        # whisper: the sinusoidal table's row at this step
+            x = x + L.sinusoidal_positions(1, cfg.d_model, cache["step"],
+                                           x.device).to(x.dtype)
     positions_thw = None
     if cfg.m_rope:      # qwen2-vl rotates at step + mrope_delta; the KV cache keeps cache.pos
         pos = torch.full((token.shape[0], 1), cache["step"] + cache["mrope_delta"],
@@ -456,7 +495,8 @@ def decode_step(params, cfg: ArchConfig, token, cache, *, shard: ShardingHints =
                         p, xin, cfg, lc, positions_thw=positions_thw),
                     ssm_lib.mamba2_decode, _rwkv_decode, cross)
     cache["step"] += 1
-    return _logits(params, cfg, x, shard), cache
+    with span("model.head"):
+        return _logits(params, cfg, x, shard), cache
 
 
 # ---------------------------------------------------------------------------

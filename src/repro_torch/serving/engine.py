@@ -10,10 +10,18 @@ the JAX engine: every prefill gets zero ``frames`` (B, Se, d) or
 ``patches`` (B, min(vision_patches, prompt_len), frontend_dim).  Latency
 runs from a request's arrival to the moment its output tokens reach the
 host.
+
+Each pass appends one record to ``profiling.spans.passes()``, the
+process's bounded per-pass log: five ``time.time_ns()`` stamps that split
+the pass into ``engine.take``, ``engine.dispatch``, ``engine.fetch`` and
+``engine.complete`` (the phases ``profiling/spans.py`` defines), the rows,
+the batch, the queue depth and the oldest request's arrival.  While a
+profiler records, the phases are profiler spans too.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from collections import deque
 from typing import Deque, Dict, List, Optional
@@ -23,6 +31,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.zoo import Model, build_model
+from repro_torch.profiling import spans
+
+LATENCY_WINDOW = 4096     # latencies kept: p99_ms's default window reads the newest 200
+
+_ENGINE_IDS = itertools.count()
 
 
 @dataclasses.dataclass
@@ -70,7 +83,9 @@ class ServingEngine:
         self.params = params if params is not None else self.model.init(seed)
         self.extras = self._dummy_extras()
         self.queue: Deque[Request] = deque()
-        self.latencies: List[float] = []
+        self.latencies: Deque[float] = deque(maxlen=LATENCY_WINDOW)
+        self.engine_id = next(_ENGINE_IDS)
+        self._fetched_ns = 0          # _serve's stamp between dispatch and fetch
         # One cache per engine, in float32 as in the JAX engine.  Each pass
         # starts where the JAX engine's fresh cache starts: reset_cache zeros
         # the recurrent states, and prefill overwrites every KV slot and the
@@ -82,17 +97,23 @@ class ServingEngine:
 
     @torch.inference_mode()
     def _serve(self, tokens: np.ndarray) -> np.ndarray:
-        toks = torch.from_numpy(tokens).to(self.device)
-        cache = self.model.reset_cache(self._cache)
-        logits, cache = self.model.prefill(self.params, {"tokens": toks, **self.extras},
-                                           cache)
-        tok = logits.argmax(-1).to(torch.int32)[:, None]
-        outs = [tok]
-        for _ in range(self.decode_tokens - 1):
-            lg, cache = self.model.decode_step(self.params, tok, cache)
-            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
-            outs.append(tok)
-        return torch.cat(outs, dim=1).cpu().numpy()
+        """One pass: every launch (``engine.dispatch``), then the wait for
+        the device and the copy back (``engine.fetch``)."""
+        with spans.span("engine.dispatch"):
+            toks = torch.from_numpy(tokens).to(self.device)
+            cache = self.model.reset_cache(self._cache)
+            logits, cache = self.model.prefill(self.params, {"tokens": toks, **self.extras},
+                                               cache)
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            outs = [tok]
+            for _ in range(self.decode_tokens - 1):
+                lg, cache = self.model.decode_step(self.params, tok, cache)
+                tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+                outs.append(tok)
+            out = torch.cat(outs, dim=1)
+        self._fetched_ns = time.time_ns()
+        with spans.span("engine.fetch"):
+            return out.cpu().numpy()
 
     def _dummy_extras(self) -> Dict[str, torch.Tensor]:
         """The frontend stubs' inputs, zeros made once on the engine's device."""
@@ -107,23 +128,35 @@ class ServingEngine:
         """Serve one batch if any requests are queued."""
         if not self.queue:
             return []
-        take = [self.queue.popleft()
-                for _ in range(min(self.batch_size, len(self.queue)))]
-        B, S = self.batch_size, self.prompt_len
-        toks = np.zeros((B, S), np.int32)
-        for i, r in enumerate(take):
-            t = r.tokens[:S]
-            toks[i, :len(t)] = t
+        t_start = time.time_ns()
+        queued = len(self.queue)
+        with spans.span("engine.take"):
+            take = [self.queue.popleft() for _ in range(min(self.batch_size, queued))]
+            B, S = self.batch_size, self.prompt_len
+            toks = np.zeros((B, S), np.int32)
+            for i, r in enumerate(take):
+                t = r.tokens[:S]
+                toks[i, :len(t)] = t
+        t_taken = self._fetched_ns = time.time_ns()
         out = self._serve(toks)          # returns after the copy to the host
-        done = time.time()
-        comps = []
-        for i, r in enumerate(take):
-            lat = (done - r.arrival_s) * 1000.0
-            self.latencies.append(lat)
-            comps.append(Completion(rid=r.rid, tokens=out[i], latency_ms=lat))
+        t_fetched = time.time_ns()
+        done = t_fetched / 1e9
+        with spans.span("engine.complete"):
+            comps = []
+            for i, r in enumerate(take):
+                lat = (done - r.arrival_s) * 1000.0
+                self.latencies.append(lat)
+                comps.append(Completion(rid=r.rid, tokens=out[i], latency_ms=lat))
+        # a _serve that never stamped the end of its dispatch (one replaced
+        # without calling this one) leaves its phases unknown: no record
+        if t_taken < self._fetched_ns <= t_fetched:
+            spans.record(spans.PassRecord(
+                self.engine_id, self.device.type, len(take), B, queued,
+                min(r.arrival_s for r in take),
+                (t_start, t_taken, self._fetched_ns, t_fetched, time.time_ns())))
         return comps
 
     def p99_ms(self, window: int = 200) -> float:
         if not self.latencies:
             return 0.0
-        return float(np.percentile(self.latencies[-window:], 99))
+        return float(np.percentile(list(self.latencies)[-window:], 99))
