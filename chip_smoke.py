@@ -83,6 +83,12 @@ Phases (any failure raises and exits non-zero):
                  logits bit for bit, and a fifth pump of the first pump's
                  prompts the first pump's tokens; one prefill and one decode
                  step alone, on the host clock and under torch.profiler.
+                 After qwen1.5-4b's slice, the benchmark cell's served pass
+                 (6 x 64, 40 layers, theta 5e6): no call between the token
+                 upload and the fetch may synchronise with the card
+                 (set_sync_debug_mode("error")), one rotation table a
+                 prefill, logits bit for bit those of RoPE's per-call
+                 formula (theta a host tensor), which the guard refuses.
                  Each model's engine is freed before the next one loads.
   5. timing   -- (run between phases 3 and 4, before any pump is profiled)
                  device time (torch.profiler) of each kernel, its plain
@@ -1148,6 +1154,118 @@ def run_slice(dev, arch, layers=None, encoder_layers=None):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, stats
+
+
+# the benchmark's qwen1.5-4b cell (perfbench/configs/qwen15-4b-f32.json):
+# App W6's 6 prompts of 64 tokens, one scored token, 40 layers, theta 5e6
+SYNC_FREE_ARCH, SYNC_FREE_BATCH, SYNC_FREE_PROMPT = "qwen1.5-4b", 6, 64
+SYNC_FREE_OVERRIDES = dict(rope_theta=5e6, norm_eps=1e-6)
+
+
+def per_call_rope_freqs(head_dim, theta, device=None):
+    """RoPE's frequencies as a host tensor's power: the per-call formula
+    ``rope.rope_freqs`` replaced, whose copy of theta to the card blocks
+    the stream."""
+    dim = torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+    return torch.tensor(theta, dtype=torch.float32, device=device) ** (-2.0 * dim / head_dim)
+
+
+class SyncErrors:
+    """A proxy of a ServingEngine's model that keeps each prefill's logits.
+    With ``guard``, each pass, from ``reset_cache`` (just after the token
+    upload) to the span ``engine.fetch`` (just before the copy back), runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, so a call that
+    synchronises with the card raises there."""
+
+    def __init__(self, model, guard):
+        self._model, self.guard, self.logits = model, guard, []
+
+    def reset_cache(self, cache):
+        if self.guard:
+            torch.cuda.set_sync_debug_mode("error")
+        return self._model.reset_cache(cache)
+
+    def prefill(self, *args, **kwargs):
+        logits, cache = self._model.prefill(*args, **kwargs)
+        self.logits.append(logits)
+        return logits, cache
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+
+@contextlib.contextmanager
+def sync_errors(eng, guard=True):
+    """Inside the block, ``eng``'s passes dispatch under ``SyncErrors``."""
+    from repro_torch.profiling import spans
+    span, model = spans.span, eng.model
+
+    def fetch_unguarded(name):
+        if name == "engine.fetch":
+            torch.cuda.set_sync_debug_mode(0)
+        return span(name)
+
+    eng.model, spans.span = SyncErrors(model, guard), fetch_unguarded
+    try:
+        yield eng.model
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        eng.model, spans.span = model, span
+
+
+def check_sync_free_pass(dev):
+    """The served pass of the benchmark's qwen1.5-4b cell, its dispatch
+    under ``SyncErrors``: no call between the token upload and the fetch
+    may synchronise with the card.  Its logits and tokens must equal, bit
+    for bit, the same pass's with RoPE's per-call formula in
+    ``rope_freqs``'s place, which the same guard must refuse."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rope
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config(SYNC_FREE_ARCH).replace(**SYNC_FREE_OVERRIDES)
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, batch_size=SYNC_FREE_BATCH, prompt_len=SYNC_FREE_PROMPT,
+                        decode_tokens=1, seed=0, device=dev)
+    tokens = np.random.default_rng(5).integers(
+        3, cfg.vocab_size, size=(SYNC_FREE_BATCH, SYNC_FREE_PROMPT)).astype(np.int32)
+    with sync_errors(eng) as guard:
+        out = eng._serve(tokens)
+        out_again = eng._serve(tokens)
+    assert len(guard.logits) == 2 and np.array_equal(out, out_again), "passes differ"
+    built = rope.position_table.built
+    eng._serve(tokens)
+    built = rope.position_table.built - built
+    assert built == 1, f"the served prefill built {built} rotation tables, not 1"
+    formula, rope.rope_freqs = rope.rope_freqs, per_call_rope_freqs
+    try:
+        try:
+            with sync_errors(eng):
+                eng._serve(tokens)
+        except RuntimeError as e:
+            assert "synchroniz" in str(e), e
+            refused = str(e).splitlines()[0]
+        else:
+            raise AssertionError("the sync guard let RoPE's host copy through")
+        with sync_errors(eng, guard=False) as control:
+            out_formula = eng._serve(tokens)
+    finally:
+        rope.rope_freqs = formula
+    assert torch.equal(guard.logits[0], control.logits[0]), \
+        "the device-built rotation changes the logits"
+    assert np.array_equal(out, out_formula)
+    stats = {"arch": SYNC_FREE_ARCH, "layers": cfg.n_layers, "batch": SYNC_FREE_BATCH,
+             "prompt_len": SYNC_FREE_PROMPT, **SYNC_FREE_OVERRIDES,
+             "tables_a_prefill": built, "logits_equal_per_call_formula": True,
+             "per_call_formula_refused": refused,
+             "seconds": time.perf_counter() - t0}
+    log(f"sync-free pass: {SYNC_FREE_ARCH} {SYNC_FREE_BATCH} x {SYNC_FREE_PROMPT}, "
+        f"{cfg.n_layers} layers: no synchronising call in the dispatch, one table a "
+        f"prefill, logits equal to the per-call formula's bit for bit; that formula "
+        f"refused ({refused}); {stats['seconds']:.1f} s")
+    del eng, guard, control
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
 
 
 @contextlib.contextmanager
@@ -3623,6 +3741,8 @@ def main():
         counts, stats = run_slice(dev, arch, layers, encoder_layers)
         launches = {k: n + counts[k] for k, n in launches.items()}
         slices.append(stats)
+        if arch == SYNC_FREE_ARCH:
+            stats["sync_free_pass"] = check_sync_free_pass(dev)
     # phase 9, training, after the slices
     train = run_train(dev)
     # phase 10, the mesh layer, last

@@ -106,19 +106,36 @@ def _project_qkv(p, x, cfg):
     return (_project_q(p, x, cfg), *project_kv(p, x, cfg))
 
 
-def _apply_positions(q, k, positions, cfg, positions_thw=None):
-    """RoPE at ``positions`` (B, S); M-RoPE at ``positions_thw`` (B, S, 3),
-    or at text positions t = h = w = ``positions`` without it."""
+def _position_table(cfg, positions, positions_thw=None):
+    """The rotation of q and k (``rope.position_table``'s (cos, sin)): RoPE
+    at ``positions`` (B, S); M-RoPE at ``positions_thw`` (B, S, 3), or at
+    text positions t = h = w = ``positions`` without it; None for a model
+    without rotation."""
     if cfg.rope_theta <= 0:
-        return q, k
+        return None
     if cfg.m_rope:
         if positions_thw is None:
             positions_thw = rope_lib.text_positions_thw(positions)
-        sections = cfg.m_rope_sections
-        return (rope_lib.apply_m_rope(q, positions_thw, cfg.rope_theta, sections),
-                rope_lib.apply_m_rope(k, positions_thw, cfg.rope_theta, sections))
-    return (rope_lib.apply_rope(q, positions, cfg.rope_theta),
-            rope_lib.apply_rope(k, positions, cfg.rope_theta))
+        return rope_lib.position_table(positions_thw, cfg.hd, cfg.rope_theta,
+                                       cfg.m_rope_sections)
+    return rope_lib.position_table(positions, cfg.hd, cfg.rope_theta)
+
+
+def prompt_table(cfg, B: int, S: int, device, positions_thw=None):
+    """``_position_table`` of a prompt at positions 0..S-1 (qwen2-vl: at
+    ``positions_thw``): the same for every layer, so a prefill builds it
+    once and hands it to each attention block."""
+    if cfg.rope_theta <= 0:
+        return None
+    positions = torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+    return _position_table(cfg, positions, positions_thw)
+
+
+def _apply_positions(q, k, table):
+    """q and k rotated by ``table`` (``_position_table``; None: unrotated)."""
+    if table is None:
+        return q, k
+    return rope_lib.rotate(q, table), rope_lib.rotate(k, table)
 
 
 # ---------------------------------------------------------------------------
@@ -483,7 +500,7 @@ def attention_decode(p, x, cfg, cache: KVCache, *, positions_thw=None):
     B = x.shape[0]
     positions = cache.pos[:, None].clone()                           # (B, 1)
     q, k_new, v_new = _project_qkv(p, x, cfg)
-    q, k_new = _apply_positions(q, k_new, positions, cfg, positions_thw)
+    q, k_new = _apply_positions(q, k_new, _position_table(cfg, positions, positions_thw))
     cache = update_kv_cache(cache, k_new, v_new)
     if _slot_mesh_dim(cache.k) is not None:
         o = _decode_on_slot_shards(q, cache, positions[:, 0], cfg.sliding_window)
@@ -497,23 +514,27 @@ def attention_decode(p, x, cfg, cache: KVCache, *, positions_thw=None):
     return mm(merge_dims(o, 2), p["wo"]), cache
 
 
-def _prompt_attention(p, x, cfg, *, causal, window=None, positions_thw=None):
+def _prompt_attention(p, x, cfg, *, causal, window=None, positions_thw=None, table=None):
     """Self-attention over a whole sequence: QKV projections, rotation at
-    positions 0..S-1, flash, output projection.  Returns (out, k, v) with k
+    positions 0..S-1 (``table``, the caller's ``prompt_table``, or built
+    here without it), flash, output projection.  Returns (out, k, v) with k
     rotated, for a cache to keep."""
     B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    if table is None:
+        table = prompt_table(cfg, B, S, x.device, positions_thw)
     q, k, v = _project_qkv(p, x, cfg)
-    q, k = _apply_positions(q, k, positions, cfg, positions_thw)
+    q, k = _apply_positions(q, k, table)
     o = flash_attention(q, k, v, causal=causal, window=window)
     return mm(merge_dims(o, 2), p["wo"]), k, v
 
 
-def attention_prefill(p, x, cfg, cache: KVCache, *, positions_thw=None):
+def attention_prefill(p, x, cfg, cache: KVCache, *, table=None):
     """Prompt pass: one set of QKV projections feeds both the attention
-    output and the decode cache.  Returns (out, cache)."""
+    output and the decode cache.  ``table``: the prefill's ``prompt_table``,
+    shared by its layers (without it, text positions 0..S-1).  Returns
+    (out, cache)."""
     out, k, v = _prompt_attention(p, x, cfg, causal=True, window=cfg.sliding_window,
-                                  positions_thw=positions_thw)
+                                  table=table)
     return out, _store_prefix_kv(cache, k, v, x.shape[1])
 
 

@@ -6,54 +6,74 @@ halves ``[x1; x2]`` of the head dimension.  M-RoPE assigns the hd/2
 frequency bands to (temporal, height, width) sections, each rotated by
 its own coordinate; text tokens use t == h == w == position, so M-RoPE
 on pure text is 1-D RoPE.
+
+``position_table`` builds the rotation's (cos, sin) on the positions'
+device from the Python theta, with no host tensor: a copy from the host
+would block the card's stream.  Layers that rotate at the same positions
+(a prefill's) share one table; ``rotate`` applies it.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
+    """``theta ** (-2 dim / hd)`` in float32, built on ``device`` from the
+    Python float: no host tensor, so no blocking copy to the card."""
     dim = torch.arange(head_dim // 2, dtype=torch.float32, device=device)
-    base = torch.tensor(theta, dtype=torch.float32, device=device)
-    return base ** (-2.0 * dim / head_dim)             # (hd/2,)
+    return torch.pow(theta, -2.0 * dim / head_dim)     # (hd/2,)
 
 
-def _rotate(x, cos, sin):
-    # x: (..., hd) split into halves [x1; x2]
+def _section_index(sections: Tuple[int, int, int], device):
+    """M-RoPE's section id per frequency band: 0 -> t, 1 -> h, 2 -> w."""
+    return torch.cat([torch.full((n,), i, dtype=torch.int64, device=device)
+                      for i, n in enumerate(sections)])
+
+
+def position_table(positions, head_dim: int, theta: float,
+                   sections: Optional[Tuple[int, int, int]] = None):
+    """The rotation's (cos, sin), each (B, S, 1, hd/2) float32: RoPE at
+    ``positions`` (B, S), or M-RoPE at ``positions`` (B, S, 3) (t, h, w
+    coordinates) with ``sections``, the frequency-band counts for t, h and
+    w, summing to hd/2.  ``position_table.built`` counts the tables built."""
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    if sections is None:
+        coords = positions[..., None].float()                    # (B, S, 1)
+    else:
+        if sum(sections) != head_dim // 2:
+            raise ValueError(f"M-RoPE: sections {sections} do not sum to {head_dim // 2}")
+        coords = positions.float()[..., _section_index(sections, positions.device)]
+    ang = coords * freqs                                         # (B, S, hd/2)
+    position_table.built += 1
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+position_table.built = 0
+
+
+def rotate(x, table):
+    """Rotate x (B, S, H, hd) by ``position_table``'s (cos, sin), in float32;
+    the halves [x1; x2] of the head dimension turn together."""
+    cos, sin = table
     hd = x.shape[-1]
-    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-
-
-def _apply_angles(x, ang):
-    """Rotate x (B, S, H, hd) by angles (B, S, hd/2), in float32."""
-    cos = torch.cos(ang)[..., None, :]                         # (B, S, 1, hd/2)
-    sin = torch.sin(ang)[..., None, :]
-    return _rotate(x.float(), cos, sin).to(x.dtype)
+    xf = x.float()
+    x1, x2 = xf[..., : hd // 2], xf[..., hd // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 def apply_rope(x, positions, theta: float):
     """x: (B, S, H, hd); positions: (B, S) int."""
     if theta <= 0:
         return x
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    return _apply_angles(x, positions[..., None].float() * freqs)
+    return rotate(x, position_table(positions, x.shape[-1], theta))
 
 
 def apply_m_rope(x, positions_thw, theta: float, sections: Tuple[int, int, int]):
     """x: (B, S, H, hd); positions_thw: (B, S, 3) int (t, h, w coordinates);
     sections: frequency-band counts for t, h and w, summing to hd/2."""
-    hd = x.shape[-1]
-    if sum(sections) != hd // 2:
-        raise ValueError(f"apply_m_rope: sections {sections} do not sum to {hd // 2}")
-    freqs = rope_freqs(hd, theta, x.device)
-    # section id per frequency band: 0 -> t, 1 -> h, 2 -> w
-    sec = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                  torch.tensor(sections, device=x.device), output_size=hd // 2)
-    coords = positions_thw.float()[..., sec]                   # (B, S, hd/2)
-    return _apply_angles(x, coords * freqs)
+    return rotate(x, position_table(positions_thw, x.shape[-1], theta, sections))
 
 
 def text_positions_thw(positions):

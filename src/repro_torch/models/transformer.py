@@ -463,9 +463,11 @@ def prefill(params, cfg: ArchConfig, batch, cache, *, shard: ShardingHints = NO_
             ck.copy_(k)
             cv.copy_(v)
             return attn_lib.cross_attention_prefill(p, xin, cfg, k, v)
+    # every attention block rotates at the prompt's positions: one table a pass
+    table = None if cfg.attention_free else attn_lib.prompt_table(
+        cfg, *tokens.shape, x.device, positions_thw)
     x = _run_blocks(params, cfg, x, cache,
-                    lambda p, xin, lc: attn_lib.attention_prefill(
-                        p, xin, cfg, lc, positions_thw=positions_thw),
+                    lambda p, xin, lc: attn_lib.attention_prefill(p, xin, cfg, lc, table=table),
                     ssm_lib.mamba2_prefill, _rwkv_prefill, cross, shard)
     cache["step"] = tokens.shape[1]
     if mrope_delta is not None:
