@@ -8,9 +8,9 @@ Phases (any failure raises and exits non-zero):
   2. build    -- nvcc builds the CUDA kernels from src/repro_torch/kernels/csrc,
                  one process per source, linked into one library; ptxas's
                  registers, shared memory and spills per kernel; the SASS
-                 (cuobjdump -sass) of every instantiation of the three
+                 (cuobjdump -sass) of every instantiation of the four
                  tensor-core kernels (flash_attn_kernel, ssd_scan_kernel,
-                 rwkv6_scan_kernel) must hold tensor-core products (HGMMA /
+                 rwkv6_scan_kernel, moe_gemm_kernel) must hold tensor-core products (HGMMA /
                  HMMA ... TF32), every decode_attn_kernel (served and
                  partial) asynchronous copies (LDGSTS, or TMA's UBLKCP /
                  UTMALDG), and no decode_attn_combine is left; TF32 stays
@@ -29,7 +29,12 @@ Phases (any failure raises and exits non-zero):
                  own: S = 1, 63, 512 against Skv = 1, 31, 33, 1500 at
                  head_dim 64 and 128, whisper's encoder and cross-attention
                  at their served shapes, a causal or windowed call at
-                 Skv != S refused; ssd: S = 1, 40, 2048 and every (hd, N);
+                 Skv != S refused; ssd: S = 1, 40, 2048 and every (hd, N),
+                 N = 128 (hd 64) at granite-4.0-h-small's prefill too;
+                 the grouped expert products (moe_experts, three launches
+                 a call) at granite-4.0-h-small's cell (1,536 tokens, top-10
+                 of 72, 18 held), every token on one expert, a ragged
+                 small case and one token;
                  rwkv6: S = 1, 31, 33 at hd 32 and 64, S = 33 from a state;
                  decode: S = 1, 63, 65, 1, 4 and 16 query heads per kv
                  head at every head_dim, windows of 1 and 20, and at the
@@ -237,8 +242,15 @@ Phases (any failure raises and exits non-zero):
                  (--save-hlo-dir) one partial kernel a layer and no gather
                  of the cache; the records' memory a device, fits_hbm,
                  dominant term and roofline terms (H100 constants)
+After the slices, granite-4.0-h-small's served pass at the benchmark cell's
+size (40 layers, 18 of 72 experts, 24 x 64) dispatches under
+torch.cuda.set_sync_debug_mode("error") from the upload to the fetch,
+twice with equal tokens and logits, no held assignment dropped
+(check_sync_free_granite).
 Prints one {"kernels": [...]} line (the four kernels, decode's partial
-variant, alloc_all and tables_kernel), one {"slice": {...}} line per model, one {"planner": {...}}
+variant, the grouped expert products and ssd_scan at granite's state 128,
+alloc_all and tables_kernel), one {"slice": {...}} line per model, one
+{"granite": {...}} line, one {"planner": {...}}
 line, one {"simulator": {...}} line, one {"controller": {...}} line, one
 {"train": {...}} line, one {"mesh": {...}} line (the steps' checks, times
 and launches, the dry-run records, the phase's seconds), and last
@@ -281,6 +293,11 @@ PARTIAL_LSE_TOL = 1e-5                   # its log-sum-exp, absolute
 SCAN_TOL = {dt: 5 * tol for dt, tol in TOL.items()}  # tests/test_kernels.py: 5x for the scans
 RWKV_SHAPE = (4, 512, 32, 64)            # rwkv6-1.6b prefill: B, S, H, hd
 SSD_SHAPE = (4, 512, 80, 64, 64)         # zamba2-2.7b prefill: B, S, H, hd, N
+# the benchmark's granite cell (perfbench/configs/granite4-h-small-ep4-f32.json):
+# 24 prompts of 64 tokens, 18 of 72 experts held, top-10
+GRANITE_ARCH, GRANITE_HELD, GRANITE_BATCH, GRANITE_PROMPT = "granite-4.0-h-small", 18, 24, 64
+GRANITE_SSD_SHAPE = (24, 64, 128, 64, 128)   # its prefill: B, S, H, hd, N
+GRANITE_MOE_SHAPE = (24 * 64, 4096, 768, 72, 18, 10)   # T, D, F, E, held, K
 
 BATCH, PROMPT, DECODE, PUMPS = 4, 512, 4, 4
 # (arch, layers, encoder layers): every model the port serves, at full
@@ -540,7 +557,9 @@ def check_flash(dev, rng):
 TENSOR_CORE = (r"\bHMMA\.\S*TF32|\bHGMMA\.", "tensor-core products (HMMA ... TF32 / HGMMA)")
 ASYNC_COPY = (r"\bLDGSTS\b|\bUBLKCP\b|\bUTMALDG\b", "asynchronous copies (LDGSTS / UBLKCP / UTMALDG)")
 SASS_CHECKS = {"flash_attn_kernel": (2 * 4, *TENSOR_CORE),
-               "ssd_scan_kernel": (2 * 2 * 3, *TENSOR_CORE),
+               # x hd 32, 64 x N 16, 32, 64, and N 128 at hd 64
+               "ssd_scan_kernel": (2 * (2 * 3 + 1), *TENSOR_CORE),
+               "moe_gemm_kernel": (2, *TENSOR_CORE),     # gate and up, down
                "rwkv6_scan_kernel": (2 * 2, *TENSOR_CORE),
                # x G = 1, <= 4, <= 16, x served / partial
                "decode_attn_kernel": (2 * 4 * 3 * 2, *ASYNC_COPY),
@@ -972,7 +991,8 @@ def check_ssd(dev, rng):
     # of state carried across), and every (hd, N) the dispatch takes
     edges = [((2, S, 2, 64, 64), dt, S != 1) for S in (1, 40, 2048)
              for dt in (torch.float32, torch.bfloat16)]
-    edges += [((2, 100, 2, hd, N), dt, True) for hd, N in [(32, 32), (32, 64), (64, 16), (64, 32)]
+    edges += [((2, 100, 2, hd, N), dt, True)
+              for hd, N in [(32, 32), (32, 64), (64, 16), (64, 32), (64, 128)]
               for dt in (torch.float32, torch.bfloat16)]
     err = check_scan("ssd_scan", dev, rng,
                      lambda x, b, c, a, h0: ssd_scan(x, b, c, a, h0=h0),
@@ -981,11 +1001,70 @@ def check_ssd(dev, rng):
                      lambda rng, B, S, *rest: ssd_inputs(rng, B, S, *rest, group=S not in (128, 256)),
                      grid + ragged + state + edges,
                      lambda B, S, H, hd, N: (B, H, hd, N), SSD_SHAPE)
-    x = torch.zeros((1, 8, 1, 64), device=dev)         # state size 128: no kernel
+    x = torch.zeros((1, 8, 1, 32), device=dev)         # state size 128 at hd 32: no kernel
     bc = torch.zeros((1, 8, 1, 128), device=dev)
-    expect_refusal("ssd_scan state size 128",
+    expect_refusal("ssd_scan state size 128 at head_dim 32",
                    lambda: ssd_scan(x, bc, bc, torch.zeros((1, 8, 1), device=dev)))
     return err
+
+
+def check_ssd_granite(dev, rng):
+    """ssd_scan at granite-4.0-h-small's prefill (state 128), B and C in
+    group form, from a state: max_abs_err."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    B, S, H, hd, N = GRANITE_SSD_SHAPE
+    xdt, Bm, Cm, dA = ssd_inputs(rng, B, S, H, hd, N, torch.float32, dev, group=True)
+    h0 = 0.1 * rand(rng, (B, H, hd, N), torch.float32, dev)
+    y, h = ssd_scan(xdt, Bm, Cm, dA, h0=h0)
+    y_ref, h_ref = ref.ssd_ref(xdt, Bm, Cm, dA, h0)
+    err = check_close(f"ssd_scan {GRANITE_SSD_SHAPE}", y, y_ref, SCAN_TOL[torch.float32])
+    check_close(f"ssd_scan state {GRANITE_SSD_SHAPE}", h, h_ref, SCAN_TOL[torch.float32])
+    log(f"kernels: ssd_scan at granite-4.0-h-small's prefill {GRANITE_SSD_SHAPE} matches its "
+        f"plain version; max_abs_err {err:.3g}")
+    return err
+
+
+def moe_inputs(rng, T, D, F, E, held, K, dev, one_expert=False):
+    """The grouped products' inputs as the dropless layer hands them over:
+    tokens routed over E experts (every token's first choice expert 1 with
+    ``one_expert``), sorted by expert, and the held experts' weights at
+    fan-in scale."""
+    from repro_torch.models import moe
+    x = rand(rng, (T, D), torch.float32, dev)
+    router = rand(rng, (D, E), torch.float32, dev) / D ** 0.5
+    if one_expert:
+        x = x.abs()
+        router[:, 1] = 1.0
+    w = [rand(rng, shape, torch.float32, dev) / shape[1] ** 0.5
+         for shape in ((held, D, F), (held, D, F), (held, F, D))]
+    tok, gates, offsets, pos = moe.route_sorted(router, x, K, held)
+    return x, tok, offsets, gates, pos, *w
+
+
+def check_moe(dev, rng):
+    """The grouped expert products against their plain version: granite's
+    cell, every token on one expert (its rows = T, none dropped), a ragged
+    small case and one token; one launch counted a call.  Returns the
+    cell's max_abs_err."""
+    from repro_torch.kernels import ops, ref
+    cases = [(GRANITE_MOE_SHAPE, False), (GRANITE_MOE_SHAPE, True),
+             ((100, 256, 128, 8, 5, 3), False), ((1, 128, 64, 4, 4, 2), False)]
+    errs = []
+    with torch.inference_mode():
+        for shape, one in cases:
+            args = moe_inputs(rng, *shape, dev, one_expert=one)
+            before = ops.launch_counts()["moe_experts"]
+            y = ops.moe_experts(*args)
+            assert ops.launch_counts()["moe_experts"] == before + 1, shape
+            errs.append(check_close(f"moe_experts {shape} one expert {one}", y,
+                                    ref.moe_experts_ref(*args), TOL[torch.float32]))
+            if one:
+                rows = (args[2][1:] - args[2][:-1]).tolist()
+                assert rows[1] == shape[0], rows
+    log(f"kernels: moe_experts matches its plain version on {len(cases)} cases; "
+        f"max_abs_err {errs}")
+    return errs[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1007,7 +1086,7 @@ def want_launches(cfg):
             "decode_attention": per_block * n_attn * (DECODE - 1) * PUMPS,
             "rwkv6_scan": cfg.n_layers * PUMPS if kind == "rwkv6" else 0,
             "ssd_scan": cfg.n_layers * PUMPS if kind == "mamba2" else 0,
-            "decode_attention_partial": 0, "alloc_all": 0, "tables": 0}
+            "moe_experts": 0, "decode_attention_partial": 0, "alloc_all": 0, "tables": 0}
 
 
 def random_extras(cfg, B, S, dev, rng):
@@ -1211,6 +1290,53 @@ def sync_errors(eng, guard=True):
     finally:
         torch.cuda.set_sync_debug_mode(0)
         eng.model, spans.span = model, span
+
+
+def check_sync_free_granite(dev):
+    """granite-4.0-h-small's served pass at the benchmark cell's size, its
+    dispatch under ``SyncErrors``: the router's sort, the experts' offsets,
+    the grouped products and the mixed cache's reset make no call that
+    synchronises with the card.  Two passes give equal tokens and logits;
+    no held assignment is dropped; the launches a pass."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config(GRANITE_ARCH).replace(experts_held=GRANITE_HELD)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ServingEngine(cfg, batch_size=GRANITE_BATCH, prompt_len=GRANITE_PROMPT,
+                        decode_tokens=1, seed=0, device=dev)
+    tokens = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(GRANITE_BATCH, GRANITE_PROMPT)).astype(np.int32)
+    moe.reset_held_counts()
+    ops.reset_launch_counts()
+    with sync_errors(eng) as guard:
+        out = eng._serve(tokens)
+        out_again = eng._serve(tokens)
+    launches = {k: n // 2 for k, n in ops.launch_counts().items() if n}
+    counts = moe.held_counts()
+    assert len(guard.logits) == 2 and np.array_equal(out, out_again), "passes differ"
+    assert torch.equal(guard.logits[0], guard.logits[1]), "logits differ between passes"
+    assert len(counts) == cfg.n_layers and all(c["dropped"] == 0 and c["assignments"] > 0
+                                               for c in counts.values()), counts
+    assert launches == {"flash_attention": 4, "ssd_scan": 36, "moe_experts": 40}, launches
+    assignments = sum(c["assignments"] for c in counts.values()) // 2
+    stats = {"arch": GRANITE_ARCH, "layers": cfg.n_layers, "experts_held": GRANITE_HELD,
+             "batch": GRANITE_BATCH, "prompt_len": GRANITE_PROMPT,
+             "held_assignments_a_pass": assignments,
+             "largest_expert_rows": max(c["max_rows"] for c in counts.values()),
+             "dropped": 0, "launches_a_pass": launches, "sync_free": True,
+             "memory_peak_bytes": torch.cuda.max_memory_allocated(dev),
+             "seconds": time.perf_counter() - t0}
+    log(f"sync-free pass: {GRANITE_ARCH} ({GRANITE_HELD} of {cfg.n_experts} experts) "
+        f"{GRANITE_BATCH} x {GRANITE_PROMPT}, {cfg.n_layers} layers: no synchronising call "
+        f"in the dispatch; {assignments} held assignments a pass, none dropped; launches "
+        f"{launches}; {stats['seconds']:.1f} s")
+    del eng, guard
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
 
 
 def check_sync_free_pass(dev):
@@ -1643,13 +1769,13 @@ def time_rwkv(dev, rng, err):
             "library_ms": None}
 
 
-def time_ssd(dev, rng, err):
-    """ssd_scan at zamba2-2.7b's prefill: B and C in group form expanded
-    over the heads and a zero initial state, as the Mamba2 block passes
-    them; no single PyTorch call computes the recurrence."""
+def time_ssd(dev, rng, err, shape=SSD_SHAPE):
+    """ssd_scan at zamba2-2.7b's prefill (or ``shape``): B and C in group
+    form expanded over the heads and a zero initial state, as the Mamba2
+    block passes them; no single PyTorch call computes the recurrence."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan
-    B, S, H, hd, N = SSD_SHAPE
+    B, S, H, hd, N = shape
     xdt, Bm, Cm, dA = ssd_inputs(rng, B, S, H, hd, N, torch.float32, dev, group=True)
     h0 = torch.zeros((B, H, hd, N), device=dev)
     with torch.inference_mode():
@@ -1662,7 +1788,31 @@ def time_ssd(dev, rng, err):
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:55",
-            "max_abs_err": err,
+            "max_abs_err": err, "shape": shape,
+            "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes),
+            "library_ms": None}
+
+
+def time_moe(dev, rng, err):
+    """The grouped expert products at granite-4.0-h-small's cell (one call:
+    the gate and up products, the down product, the combine); no single
+    PyTorch call computes them without the expert counts on the host."""
+    from repro_torch.kernels import ops, ref
+    T, D, F, E, held, K = GRANITE_MOE_SHAPE
+    args = moe_inputs(rng, *GRANITE_MOE_SHAPE, dev)
+    rows = int(args[2][-1])
+    with torch.inference_mode():
+        ms = device_ms(lambda i: ops.moe_experts(*args), 1)
+        plain_ms = device_ms(lambda i: ref.moe_experts_ref(*args), 1, iters=3, warmup=1)
+    # the three products of the held rows; bytes: the held experts'
+    # weights, the tokens' rows, the SwiGLU's rows out and back, the
+    # weighted rows out and the combine's output
+    flops = 2 * rows * 3 * D * F
+    nbytes = 4 * (3 * held * D * F + rows * D + 2 * rows * F + 2 * rows * D + T * D)
+    return {"name": "moe_experts", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe.cu",
+            "replaces": "none (the JAX package's MoE layer drops assignments; einsums)",
+            "max_abs_err": err, "shape": GRANITE_MOE_SHAPE, "rows": rows,
             "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes),
             "library_ms": None}
 
@@ -3682,6 +3832,7 @@ def main():
         errs = {"flash_attention": check_flash(dev, rng),
                 "decode_attention": check_decode(dev, rng),
                 "rwkv6_scan": check_rwkv(dev, rng), "ssd_scan": check_ssd(dev, rng)}
+        granite_errs = {"ssd_scan": check_ssd_granite(dev, rng), "moe_experts": check_moe(dev, rng)}
         # the combine of a cache sharded over its slots, as segments on one card
         segments_err = decode_segments(dev, rng)
         for kernel, counts in sass.result().items():
@@ -3697,6 +3848,11 @@ def main():
         kernels.append(timer(dev, rng, errs[name]))
     for k in kernels:
         log_timing(k)
+    # granite-4.0-h-small's: the grouped expert products and the scan at state 128
+    granite_kernels = [time_moe(dev, rng, granite_errs["moe_experts"]),
+                       time_ssd(dev, rng, granite_errs["ssd_scan"], GRANITE_SSD_SHAPE)]
+    for k in granite_kernels:
+        log_timing(k, f"{k['name']} (granite-4.0-h-small, {k['shape']})")
     # the attention kernels at zamba2-2.7b's shared block: head_dim 80, 32 kv heads
     hd80 = [time_flash(dev, rng, 32, 32, 80),
             time_decode(dev, rng, 32, 32, 80)]
@@ -3743,6 +3899,7 @@ def main():
         slices.append(stats)
         if arch == SYNC_FREE_ARCH:
             stats["sync_free_pass"] = check_sync_free_pass(dev)
+    granite = check_sync_free_granite(dev)
     # phase 9, training, after the slices
     train = run_train(dev)
     # phase 10, the mesh layer, last
@@ -3750,6 +3907,8 @@ def main():
     launches["decode_attention_partial"] = (
         mesh["serve"]["slot_sharded"]["decode_launches"]["decode_attention_partial"])
     kernels = ([{**k, "launches": launches[k["name"]]} for k in kernels]
+               + [{**k, "launches": granite["launches_a_pass"][k["name"]]}
+                  for k in granite_kernels]
                + [planner_kernel, tables_kernel])
     timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms",
                    "max_abs_err")
@@ -3769,6 +3928,7 @@ def main():
     print(json.dumps({"kernels": kernels}), flush=True)
     for stats in slices:
         print(json.dumps({"slice": {**stats, "gpu": smi}}), flush=True)
+    print(json.dumps({"granite": {**granite, "gpu": smi}}), flush=True)
     print(json.dumps({"planner": {"random_clusters": clusters, **planner, "gpu": smi}}),
           flush=True)
     print(json.dumps({"simulator": {"table_grids": grids, **simulator_stats, "gpu": smi}}),

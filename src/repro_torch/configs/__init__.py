@@ -1,7 +1,7 @@
 """Config registry: ``--arch <id>`` lookup for every assigned architecture."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchConfig, reduced
+from repro_torch.configs.base import ArchConfig, GraniteConfig, reduced
 from repro_torch.configs import (
     whisper_large_v3,
     yi_6b,
@@ -13,6 +13,7 @@ from repro_torch.configs import (
     qwen3_4b,
     mixtral_8x22b,
     dbrx_132b,
+    granite_4h_small,
 )
 
 REGISTRY: dict[str, ArchConfig] = {
@@ -27,6 +28,8 @@ REGISTRY: dict[str, ArchConfig] = {
     "qwen3-4b-swa": qwen3_4b.CONFIG_SWA,   # beyond-paper long-context variant
     "mixtral-8x22b": mixtral_8x22b.CONFIG,
     "dbrx-132b": dbrx_132b.CONFIG,
+    # served beyond the paper's ten (a benchmark configuration, not an assignment)
+    "granite-4.0-h-small": granite_4h_small.CONFIG,
 }
 
 # The 10 assigned architectures (qwen3-4b-swa is a variant, not an assignment).
@@ -50,4 +53,4 @@ def get_config(name: str) -> ArchConfig:
     return REGISTRY[name]
 
 
-__all__ = ["ArchConfig", "REGISTRY", "ASSIGNED", "get_config", "reduced"]
+__all__ = ["ArchConfig", "GraniteConfig", "REGISTRY", "ASSIGNED", "get_config", "reduced"]

@@ -3,15 +3,21 @@
 Every assigned architecture is a frozen ``ArchConfig``; the model zoo
 (`repro_torch.models.zoo`) builds a concrete PyTorch model from it.
 Configs carry citations to their source paper / model card in ``source``.
-This module is a verbatim copy of the JAX package's config system, so
-both packages read the same architectures.
+``ArchConfig`` is a verbatim copy of the JAX package's config system, so
+both packages read the same architectures.  ``GraniteConfig`` (below) is
+the port's own: it adds the fields granite-4.0-h needs (a held share of
+the experts, the dropless MoE with a shared expert, and the muP
+multipliers); ``ArchConfig`` reads each of them as a class default, the
+behaviour every other configuration has.
 
 Block kinds (``block_pattern`` entries):
   "attn"    -- self-attention + MLP (dense or MoE depending on n_experts)
   "mamba2"  -- Mamba2 / SSD block (used by zamba2, standalone ssm archs)
   "rwkv6"   -- RWKV6 time-mix + channel-mix block
 A hybrid arch interleaves kinds via ``block_pattern``; homogeneous archs
-use a single entry that is repeated ``n_layers`` times.
+use a single entry that is repeated ``n_layers`` times.  In a pattern that
+mixes "attn" and "mamba2" (granite-4.0-h) every layer is its mixer and
+then its FFN; zamba2's Mamba2 blocks, a uniform pattern, have no FFN.
 """
 from __future__ import annotations
 
@@ -75,6 +81,16 @@ class ArchConfig:
     # -- hybrid (zamba2) ------------------------------------------------------
     shared_attn_every: int = 0     # apply the weight-tied shared attn block every k layers
 
+    # -- GraniteConfig's fields, as every other configuration has them:
+    # class defaults, not fields, so that the fields stay the JAX package's
+    experts_held = 0
+    moe_dropless = False
+    shared_expert_ff = 0
+    embedding_multiplier = 1.0
+    residual_multiplier = 1.0
+    attention_multiplier = None
+    logits_scaling = 1.0
+
     # -- modality frontend (STUB per brief: precomputed embeddings) ----------
     frontend: Optional[str] = None   # None | "audio" | "vision"
     vision_patches: int = 256        # patches prepended for the VLM stub
@@ -110,6 +126,22 @@ class ArchConfig:
         return (self.block_pattern * reps)[: self.n_layers]
 
     @property
+    def n_held(self) -> int:
+        """Experts of each MoE layer whose weights this card holds."""
+        return self.experts_held or self.n_experts
+
+    @property
+    def mamba_ffn(self) -> bool:
+        """A pattern mixing Mamba2 and attention layers: each Mamba2 layer
+        carries an FFN after its mixer, as each attention layer does."""
+        return "mamba2" in self.pattern and "attn" in self.pattern
+
+    @property
+    def attn_layers(self) -> list:
+        """Indices of the attention layers."""
+        return [i for i, k in enumerate(self.pattern) if k == "attn"]
+
+    @property
     def attention_free(self) -> bool:
         return all(k in ("mamba2", "rwkv6") for k in self.pattern) and self.shared_attn_every == 0
 
@@ -137,13 +169,14 @@ class ArchConfig:
         if self.qkv_bias:
             attn += q + 2 * kv
         mlp_dense = (3 if self.act_fn == "silu" else 2) * d * ff
-        mlp_moe = self.n_experts * mlp_dense + d * self.n_experts
+        mlp_moe = self.n_held * mlp_dense + d * self.n_experts + 3 * d * self.shared_expert_ff
+        ffn = mlp_moe if self.is_moe else mlp_dense
         n = V * d                                   # token embedding
         if not self.tie_embeddings:
             n += V * d                              # lm head
         for kind in self.pattern:
             if kind == "attn":
-                n += attn + (mlp_moe if self.is_moe else mlp_dense)
+                n += attn + ffn
                 n += 2 * d                          # two rmsnorm scales
             elif kind == "mamba2":
                 d_in = self.ssm_expand * d
@@ -151,6 +184,8 @@ class ArchConfig:
                 n += d * (2 * d_in + 2 * heads * self.ssm_state + heads)  # in/x/B/C/dt proj
                 n += d_in * self.d_conv + d_in      # conv + bias
                 n += d_in * d + d                   # out proj + norm
+                if self.mamba_ffn:
+                    n += ffn + d                    # the FFN and its norm
             elif kind == "rwkv6":
                 # time-mix: r,k,v,g,w projections + output, channel-mix: 2 mats
                 n += 6 * d * d + 2 * d * ff + 2 * d
@@ -170,8 +205,24 @@ class ArchConfig:
             return self.n_params()
         d, ff = self.d_model, self.d_ff
         per_expert = 3 * d * ff
-        inactive = (self.n_experts - self.top_k) * per_expert * self.n_layers
-        return self.n_params() - inactive
+        moe_layers = self.n_layers if self.mamba_ffn else self.pattern.count("attn")
+        inactive = (self.n_held - self.top_k * self.n_held // self.n_experts) * per_expert
+        return self.n_params() - inactive * moe_layers
+
+
+@dataclass(frozen=True)
+class GraniteConfig(ArchConfig):
+    """An ``ArchConfig`` with the port's own fields, which granite-4.0-h
+    needs; each default is ``ArchConfig``'s class default."""
+    # experts this card holds of each MoE layer (experts 0 .. experts_held - 1;
+    # the router keeps all n_experts outputs); 0 = all of them
+    experts_held: int = 0
+    moe_dropless: bool = False     # every assignment to a held expert computed, none dropped
+    shared_expert_ff: int = 0      # width of a shared SwiGLU expert beside the routed ones
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0   # on every mixer's and FFN's output before the add
+    attention_multiplier: Optional[float] = None   # score scale; None = 1 / sqrt(head_dim)
+    logits_scaling: float = 1.0        # logits divided by it
 
 
 def reduced(cfg: ArchConfig, *, layers: int = 2, d_model: int = 256,

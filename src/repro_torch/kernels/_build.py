@@ -1,7 +1,7 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-The sources in ``csrc/`` (``attention.cu`` and ``scan.cu``, sharing
-``common.cuh``, ``planner.cu`` and ``physics.cu``) have a plain C interface
+The sources in ``csrc/`` (``attention.cu``, ``scan.cu`` and ``moe.cu``,
+sharing ``common.cuh``, ``planner.cu`` and ``physics.cu``) have a plain C interface
 and include no PyTorch header.
 ``nvcc`` compiles each source to an object file, all of them at once in
 parallel processes, and links the objects into one shared library, which
@@ -29,7 +29,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "attention.cu", CSRC / "scan.cu", CSRC / "planner.cu",
+SOURCES = (CSRC / "attention.cu", CSRC / "scan.cu", CSRC / "moe.cu", CSRC / "planner.cu",
            CSRC / "physics.cu")
 HEADERS = (CSRC / "common.cuh",)
 ROOT = Path(__file__).resolve().parents[3]       # <root>/src/repro_torch/kernels
@@ -98,6 +98,9 @@ def _bind(lib):
     lib.repro_ssd_scan.argtypes = [
         i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i64p, vp]
     lib.repro_ssd_scan.restype = i32
+    lib.repro_moe_experts.argtypes = [
+        i32, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+    lib.repro_moe_experts.restype = i32
     lib.repro_alloc_all.argtypes = [vp, vp, i32, i32, vp]
     lib.repro_alloc_all.restype = i32
     lib.repro_tables.argtypes = [vp, vp, i32, i32, vp]

@@ -747,6 +747,11 @@ cudaError_t dispatch_ssd_n(const SsdArgs& a, int n, cudaStream_t stream) {
     case 16: return launch_ssd<T, HD, 16>(a, stream);
     case 32: return launch_ssd<T, HD, 32>(a, stream);
     case 64: return launch_ssd<T, HD, 64>(a, stream);
+    // granite-4.0-h's state: heads of 64 only.  121,344 B of shared memory
+    // in float32 (one block an SM) and C's 64 fragment registers a thread
+    case 128:
+      if constexpr (HD == 64) return launch_ssd<T, HD, 128>(a, stream);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

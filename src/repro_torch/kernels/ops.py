@@ -13,6 +13,7 @@ from repro_torch.kernels.decode_attention import (combine_partials, decode_atten
                                                    decode_attention_partial)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.grant_loop import alloc_all
+from repro_torch.kernels.moe_gemm import moe_experts
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.tables import tables
@@ -22,6 +23,7 @@ KERNELS = {"flash_attention": flash_attention,
            "decode_attention_partial": decode_attention_partial,
            "rwkv6_scan": rwkv6_scan,
            "ssd_scan": ssd_scan,
+           "moe_experts": moe_experts,
            "alloc_all": alloc_all,
            "tables": tables}
 
@@ -74,6 +76,6 @@ def launch_counts() -> dict:
 
 
 __all__ = ["flash_attention", "decode_attention", "decode_attention_partial",
-           "combine_partials", "rwkv6_scan", "ssd_scan",
+           "combine_partials", "rwkv6_scan", "ssd_scan", "moe_experts",
            "alloc_all", "tables", "reset_launch_counts", "launch_counts",
            "register_mesh_rules"]

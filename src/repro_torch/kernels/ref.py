@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the kernels (exact, unchunked).
 
-They compute what ``csrc/attention.cu`` and ``csrc/scan.cu`` compute, in
-float32; attention uses the same finite ``NEG_INF`` mask, and the scans are
+They compute what ``csrc/attention.cu``, ``csrc/scan.cu`` and
+``csrc/moe.cu`` compute, in float32; attention uses the same finite ``NEG_INF`` mask, and the scans are
 the exact step-by-step recurrences, with an initial state.  The CPU path
 of the wrappers runs them, and ``chip_smoke.py`` holds each CUDA kernel
 against them on the card.  Counterpart of the JAX package's
@@ -121,3 +121,27 @@ def ssd_ref(xdt, Bm, Cm, dA, h0=None):
         h = h * af[:, t, :, None, None] + xf[:, t, :, :, None] * bf[:, t, :, None, :]
         ys.append(torch.einsum("bhn,bhdn->bhd", cf[:, t], h))
     return torch.stack(ys, dim=1), h
+
+
+def moe_experts_ref(x, tok, offsets, gates, pos, w_gate, w_up, w_down):
+    """The held experts' part of a dropless MoE layer over rows sorted by
+    expert.  x: (T, D); tok, gates: (A,) each sorted assignment's token and
+    gate, the rows of held expert e at offsets[e] .. offsets[e + 1] - 1 and
+    the rest past offsets[-1]; pos: (T, K) each (token, k) assignment's
+    sorted row; w_gate, w_up: (E_held, D, F); w_down: (E_held, F, D).
+    Returns y (T, D) float32: sum over k of the token's held assignments of
+    gate * W_down^T (silu(W_gate^T x) * W_up^T x), in k order."""
+    T, D = x.shape
+    A = tok.shape[0]
+    off = offsets.tolist()
+    o = torch.zeros((A + 1, D), dtype=torch.float32, device=x.device)  # row A: no held expert
+    for e in range(len(off) - 1):
+        r = slice(off[e], off[e + 1])
+        xe = x[tok[r].long()].float()
+        h = torch.nn.functional.silu(xe @ w_gate[e].float()) * (xe @ w_up[e].float())
+        o[r] = gates[r, None].float() * (h @ w_down[e].float())
+    rows = torch.where(pos < off[-1], pos, A).long()
+    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for k in range(pos.shape[1]):
+        y += o[rows[:, k]]
+    return y

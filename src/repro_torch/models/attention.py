@@ -103,7 +103,17 @@ def project_kv(p, x, cfg):
 
 
 def _project_qkv(p, x, cfg):
-    return (_project_q(p, x, cfg), *project_kv(p, x, cfg))
+    return (_scale_q(_project_q(p, x, cfg), cfg), *project_kv(p, x, cfg))
+
+
+def _scale_q(q, cfg):
+    """q for a score scale of its own (``cfg.attention_multiplier``, granite's
+    1/128): pre-scaled by attention_multiplier·sqrt(hd), so that the
+    kernels' 1/sqrt(hd) leaves the scores at the multiplier.  Without one,
+    q as it is."""
+    if cfg.attention_multiplier is None:
+        return q
+    return q * (cfg.attention_multiplier * math.sqrt(cfg.hd))
 
 
 def _position_table(cfg, positions, positions_thw=None):

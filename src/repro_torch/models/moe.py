@@ -1,7 +1,10 @@
-"""Mixture-of-Experts layer (Mixtral / DBRX style top-k routing).
+"""Mixture-of-Experts layer (Mixtral / DBRX style top-k routing), and the
+dropless served layer of granite-4.0-h.
 
 Counterpart of the JAX package's ``models/moe.py``: ``apply_moe``, and
-``apply_moe_ep``, the expert-parallel layer for a mesh (below).
+``apply_moe_ep``, the expert-parallel layer for a mesh (below).  The port
+adds ``apply_moe_dropless`` (further below), which the JAX package has
+not.
 ``apply_moe`` computes the same function:
 
 * router logits in float32, a softmax, the top k with ties to the lower
@@ -40,7 +43,8 @@ all-gather and a reduce-scatter over tp, an all-to-all back).
 dropped (``drop_counts``, ``reset_drop_counts``), as the kernels count
 their launches; the dropped count stays on the tensor's device until it
 is read (an integer tensor: it holds no graph), and a remat recompute in
-the backward counts again.  Training differentiates ``apply_moe`` as it
+the backward counts again.  ``apply_moe_dropless`` counts in
+``held_counts`` (below).  Training differentiates ``apply_moe`` as it
 is: the gather and combine are indexing, so the gradient reaches the
 experts, the gates (and through them the router) and the aux loss.
 """
@@ -52,7 +56,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import P, constrain, is_dtensor, mesh_shape, placements
-from repro_torch.models.layers import _dense_init, mm
+from repro_torch.kernels import ops
+from repro_torch.models.layers import _dense_init, apply_mlp, init_mlp, mm, specs_mlp
+from repro_torch.profiling.spans import span
 
 _drops: dict = {}          # layer -> (dropped assignments (tensor), assignments)
 
@@ -68,26 +74,33 @@ def drop_counts() -> dict:
 
 
 def init_moe(generator, cfg, device):
+    """The router over all ``n_experts``; the weights of the ``n_held``
+    experts this card holds; a shared expert where ``shared_expert_ff``."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     sh = cfg.expert_shards
-    Ev, Fv = E * sh, ff // sh       # virtual experts (F-split; sh = 1 = off)
+    Ev, Fv = cfg.n_held * sh, ff // sh     # virtual experts (F-split; sh = 1 = off)
     assert ff % sh == 0
-    return {
+    p = {
         "router": _dense_init((d, E), generator, device),
         "w_gate": _dense_init((Ev, d, Fv), generator, device, in_axis=1),
         "w_up": _dense_init((Ev, d, Fv), generator, device, in_axis=1),
         "w_down": _dense_init((Ev, Fv, d), generator, device, in_axis=1),
     }
+    if cfg.shared_expert_ff:
+        p["shared"] = init_mlp(generator, d, cfg.shared_expert_ff, device)
+    return p
 
 
 def specs_moe(cfg):
-    del cfg
-    return {
+    s = {
         "router": P(None, None),
         "w_gate": P("exp", "fsdp", "tp"),
         "w_up": P("exp", "fsdp", "tp"),
         "w_down": P("exp", "tp", "fsdp"),
     }
+    if cfg.shared_expert_ff:
+        s["shared"] = specs_mlp()
+    return s
 
 
 def _route(router_w, x, top_k: int):
@@ -228,6 +241,109 @@ def apply_moe(p, x, cfg, *, chunk: int = 512, layer: int = 0,
     seen, total = _drops.get(layer, (0, 0))
     _drops[layer] = (seen + dropped, total + B * S * K)
     return (ys[0] if n == 1 else torch.cat(ys, 1)), aux
+
+
+# ---------------------------------------------------------------------------
+# The dropless served layer (granite-4.0-h)
+# ---------------------------------------------------------------------------
+
+_held: dict = {}           # layer -> (counts tensor on the device, calls)
+
+
+def reset_held_counts():
+    _held.clear()
+
+
+def held_counts() -> dict:
+    """{layer: {"assignments", "max_rows", "dropped", "calls"}} over the
+    ``apply_moe_dropless`` calls since the last reset: the assignments to
+    held experts (all computed), the most rows one held expert took in a
+    call, and the assignments past the rows the expert products' grid
+    covers (0: an expert takes at most one assignment a token, and the grid
+    covers as many rows as tokens).  Reading it synchronises with the
+    device; read it after the window, as ``drop_counts``."""
+    out = {}
+    for layer, (c, calls) in sorted(_held.items()):
+        n, rows, dropped = c.tolist()
+        out[layer] = {"assignments": n, "max_rows": rows, "dropped": dropped, "calls": calls}
+    return out
+
+
+def _count_held(layer: int, offsets, T: int):
+    """Accumulate a call's counts on the device (no host synchronisation)."""
+    rows = offsets[1:] - offsets[:-1]
+    c = torch.stack([offsets[-1], rows.max(), (rows - T).clamp(min=0).sum()])
+    calls = 0
+    if layer in _held:
+        prev, calls = _held[layer]
+        c = torch.stack([prev[0] + c[0], torch.maximum(prev[1], c[1]), prev[2] + c[2]])
+    _held[layer] = (c, calls + 1)
+
+
+def route_sorted(router_w, x, K: int, held: int):
+    """Route the tokens x (T, D) over all experts and sort the assignments
+    by expert, on the device -> (tok, gates, offsets, pos): each sorted
+    assignment's token and gate (T·K,); offsets (held + 1,), held expert
+    e's rows offsets[e] .. offsets[e + 1] - 1, the assignments to experts
+    this card does not hold past offsets[held]; pos (T, K), each (token, k)
+    assignment's sorted row.  A stable sort on the expert id keeps each
+    expert's rows in token order."""
+    T = x.shape[0]
+    ids, gates, _ = _route(router_w, x, K)                       # (T, K)
+    key = torch.where(ids < held, ids, held).reshape(-1)
+    key, perm = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(key, torch.arange(held + 1, device=x.device, dtype=key.dtype))
+    pos = torch.empty_like(perm).scatter_(0, perm, torch.arange(T * K, device=x.device))
+    return perm // K, gates.reshape(-1)[perm], offsets, pos.view(T, K)
+
+
+def apply_moe_dropless(p, x, cfg, *, layer: int = 0):
+    """x: (B, S, D) -> (B, S, D): the held experts' part of a dropless
+    top-k MoE layer, plus the shared expert.
+
+    The router keeps all ``n_experts`` outputs in float32: softmax, top k
+    (ties to the lower expert), gates renormalised over the k chosen, as
+    ``_route`` (equal to a softmax over the chosen logits).  Each
+    assignment to one of the ``n_held`` experts this card holds (experts
+    0 .. n_held - 1) is computed, none dropped; the others are this card's
+    share of zero (on a card of an expert-parallel group, the other cards
+    add theirs).  Everything stays on the device: the assignments sorted by
+    expert and each expert's row offsets (``route_sorted``), then the
+    grouped expert products and their deterministic combine
+    (``ops.moe_experts``), then the shared expert through ``mm``.  Spans
+    ``model.moe.route``, ``model.moe.experts`` and ``model.moe.shared``;
+    counts under ``layer`` (``held_counts``)."""
+    B, S, D = x.shape
+    T, K, held = B * S, cfg.top_k, cfg.n_held
+    xf = x.reshape(T, D)
+    with span("model.moe.route"):
+        tok, gates, offsets, pos = route_sorted(p["router"], xf, K, held)
+        _count_held(layer, offsets, T)
+    with span("model.moe.experts"):
+        y = ops.moe_experts(xf, tok, offsets, gates, pos, p["w_gate"], p["w_up"], p["w_down"])
+    y = y.to(x.dtype)
+    if "shared" in p:
+        with span("model.moe.shared"):
+            y = y + apply_mlp(p["shared"], xf)
+    return y.view(B, S, D)
+
+
+def moe_dropless_plain(p, x, cfg):
+    """``apply_moe_dropless`` without the sort: each held expert's tokens
+    weighted by their gates, plus the shared expert; the yardstick of the
+    tests and of ``chip_smoke.py``, never on the served path."""
+    B, S, D = x.shape
+    xf = x.reshape(-1, D)
+    ids, gates, _ = _route(p["router"], xf, cfg.top_k)
+    y = torch.zeros_like(xf, dtype=torch.float32)
+    for e in range(cfg.n_held):
+        w = (gates * (ids == e)).sum(-1)                         # (T,) 0 where not chosen
+        h = F.silu(xf.float() @ p["w_gate"][e].float()) * (xf.float() @ p["w_up"][e].float())
+        y = y + w[:, None] * (h @ p["w_down"][e].float())
+    y = y.to(x.dtype)
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], xf)
+    return y.view(B, S, D)
 
 
 # ---------------------------------------------------------------------------

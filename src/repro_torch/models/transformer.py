@@ -2,8 +2,11 @@
 ("attn" blocks, with a SwiGLU or GELU MLP or a top-k MoE layer), qwen2-vl
 ("attn" blocks with M-RoPE and the vision stub), whisper (an encoder of
 "attn" blocks and a decoder whose blocks cross-attend to it), RWKV6
-("rwkv6" blocks) and Mamba2 with Zamba2's shared attention ("mamba2"
-blocks, ``shared_attn_every``).
+("rwkv6" blocks), Mamba2 with Zamba2's shared attention ("mamba2"
+blocks, ``shared_attn_every``) and granite-4.0-h's mix of "mamba2" and
+"attn" layers, each followed by its FFN (``cfg.mamba_ffn``: the dropless
+MoE and its shared expert), with its muP multipliers on the embedding,
+every residual branch and the logits.
 
 Counterpart of the JAX package's ``models/transformer.py``: for serving
 ``init_params``, ``init_cache``, ``prefill`` and ``decode_step``, plus
@@ -21,13 +24,17 @@ precomputed ``frames`` (whisper) or ``patches`` (qwen2-vl) beside its
 The cache is updated in place.  A recurrent prefill starts from the
 cache's state, as in JAX; ``reset_cache`` zeros every recurrent state,
 conv tail and token shift and qwen2-vl's M-RoPE offset, so a reused cache
-starts where a fresh one does.  ``step`` and ``mrope_delta`` are host
+starts where a fresh one does.  A mixed pattern's cache holds a KV cache
+for each attention layer beside the conv tail and SSD state of each Mamba2
+layer.  ``step`` and ``mrope_delta`` are host
 ints (they follow from shapes).
 
 While a profiler records, ``prefill`` and ``decode_step`` emit the spans
 ``model.embed``, ``model.mix`` and ``model.ffn`` (each block's mixer and
 its MLP or channel mix, each with its norm) and ``model.head``
-(``profiling/spans.py``); ``forward`` emits none.
+(``profiling/spans.py``); inside ``model.ffn`` the dropless MoE emits
+``model.moe.route``, ``model.moe.experts`` and ``model.moe.shared``
+(``models/moe.py``); ``forward`` emits none.
 """
 from __future__ import annotations
 
@@ -51,11 +58,13 @@ from repro_torch.tree import tree_map
 
 def check_supported(cfg: ArchConfig):
     """Raise for a configuration the assembly does not build: a
-    non-uniform block pattern (as the JAX package's ``_uniform_kind``), and
-    encoders, cross-attention, frontends or M-RoPE on other than "attn"
-    blocks."""
+    non-uniform block pattern (as the JAX package's ``_uniform_kind``) other
+    than a mix of "mamba2" and "attn" layers without zamba2's shared
+    attention, and encoders, cross-attention, frontends or M-RoPE on other
+    than "attn" blocks."""
     kinds = set(cfg.pattern)
-    if len(kinds) != 1 or not kinds <= {"attn", "rwkv6", "mamba2"}:
+    mixed = kinds == {"attn", "mamba2"} and not cfg.shared_attn_every
+    if not (len(kinds) == 1 or mixed) or not kinds <= {"attn", "rwkv6", "mamba2"}:
         raise NotImplementedError(f"{cfg.name}: block kinds {sorted(kinds)}")
     if cfg.shared_attn_every and (kinds != {"mamba2"} or cfg.n_layers % cfg.shared_attn_every):
         raise NotImplementedError(
@@ -95,10 +104,6 @@ def _c(x, spec, shard: ShardingHints):
     return constrain(x, spec, shard.mesh)
 
 
-def _kind(cfg: ArchConfig) -> str:
-    return cfg.pattern[0]
-
-
 def _groups(cfg: ArchConfig) -> int:
     """Zamba2: applications of the shared attention block (one per group of
     ``shared_attn_every`` Mamba2 layers); 0 for other families."""
@@ -109,23 +114,29 @@ def _groups(cfg: ArchConfig) -> int:
 # Params
 # ---------------------------------------------------------------------------
 
+def _init_ffn(generator, cfg: ArchConfig, device):
+    if cfg.is_moe:
+        return {"moe": moe_lib.init_moe(generator, cfg, device)}
+    return {"ffn": L.init_mlp(generator, cfg.d_model, cfg.d_ff, device, cfg.act_fn)}
+
+
 def _init_block(generator, cfg: ArchConfig, device, kind: str, *, cross: bool = False):
     if kind == "attn":
         ln_bias = cfg.family == "encdec"            # whisper: LayerNorm with a bias
         p = {"ln1": L.init_norm(cfg.d_model, device, with_bias=ln_bias),
              "attn": attn_lib.init_attention(generator, cfg, device),
-             "ln2": L.init_norm(cfg.d_model, device, with_bias=ln_bias)}
-        if cfg.is_moe:
-            p["moe"] = moe_lib.init_moe(generator, cfg, device)
-        else:
-            p["ffn"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, device, cfg.act_fn)
+             "ln2": L.init_norm(cfg.d_model, device, with_bias=ln_bias),
+             **_init_ffn(generator, cfg, device)}
         if cross:
             p["ln_c"] = L.init_norm(cfg.d_model, device, with_bias=ln_bias)
             p["cross"] = attn_lib.init_attention(generator, cfg, device)
         return p
     if kind == "mamba2":
-        return {"ln1": L.init_norm(cfg.d_model, device),
-                "mamba": ssm_lib.init_mamba2(generator, cfg, device)}
+        p = {"ln1": L.init_norm(cfg.d_model, device),
+             "mamba": ssm_lib.init_mamba2(generator, cfg, device)}
+        if cfg.mamba_ffn:
+            p.update(ln2=L.init_norm(cfg.d_model, device), **_init_ffn(generator, cfg, device))
+        return p
     return {"ln1": L.init_norm(cfg.d_model, device, with_bias=True),
             "ln2": L.init_norm(cfg.d_model, device, with_bias=True),
             "rwkv": rwkv_lib.init_rwkv6(generator, cfg, device)}
@@ -138,8 +149,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     p: Dict[str, Any] = {
         "embed": L.init_embedding(generator, cfg.vocab_size, cfg.d_model, device),
         "final_norm": L.init_norm(cfg.d_model, device, with_bias=cfg.family == "encdec"),
-        "blocks": [_init_block(generator, cfg, device, _kind(cfg), cross=cfg.cross_attention)
-                   for _ in range(cfg.n_layers)],
+        "blocks": [_init_block(generator, cfg, device, kind, cross=cfg.cross_attention)
+                   for kind in cfg.pattern],
     }
     if not cfg.tie_embeddings:
         p["head"] = L.init_head(generator, cfg.d_model, cfg.vocab_size, device)
@@ -158,21 +169,21 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 def _specs_block(cfg: ArchConfig, kind: str, *, cross: bool = False):
     """One layer's logical specs: the JAX package's stacked spec without
     its leading None (the port keeps one dict per layer)."""
+    ffn = {"moe": moe_lib.specs_moe(cfg)} if cfg.is_moe else {"ffn": L.specs_mlp(cfg.act_fn)}
     if kind == "attn":
         ln_bias = cfg.family == "encdec"
         p = {"ln1": L.specs_norm(with_bias=ln_bias),
              "attn": attn_lib.specs_attention(cfg),
-             "ln2": L.specs_norm(with_bias=ln_bias)}
-        if cfg.is_moe:
-            p["moe"] = moe_lib.specs_moe(cfg)
-        else:
-            p["ffn"] = L.specs_mlp(cfg.act_fn)
+             "ln2": L.specs_norm(with_bias=ln_bias), **ffn}
         if cross:
             p["ln_c"] = L.specs_norm(with_bias=ln_bias)
             p["cross"] = attn_lib.specs_attention(cfg)
         return p
     if kind == "mamba2":
-        return {"ln1": L.specs_norm(), "mamba": ssm_lib.specs_mamba2(cfg)}
+        p = {"ln1": L.specs_norm(), "mamba": ssm_lib.specs_mamba2(cfg)}
+        if cfg.mamba_ffn:
+            p.update(ln2=L.specs_norm(), **ffn)
+        return p
     return {"ln1": L.specs_norm(with_bias=True), "ln2": L.specs_norm(with_bias=True),
             "rwkv": rwkv_lib.specs_rwkv6(cfg)}
 
@@ -183,8 +194,8 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
     s: Dict[str, Any] = {
         "embed": L.specs_embedding(),
         "final_norm": L.specs_norm(with_bias=cfg.family == "encdec"),
-        "blocks": [_specs_block(cfg, _kind(cfg), cross=cfg.cross_attention)
-                   for _ in range(cfg.n_layers)],
+        "blocks": [_specs_block(cfg, kind, cross=cfg.cross_attention)
+                   for kind in cfg.pattern],
     }
     if not cfg.tie_embeddings:
         s["head"] = L.specs_head()
@@ -220,13 +231,26 @@ def cast_params(params, dtype):
 
 
 def _logits(params, cfg: ArchConfig, x, shard: ShardingHints = NO_HINTS):
-    """Final norm + unembedding in float32."""
+    """Final norm + unembedding in float32, divided by ``logits_scaling``."""
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps).float()
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["table"].float().T
     else:
         logits = x @ params["head"]["w"].float()
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     return logits if logits.dim() < 3 else _c(logits, shard.logits, shard)
+
+
+def _embed(params, cfg: ArchConfig, tokens):
+    """The table's rows of ``tokens``, times ``embedding_multiplier``."""
+    x = L.embed(params["embed"], tokens)
+    return x if cfg.embedding_multiplier == 1.0 else x * cfg.embedding_multiplier
+
+
+def _branch(cfg: ArchConfig, h):
+    """A residual branch's output times ``residual_multiplier``."""
+    return h if cfg.residual_multiplier == 1.0 else h * cfg.residual_multiplier
 
 
 # ---------------------------------------------------------------------------
@@ -236,21 +260,22 @@ def _logits(params, cfg: ArchConfig, x, shard: ShardingHints = NO_HINTS):
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, *,
                dtype=torch.bfloat16, window: Optional[int] = None,
                device=None):
-    """One cache per layer (heads-major KV, or recurrent state), zamba2's
-    shared-attention KV caches (one per application), whisper's cross K/V
-    (one (B, Se, KV, hd) pair per decoder layer, filled at prefill),
-    qwen2-vl's M-RoPE offset, and the decode step."""
+    """One cache per layer (heads-major KV, or recurrent state: in a mixed
+    pattern each layer's of its own kind), zamba2's shared-attention KV
+    caches (one per application), whisper's cross K/V (one (B, Se, KV, hd)
+    pair per decoder layer, filled at prefill), qwen2-vl's M-RoPE offset,
+    and the decode step."""
     check_supported(cfg)
     window = window if window is not None else cfg.sliding_window
-    kind = _kind(cfg)
-    if kind == "attn":
-        make = lambda: attn_lib.init_kv_cache(batch_size, max_len, cfg, window=window,
-                                              dtype=dtype, device=device)
-    elif kind == "mamba2":
-        make = lambda: ssm_lib.init_mamba_cache(batch_size, cfg, dtype=dtype, device=device)
-    else:
-        make = lambda: rwkv_lib.init_rwkv_cache(batch_size, cfg, dtype=dtype, device=device)
-    cache = {"step": 0, "layers": [make() for _ in range(cfg.n_layers)]}
+
+    def make(kind):
+        if kind == "attn":
+            return attn_lib.init_kv_cache(batch_size, max_len, cfg, window=window,
+                                          dtype=dtype, device=device)
+        if kind == "mamba2":
+            return ssm_lib.init_mamba_cache(batch_size, cfg, dtype=dtype, device=device)
+        return rwkv_lib.init_rwkv_cache(batch_size, cfg, dtype=dtype, device=device)
+    cache = {"step": 0, "layers": [make(kind) for kind in cfg.pattern]}
     if cfg.shared_attn_every:
         # the JAX package windows the shared block only past 64k tokens
         w = window if window is not None else (4096 if max_len > 65536 else None)
@@ -288,7 +313,7 @@ def _attn_mix(bp, x, cfg: ArchConfig, attend, cross=None, shard: ShardingHints =
     """Attention, then whisper's cross-attention (``cross``), each after its
     norm, the residual in ``shard.residual``'s layout after each add."""
     h, _ = attend(bp["attn"], L.apply_norm(bp["ln1"], x, cfg.norm_eps))
-    x = _c(x + h, shard.residual, shard)
+    x = _c(x + _branch(cfg, h), shard.residual, shard)
     if cross is not None:
         x = _c(x + cross(bp["cross"], L.apply_norm(bp["ln_c"], x, cfg.norm_eps)),
                shard.residual, shard)
@@ -297,8 +322,11 @@ def _attn_mix(bp, x, cfg: ArchConfig, attend, cross=None, shard: ShardingHints =
 
 def _attn_ffn(bp, x, cfg: ArchConfig, layer: int = 0, shard: ShardingHints = NO_HINTS):
     """The MLP or the MoE layer after its norm -> (x, the MoE aux loss or
-    None)."""
+    None).  The dropless MoE (granite) has no aux loss."""
     xin = L.apply_norm(bp["ln2"], x, cfg.norm_eps)
+    if cfg.moe_dropless:
+        h = moe_lib.apply_moe_dropless(bp["moe"], xin, cfg, layer=layer)
+        return _c(x + _branch(cfg, h), shard.residual, shard), None
     if cfg.is_moe:
         if shard.moe_ep is not None:
             ep_axis, baxes = shard.moe_ep
@@ -358,15 +386,16 @@ def _rwkv_decode(bp, x, cfg, lc):
 
 def _run_blocks(params, cfg: ArchConfig, x, cache, attend, mamba, rwkv, cross=None,
                 shard: ShardingHints = NO_HINTS):
-    """Every block in order; for zamba2 the shared attention block (with
-    the KV cache of its application) before each group of Mamba2 layers;
-    for whisper each block's cross-attention, ``cross(p, xin, k, v)``, to
-    its layer's cross K/V.  The residual takes ``shard.residual``'s layout
-    after each block (the prefill's hint; the decode step passes none).
-    Each block's mixer runs under the span ``model.mix``, its MLP or
-    channel mix under ``model.ffn``."""
-    every, kind = cfg.shared_attn_every, _kind(cfg)
-    for i, (bp, lc) in enumerate(zip(params["blocks"], cache["layers"])):
+    """Every block in order, each by its own kind; for zamba2 the shared
+    attention block (with the KV cache of its application) before each
+    group of Mamba2 layers; for whisper each block's cross-attention,
+    ``cross(p, xin, k, v)``, to its layer's cross K/V; in a mixed pattern
+    each Mamba2 layer's FFN after its mixer.  The residual takes
+    ``shard.residual``'s layout after each block (the prefill's hint; the
+    decode step passes none).  Each block's mixer runs under the span
+    ``model.mix``, its MLP or channel mix under ``model.ffn``."""
+    every = cfg.shared_attn_every
+    for i, (kind, bp, lc) in enumerate(zip(cfg.pattern, params["blocks"], cache["layers"])):
         if every and i % every == 0:
             x = _served_attn_block(params["shared_attn"], x, cfg,
                                    lambda p, xin, sc=cache["shared"][i // every]:
@@ -379,7 +408,10 @@ def _run_blocks(params, cfg: ArchConfig, x, cache, attend, mamba, rwkv, cross=No
         elif kind == "mamba2":
             with span("model.mix"):
                 h, _ = mamba(bp["mamba"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg, lc)
-                x = _c(x + h, shard.residual, shard)
+                x = _c(x + _branch(cfg, h), shard.residual, shard)
+            if cfg.mamba_ffn:
+                with span("model.ffn"):
+                    x = _attn_ffn(bp, x, cfg, i, shard)[0]
         else:
             x = _c(rwkv(bp, x, cfg, lc), shard.residual, shard)
     return x
@@ -396,7 +428,7 @@ def _embed_inputs(params, cfg: ArchConfig, batch, shard: ShardingHints = NO_HINT
     whisper: the sinusoidal table is added."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = L.embed(params["embed"], tokens)
+    x = _embed(params, cfg, tokens)
     positions_thw = mrope_delta = None
     if cfg.frontend == "vision" and "patches" in batch:
         pe = batch["patches"]
@@ -480,7 +512,7 @@ def decode_step(params, cfg: ArchConfig, token, cache, *, shard: ShardingHints =
     """token: (B, 1) int -> (logits (B, 1, V) float32, cache updated in place);
     of the hints only the logits' applies, as in the JAX package."""
     with span("model.embed"):
-        x = L.embed(params["embed"], token)
+        x = _embed(params, cfg, token)
         if cfg.family == "encdec":        # whisper: the sinusoidal table's row at this step
             x = x + L.sinusoidal_positions(1, cfg.d_model, cache["step"],
                                            x.device).to(x.dtype)
@@ -524,9 +556,10 @@ def _rwkv_block_fwd(bp, x, cfg: ArchConfig, shard: ShardingHints = NO_HINTS):
     return _c(x + h, shard.residual, shard)
 
 
-def _mamba_block_fwd(bp, x, cfg: ArchConfig, shard: ShardingHints = NO_HINTS):
+def _mamba_block_fwd(bp, x, cfg: ArchConfig, layer: int = 0, shard: ShardingHints = NO_HINTS):
     h = ssm_lib.apply_mamba2(bp["mamba"], L.apply_norm(bp["ln1"], x, cfg.norm_eps), cfg)
-    return _c(x + h, shard.residual, shard)
+    x = _c(x + _branch(cfg, h), shard.residual, shard)
+    return _attn_ffn(bp, x, cfg, layer, shard)[0] if cfg.mamba_ffn else x
 
 
 def forward(params, cfg: ArchConfig, batch, *, remat: bool = False,
@@ -540,12 +573,12 @@ def forward(params, cfg: ArchConfig, batch, *, remat: bool = False,
     check_supported(cfg)
     x, positions_thw, _ = _embed_inputs(params, cfg, batch, shard)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    kind, every = _kind(cfg), cfg.shared_attn_every
+    every = cfg.shared_attn_every
     if every:          # zamba2: [shared attention + k Mamba2 layers] groups
         def group(x, g):
             x, _ = _train_attn_block(params["shared_attn"], x, cfg, shard=shard)
             for bp in params["blocks"][g * every:(g + 1) * every]:
-                x = _remat(lambda x, bp=bp: _mamba_block_fwd(bp, x, cfg, shard), remat)(x)
+                x = _remat(lambda x, bp=bp: _mamba_block_fwd(bp, x, cfg, shard=shard), remat)(x)
             return x
         for g in range(_groups(cfg)):
             x = _remat(lambda x, g=g: group(x, g), remat)(x)
@@ -553,7 +586,7 @@ def forward(params, cfg: ArchConfig, batch, *, remat: bool = False,
     enc_out = None
     if cfg.encoder_layers:
         enc_out = _encoder_forward(params, cfg, batch["frames"].to(x.dtype), remat, shard)
-    for i, bp in enumerate(params["blocks"]):
+    for i, (kind, bp) in enumerate(zip(cfg.pattern, params["blocks"])):
         if kind == "attn":
             x, a = _remat(lambda x, bp=bp, i=i: _train_attn_block(
                 bp, x, cfg, positions_thw, enc_out, i, shard), remat)(x)
@@ -562,7 +595,7 @@ def forward(params, cfg: ArchConfig, batch, *, remat: bool = False,
         elif kind == "rwkv6":
             x = _remat(lambda x, bp=bp: _rwkv_block_fwd(bp, x, cfg, shard), remat)(x)
         else:
-            x = _remat(lambda x, bp=bp: _mamba_block_fwd(bp, x, cfg, shard), remat)(x)
+            x = _remat(lambda x, bp=bp, i=i: _mamba_block_fwd(bp, x, cfg, i, shard), remat)(x)
     return L.apply_norm(params["final_norm"], x, cfg.norm_eps), aux
 
 
