@@ -8,10 +8,10 @@ Phases (any failure raises and exits non-zero):
   2. build    -- nvcc builds the CUDA kernels from src/repro_torch/kernels/csrc,
                  one process per source, linked into one library; ptxas's
                  registers, shared memory and spills per kernel; the SASS
-                 (cuobjdump -sass) of every instantiation of the four
+                 (cuobjdump -sass) of every instantiation of the five
                  tensor-core kernels (flash_attn_kernel, ssd_scan_kernel,
-                 rwkv6_scan_kernel, moe_gemm_kernel) must hold tensor-core products (HGMMA /
-                 HMMA ... TF32), every decode_attn_kernel (served and
+                 rwkv6_scan_kernel, moe_gemm_kernel, dense_gemm_kernel) must hold
+                 tensor-core products (HGMMA / HMMA ... TF32), every decode_attn_kernel (served and
                  partial) asynchronous copies (LDGSTS, or TMA's UBLKCP /
                  UTMALDG), and no decode_attn_combine is left; TF32 stays
                  off in torch
@@ -34,7 +34,10 @@ Phases (any failure raises and exits non-zero):
                  the grouped expert products (moe_experts, three launches
                  a call) at granite-4.0-h-small's cell (1,536 tokens, top-10
                  of 72, 18 held), every token on one expert, a ragged
-                 small case and one token;
+                 small case and one token; the 3xTF32 product kernel (gemm)
+                 against its plain version at ragged T, K and N, splits of
+                 K 1 to 8, T = 5 and every benchmark cell's shapes, two
+                 calls bit for bit equal, K = 130 refused;
                  rwkv6: S = 1, 31, 33 at hd 32 and 64, S = 33 from a state;
                  decode: S = 1, 63, 65, 1, 4 and 16 query heads per kv
                  head at every head_dim, windows of 1 and 20, and at the
@@ -95,7 +98,8 @@ Phases (any failure raises and exits non-zero):
                  prefill, logits bit for bit those of RoPE's per-call
                  formula (theta a host tensor), which the guard refuses.
                  Each model's engine is freed before the next one loads.
-  5. timing   -- (run between phases 3 and 4, before any pump is profiled)
+  5. timing   -- (run between phases 3 and 4, before any pump is profiled;
+                 the product kernel's after phase 8)
                  device time (torch.profiler) of each kernel, its plain
                  version and, for attention, one PyTorch library call
                  (scaled_dot_product_attention under its efficient backend
@@ -110,7 +114,13 @@ Phases (any failure raises and exits non-zero):
                  length of its own, decoder, decode on the self and the
                  cross cache); one decode call launches exactly one kernel;
                  the partial variant at qwen3-4b's served cache beside the
-                 served kernel
+                 served kernel; the 3xTF32 product kernel (dense_gemm_kernel,
+                 layers.mm's float32 products) at every shape the three
+                 benchmark cells send it (GEMM_CELLS), beside cuBLAS f32
+                 (x @ w, library_ms) and its plain version, both errors
+                 against float64, each cell's products a pass, layers.mm's
+                 host microseconds a call beside aten::mm's, and rwkv6-1.6b's
+                 cell pass's products through the kernel and left to cuBLAS
   6. planner  -- (run after phase 5, before phase 4) the Alg. 2 grant loop,
                  alloc_all_kernel (csrc/planner.cu, float64), against its
                  plain version on the card and against the port's numpy
@@ -249,7 +259,7 @@ twice with equal tokens and logits, no held assignment dropped
 (check_sync_free_granite).
 Prints one {"kernels": [...]} line (the four kernels, decode's partial
 variant, the grouped expert products and ssd_scan at granite's state 128,
-alloc_all and tables_kernel), one {"slice": {...}} line per model, one
+the 3xTF32 products at each cell shape, alloc_all and tables_kernel), one {"slice": {...}} line per model, one
 {"granite": {...}} line, one {"planner": {...}}
 line, one {"simulator": {...}} line, one {"controller": {...}} line, one
 {"train": {...}} line, one {"mesh": {...}} line (the steps' checks, times
@@ -298,6 +308,25 @@ SSD_SHAPE = (4, 512, 80, 64, 64)         # zamba2-2.7b prefill: B, S, H, hd, N
 GRANITE_ARCH, GRANITE_HELD, GRANITE_BATCH, GRANITE_PROMPT = "granite-4.0-h-small", 18, 24, 64
 GRANITE_SSD_SHAPE = (24, 64, 128, 64, 128)   # its prefill: B, S, H, hd, N
 GRANITE_MOE_SHAPE = (24 * 64, 4096, 768, 72, 18, 10)   # T, D, F, E, held, K
+# the benchmark cells' float32 products that layers.mm sends to the 3xTF32
+# kernel (csrc/gemm.cu): ((T, K, N), calls a pass).  qwen1.5-4b (6 x 64, 40
+# layers): q, k, v, o; gate, up; down.  rwkv6-1.6b (12 x 64, 24 layers): r,
+# k, v, g, o and cm_r; cm_k; cm_v; the token-shift LoRA's down-projection.
+# granite-4.0-h-small (24 x 64, 40 layers): Mamba2 in, out (36); the shared
+# expert's gate and up, down (40); attention q and o, k and v (4).
+GEMM_CELLS = {
+    "qwen15-4b.w6-closed": [((384, 2560, 2560), 160), ((384, 2560, 6912), 80),
+                            ((384, 6912, 2560), 40)],
+    "rwkv6-1.6b.w5-closed": [((768, 2048, 2048), 144), ((768, 2048, 7168), 24),
+                             ((768, 7168, 2048), 24), ((768, 2048, 160), 24)],
+    "granite4-h-small.w6x4-closed": [((1536, 4096, 16768), 36), ((1536, 8192, 4096), 36),
+                                     ((1536, 4096, 1536), 80), ((1536, 1536, 4096), 40),
+                                     ((1536, 4096, 4096), 8), ((1536, 4096, 1024), 8)]}
+# products a pass through the kernel, and left to cuBLAS by the shape rule
+# (rwkv6's rank-64 decay LoRA, granite's 72-wide router)
+GEMM_CELL_PASS = {"qwen15-4b.w6-closed": (280, 0), "rwkv6-1.6b.w5-closed": (216, 48),
+                  "granite4-h-small.w6x4-closed": (208, 40)}
+RWKV6_CELL = ("rwkv6-1.6b", 12, 64)                     # arch, batch, prompt
 
 BATCH, PROMPT, DECODE, PUMPS = 4, 512, 4, 4
 # (arch, layers, encoder layers): every model the port serves, at full
@@ -560,6 +589,7 @@ SASS_CHECKS = {"flash_attn_kernel": (2 * 4, *TENSOR_CORE),
                # x hd 32, 64 x N 16, 32, 64, and N 128 at hd 64
                "ssd_scan_kernel": (2 * (2 * 3 + 1), *TENSOR_CORE),
                "moe_gemm_kernel": (2, *TENSOR_CORE),     # gate and up, down
+               "dense_gemm_kernel": (1, *TENSOR_CORE),   # layers.mm's float32 products
                "rwkv6_scan_kernel": (2 * 2, *TENSOR_CORE),
                # x G = 1, <= 4, <= 16, x served / partial
                "decode_attn_kernel": (2 * 4 * 3 * 2, *ASYNC_COPY),
@@ -1067,6 +1097,51 @@ def check_moe(dev, rng):
     return errs[0]
 
 
+def gemm_operands(rng, T, K, N, dev):
+    """x (T, K) standard normal and w (K, N) at fan-in scale."""
+    return rand(rng, (T, K), torch.float32, dev), rand(rng, (K, N), torch.float32, dev) / K ** 0.5
+
+
+def rel_to_f64(y, x, w):
+    """max |y - x w| over max |x w|, the product taken in float64."""
+    y64 = x.double() @ w.double()
+    return ((y.double() - y64).abs().max() / y64.abs().max()).item()
+
+
+def check_gemm(dev, rng):
+    """The 3xTF32 product kernel against its plain version (at the plan's
+    split of K): ragged T, K and N, splits 1 to 8, T below 64, and every
+    cell's shapes; two calls bit for bit equal, one launch a call; K not a
+    multiple of 4 refused.  Logs the cell shapes where its error against
+    float64 exceeds cuBLAS f32's.  Returns the largest difference from the
+    plain version, over its max."""
+    from repro_torch.kernels import gemm, ops, ref
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    small = [(128, 128, 128), (5, 128, 128), (200, 160, 136), (130, 1000, 300),
+             (768, 2048, 160), (64, 4100, 132)]
+    cells = [shape for shapes in GEMM_CELLS.values() for shape, _ in shapes]
+    worst, worse_than_cublas = 0.0, []
+    with torch.inference_mode():
+        for T, K, N in small + cells:
+            x, w = gemm_operands(rng, T, K, N, dev)
+            before = ops.launch_counts()["gemm"]
+            y = ops.gemm(x, w)
+            assert ops.launch_counts()["gemm"] == before + 1, (T, K, N)
+            assert torch.equal(y, ops.gemm(x, w)), f"gemm {(T, K, N)}: two calls differ"
+            plain = ref.gemm_ref(x, w, splits=gemm.plan(T, K, N, sms)[0])
+            d = ((y - plain).abs().max() / plain.abs().max()).item()
+            assert d <= 2e-6, (T, K, N, d)
+            worst = max(worst, d)
+            if (T, K, N) in cells and rel_to_f64(y, x, w) > rel_to_f64(x @ w, x, w):
+                worse_than_cublas.append((T, K, N))
+        x, w = gemm_operands(rng, 128, 130, 128, dev)
+        expect_refusal("gemm K = 130", lambda: ops.gemm(x, w))
+    log(f"kernels: gemm matches its plain version at {len(small) + len(cells)} shapes "
+        f"(largest difference {worst:.3g} of max), bit for bit twice; its error against "
+        f"float64 above cuBLAS f32's at {worse_than_cublas or 'no'} cell shape")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the slice
 # ---------------------------------------------------------------------------
@@ -1086,7 +1161,30 @@ def want_launches(cfg):
             "decode_attention": per_block * n_attn * (DECODE - 1) * PUMPS,
             "rwkv6_scan": cfg.n_layers * PUMPS if kind == "rwkv6" else 0,
             "ssd_scan": cfg.n_layers * PUMPS if kind == "mamba2" else 0,
-            "moe_experts": 0, "decode_attention_partial": 0, "alloc_all": 0, "tables": 0}
+            "moe_experts": 0, "gemm": prefill_gemms(cfg) * PUMPS,
+            "decode_attention_partial": 0, "alloc_all": 0, "tables": 0}
+
+
+def prefill_gemms(cfg):
+    """layers.mm's products in one prefill of BATCH x PROMPT that the shape
+    rule sends to the 3xTF32 kernel: an attention block's q, k, v, o and its
+    MLP's three (SwiGLU) or two (GELU) products (an MoE block's router,
+    N = experts, stays cuBLAS and its experts are einsums); RWKV6's r, k, v,
+    g, o, cm_k, cm_r, cm_v and token-shift LoRA (its rank-64 decay LoRA stays
+    cuBLAS); Mamba2's in and out projections and zamba2's shared block once
+    a group; whisper's encoder blocks and each decoder block's cross q, o, K
+    and V; qwen2-vl's vision projection.  Decode steps (T = BATCH) stay
+    cuBLAS."""
+    kind = cfg.pattern[0]
+    attn = 4 + (3 if cfg.act_fn == "silu" else 2)
+    per_layer = {"rwkv6": 9, "mamba2": 2}.get(kind, 4 if cfg.is_moe else attn)
+    groups = cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
+    n = cfg.n_layers * per_layer + groups * attn
+    if cfg.encoder_layers:
+        n += cfg.encoder_layers * attn + cfg.n_layers * 4
+    if cfg.frontend == "vision" and cfg.frontend_dim:
+        n += 1
+    return n
 
 
 def random_extras(cfg, B, S, dev, rng):
@@ -1299,7 +1397,7 @@ def check_sync_free_granite(dev):
     synchronises with the card.  Two passes give equal tokens and logits;
     no held assignment is dropped; the launches a pass."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import gemm, ops
     from repro_torch.models import moe
     from repro_torch.serving.engine import ServingEngine
     cfg = get_config(GRANITE_ARCH).replace(experts_held=GRANITE_HELD)
@@ -1315,18 +1413,23 @@ def check_sync_free_granite(dev):
         out = eng._serve(tokens)
         out_again = eng._serve(tokens)
     launches = {k: n // 2 for k, n in ops.launch_counts().items() if n}
+    declined = gemm.gemm.declined // 2
     counts = moe.held_counts()
     assert len(guard.logits) == 2 and np.array_equal(out, out_again), "passes differ"
     assert torch.equal(guard.logits[0], guard.logits[1]), "logits differ between passes"
     assert len(counts) == cfg.n_layers and all(c["dropped"] == 0 and c["assignments"] > 0
                                                for c in counts.values()), counts
-    assert launches == {"flash_attention": 4, "ssd_scan": 36, "moe_experts": 40}, launches
+    want = GEMM_CELL_PASS["granite4-h-small.w6x4-closed"]
+    assert launches == {"flash_attention": 4, "ssd_scan": 36, "moe_experts": 40,
+                        "gemm": want[0]}, launches
+    assert declined == want[1], declined
     assignments = sum(c["assignments"] for c in counts.values()) // 2
     stats = {"arch": GRANITE_ARCH, "layers": cfg.n_layers, "experts_held": GRANITE_HELD,
              "batch": GRANITE_BATCH, "prompt_len": GRANITE_PROMPT,
              "held_assignments_a_pass": assignments,
              "largest_expert_rows": max(c["max_rows"] for c in counts.values()),
-             "dropped": 0, "launches_a_pass": launches, "sync_free": True,
+             "dropped": 0, "launches_a_pass": launches, "gemm_declined_a_pass": declined,
+             "sync_free": True,
              "memory_peak_bytes": torch.cuda.max_memory_allocated(dev),
              "seconds": time.perf_counter() - t0}
     log(f"sync-free pass: {GRANITE_ARCH} ({GRANITE_HELD} of {cfg.n_experts} experts) "
@@ -1346,6 +1449,7 @@ def check_sync_free_pass(dev):
     for bit, the same pass's with RoPE's per-call formula in
     ``rope_freqs``'s place, which the same guard must refuse."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import gemm, ops
     from repro_torch.models import rope
     from repro_torch.serving.engine import ServingEngine
     cfg = get_config(SYNC_FREE_ARCH).replace(**SYNC_FREE_OVERRIDES)
@@ -1354,10 +1458,14 @@ def check_sync_free_pass(dev):
                         decode_tokens=1, seed=0, device=dev)
     tokens = np.random.default_rng(5).integers(
         3, cfg.vocab_size, size=(SYNC_FREE_BATCH, SYNC_FREE_PROMPT)).astype(np.int32)
+    ops.reset_launch_counts()
     with sync_errors(eng) as guard:
         out = eng._serve(tokens)
         out_again = eng._serve(tokens)
+    gemms = (ops.launch_counts()["gemm"] // 2, gemm.gemm.declined // 2)
     assert len(guard.logits) == 2 and np.array_equal(out, out_again), "passes differ"
+    assert torch.equal(guard.logits[0], guard.logits[1]), "logits differ between passes"
+    assert gemms == GEMM_CELL_PASS["qwen15-4b.w6-closed"], gemms
     built = rope.position_table.built
     eng._serve(tokens)
     built = rope.position_table.built - built
@@ -1382,10 +1490,13 @@ def check_sync_free_pass(dev):
     stats = {"arch": SYNC_FREE_ARCH, "layers": cfg.n_layers, "batch": SYNC_FREE_BATCH,
              "prompt_len": SYNC_FREE_PROMPT, **SYNC_FREE_OVERRIDES,
              "tables_a_prefill": built, "logits_equal_per_call_formula": True,
+             "gemm_launches_a_pass": gemms[0], "gemm_declined_a_pass": gemms[1],
              "per_call_formula_refused": refused,
              "seconds": time.perf_counter() - t0}
     log(f"sync-free pass: {SYNC_FREE_ARCH} {SYNC_FREE_BATCH} x {SYNC_FREE_PROMPT}, "
-        f"{cfg.n_layers} layers: no synchronising call in the dispatch, one table a "
+        f"{cfg.n_layers} layers: no synchronising call in the dispatch, two passes bit for "
+        f"bit equal, {gemms[0]} products a pass through the 3xTF32 kernel and {gemms[1]} "
+        f"left to cuBLAS, one table a "
         f"prefill, logits equal to the per-call formula's bit for bit; that formula "
         f"refused ({refused}); {stats['seconds']:.1f} s")
     del eng, guard, control
@@ -1815,6 +1926,108 @@ def time_moe(dev, rng, err):
             "max_abs_err": err, "shape": GRANITE_MOE_SHAPE, "rows": rows,
             "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes),
             "library_ms": None}
+
+
+def host_us(fn, calls=50, reps=7):
+    """Host microseconds a call of fn, issued while the card is kept busy
+    (so the host never waits on it): the median of reps runs of calls."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        torch.cuda._sleep(300_000_000)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(runs))
+
+
+def cell_pass_counts(dev, arch, batch, prompt):
+    """layers.mm's products through the kernel, and left to cuBLAS, in one
+    served pass of ``arch`` at a cell's batch and prompt (full depth)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import gemm, ops
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config(arch)
+    eng = ServingEngine(cfg, batch_size=batch, prompt_len=prompt, decode_tokens=1, seed=0,
+                        device=dev)
+    tokens = np.random.default_rng(3).integers(3, cfg.vocab_size, size=(batch, prompt))
+    ops.reset_launch_counts()
+    eng._serve(tokens.astype(np.int32))
+    counts = (ops.launch_counts()["gemm"], gemm.gemm.declined)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def time_gemm(dev, rng, err):
+    """The 3xTF32 product kernel at every shape the three benchmark cells
+    send through layers.mm: its device ms (CUDA events over 20 calls back
+    to back), its bound (2 T K N at 165 TFLOP/s) and share, its plain
+    version's and cuBLAS f32's ms, both errors against float64, and the
+    products' ms a pass of each cell;
+    layers.mm's host microseconds a call to the kernel, beside layers.mm's
+    to cuBLAS (its path before the kernel) and aten::mm's alone; rwkv6-1.6b's
+    cell pass's launches and declined products (qwen's and granite's come
+    from their sync-free passes)."""
+    from repro_torch.kernels import gemm, ref
+    from repro_torch.models import layers
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, cells = [], {}
+    with torch.inference_mode():
+        for cell, shapes in GEMM_CELLS.items():
+            kernel_pass = cublas_pass = 0.0
+            for (T, K, N), calls in shapes:
+                x, w = gemm_operands(rng, T, K, N, dev)
+                # CUDA events, not torch.profiler: the plain version's thousands of
+                # small kernels would make later profiler runs drop records (device_ms)
+                ms = event_ms(lambda: gemm.gemm(x, w), iters=20)[0]
+                lib_ms = event_ms(lambda: x @ w, iters=20)[0]
+                plain_ms = train_event_ms(lambda: ref.gemm_ref(x, w), iters=2)
+                flops, nbytes = 2 * T * K * N, 4 * (T * K + K * N + T * N)
+                row = {"name": "gemm", "route": "cuda",
+                       "source": "src/repro_torch/kernels/csrc/gemm.cu",
+                       "replaces": "none: replaces cuBLAS f32 in layers.mm",
+                       "cell": cell, "shape": [T, K, N], "calls_a_pass": calls,
+                       "splits": gemm.plan(T, K, N, sms)[0], "max_abs_err": err,
+                       "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes),
+                       "library_ms": lib_ms, "tflop_per_s": flops / ms / 1e9,
+                       "err_f64": rel_to_f64(gemm.gemm(x, w), x, w),
+                       "library_err_f64": rel_to_f64(x @ w, x, w)}
+                rows.append(row)
+                kernel_pass += calls * ms
+                cublas_pass += calls * lib_ms
+            T, K, N = shapes[0][0]
+            x, w = gemm_operands(rng, T, K, N, dev)
+            cells[cell] = {"products_ms_a_pass": kernel_pass,
+                           "library_products_ms_a_pass": cublas_pass,
+                           "host_us_a_call": host_us(lambda: layers.mm(x, w)),
+                           "host_us_shape": [T, K, N]}
+            take, gemm.take = gemm.take, lambda x, w: None     # mm as it was: x @ w
+            try:
+                cells[cell]["library_host_us_a_call"] = host_us(lambda: layers.mm(x, w))
+            finally:
+                gemm.take = take
+            cells[cell]["aten_mm_host_us_a_call"] = host_us(lambda: x @ w)
+    launches, declined = cell_pass_counts(dev, *RWKV6_CELL)
+    assert (launches, declined) == GEMM_CELL_PASS["rwkv6-1.6b.w5-closed"], (launches, declined)
+    cells["rwkv6-1.6b.w5-closed"].update(launches_a_pass=launches, declined_a_pass=declined)
+    for r in rows:
+        log(f"timing: gemm {r['cell']} {r['shape']} x {r['calls_a_pass']}: {r['ms']:.4f} ms "
+            f"({r['tflop_per_s']:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.1%} of bound, "
+            f"{r['splits']} parts of K), cuBLAS f32 {r['library_ms']:.4f} "
+            f"({r['library_ms'] / r['ms']:.2f}x), plain {r['plain_ms']:.4f}; error against "
+            f"float64 {r['err_f64']:.3g} (cuBLAS {r['library_err_f64']:.3g})")
+    for cell, c in cells.items():
+        log(f"timing: gemm {cell}: products {c['products_ms_a_pass']:.2f} ms a pass "
+            f"(cuBLAS f32 {c['library_products_ms_a_pass']:.2f}); host {c['host_us_a_call']:.2f} "
+            f"us a call through layers.mm, {c['library_host_us_a_call']:.2f} through layers.mm "
+            f"to cuBLAS, aten::mm alone {c['aten_mm_host_us_a_call']:.2f}")
+    return rows, cells
 
 
 def log_timing(k, what=None):
@@ -3833,6 +4046,7 @@ def main():
                 "decode_attention": check_decode(dev, rng),
                 "rwkv6_scan": check_rwkv(dev, rng), "ssd_scan": check_ssd(dev, rng)}
         granite_errs = {"ssd_scan": check_ssd_granite(dev, rng), "moe_experts": check_moe(dev, rng)}
+        errs["gemm"] = check_gemm(dev, rng)
         # the combine of a cache sharded over its slots, as segments on one card
         segments_err = decode_segments(dev, rng)
         for kernel, counts in sass.result().items():
@@ -3891,6 +4105,10 @@ def main():
     tables_kernel["max_abs_err"] = tables_err
     # phase 8, the controller, before the pumps as well
     controller_stats = run_controller(dev)
+    # the 3xTF32 products at the three benchmark cells' shapes, after every
+    # torch.profiler timing (they time by CUDA events, and the runs they make
+    # can leave a later profiler run short of records: see device_ms)
+    gemm_rows, gemm_cells = time_gemm(dev, rng, errs["gemm"])
     launches, slices = dict.fromkeys(errs, 0), []
     for arch, layers, encoder_layers in MODELS:
         check_small_against_cpu(dev, arch)
@@ -3899,7 +4117,13 @@ def main():
         slices.append(stats)
         if arch == SYNC_FREE_ARCH:
             stats["sync_free_pass"] = check_sync_free_pass(dev)
+            gemm_cells["qwen15-4b.w6-closed"].update(
+                launches_a_pass=stats["sync_free_pass"]["gemm_launches_a_pass"],
+                declined_a_pass=stats["sync_free_pass"]["gemm_declined_a_pass"])
     granite = check_sync_free_granite(dev)
+    gemm_cells["granite4-h-small.w6x4-closed"].update(
+        launches_a_pass=granite["launches_a_pass"]["gemm"],
+        declined_a_pass=granite["gemm_declined_a_pass"])
     # phase 9, training, after the slices
     train = run_train(dev)
     # phase 10, the mesh layer, last
@@ -3909,6 +4133,8 @@ def main():
     kernels = ([{**k, "launches": launches[k["name"]]} for k in kernels]
                + [{**k, "launches": granite["launches_a_pass"][k["name"]]}
                   for k in granite_kernels]
+               + [{**k, "launches": launches["gemm"], "cell_pass": gemm_cells[k["cell"]]}
+                  for k in gemm_rows]
                + [planner_kernel, tables_kernel])
     timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms",
                    "max_abs_err")

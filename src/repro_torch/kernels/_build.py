@@ -1,8 +1,8 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-The sources in ``csrc/`` (``attention.cu``, ``scan.cu`` and ``moe.cu``,
-sharing ``common.cuh``, ``planner.cu`` and ``physics.cu``) have a plain C interface
-and include no PyTorch header.
+The sources in ``csrc/`` (``attention.cu``, ``scan.cu``, ``moe.cu`` and
+``gemm.cu``, sharing ``common.cuh``, ``planner.cu`` and ``physics.cu``) have
+a plain C interface and include no PyTorch header.
 ``nvcc`` compiles each source to an object file, all of them at once in
 parallel processes, and links the objects into one shared library, which
 is loaded with ``ctypes`` and called with raw device pointers and
@@ -29,8 +29,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "attention.cu", CSRC / "scan.cu", CSRC / "moe.cu", CSRC / "planner.cu",
-           CSRC / "physics.cu")
+SOURCES = (CSRC / "attention.cu", CSRC / "scan.cu", CSRC / "moe.cu", CSRC / "gemm.cu",
+           CSRC / "planner.cu", CSRC / "physics.cu")
 HEADERS = (CSRC / "common.cuh",)
 ROOT = Path(__file__).resolve().parents[3]       # <root>/src/repro_torch/kernels
 BUILD_DIR = ROOT / "build" / "kernels"
@@ -101,6 +101,8 @@ def _bind(lib):
     lib.repro_moe_experts.argtypes = [
         i32, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.repro_moe_experts.restype = i32
+    lib.repro_gemm.argtypes = [vp, vp, vp, vp]
+    lib.repro_gemm.restype = i32
     lib.repro_alloc_all.argtypes = [vp, vp, i32, i32, vp]
     lib.repro_alloc_all.restype = i32
     lib.repro_tables.argtypes = [vp, vp, i32, i32, vp]
@@ -135,6 +137,8 @@ def _build(path: Path) -> str:
 def load():
     """Return the bound kernel library, building it first if needed."""
     global _lib, build_seconds, ptxas_log
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib

@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels.decode_attention import (combine_partials, decode_attention,
                                                    decode_attention_partial)
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.gemm import gemm
 from repro_torch.kernels.grant_loop import alloc_all
 from repro_torch.kernels.moe_gemm import moe_experts
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
@@ -24,6 +25,7 @@ KERNELS = {"flash_attention": flash_attention,
            "rwkv6_scan": rwkv6_scan,
            "ssd_scan": ssd_scan,
            "moe_experts": moe_experts,
+           "gemm": gemm,
            "alloc_all": alloc_all,
            "tables": tables}
 
@@ -69,6 +71,7 @@ def _fill_rule(self, value):
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+    gemm.declined = 0
 
 
 def launch_counts() -> dict:
@@ -76,6 +79,6 @@ def launch_counts() -> dict:
 
 
 __all__ = ["flash_attention", "decode_attention", "decode_attention_partial",
-           "combine_partials", "rwkv6_scan", "ssd_scan", "moe_experts",
+           "combine_partials", "rwkv6_scan", "ssd_scan", "moe_experts", "gemm",
            "alloc_all", "tables", "reset_launch_counts", "launch_counts",
            "register_mesh_rules"]

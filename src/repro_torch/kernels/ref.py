@@ -2,7 +2,9 @@
 
 They compute what ``csrc/attention.cu``, ``csrc/scan.cu`` and
 ``csrc/moe.cu`` compute, in float32; attention uses the same finite ``NEG_INF`` mask, and the scans are
-the exact step-by-step recurrences, with an initial state.  The CPU path
+the exact step-by-step recurrences, with an initial state.  ``gemm_ref``
+repeats ``csrc/gemm.cu``'s arithmetic: the TF32 split, three products a
+stage and float32 sums in the kernel's order.  The CPU path
 of the wrappers runs them, and ``chip_smoke.py`` holds each CUDA kernel
 against them on the card.  Counterpart of the JAX package's
 ``kernels/ref.py``.
@@ -144,4 +146,41 @@ def moe_experts_ref(x, tok, offsets, gates, pos, w_gate, w_up, w_down):
     y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
     for k in range(pos.shape[1]):
         y += o[rows[:, k]]
+    return y
+
+
+GEMM_BK = 32      # csrc/gemm.cu's stage depth
+
+
+def tf32_round(x):
+    """x (float32) rounded to TF32, 10 mantissa bits, to nearest with ties
+    away from zero: ``common.cuh``'s ``split_tf32`` (bit 12 added, the 13
+    low bits cleared; the tensor core reads only the high 19 bits)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x):
+    """(hi, lo): x's TF32 halves, x - hi exact and lo = tf32(x - hi)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def gemm_ref(x, w, splits: int = 1):
+    """x (T, K) @ w (K, N) as ``csrc/gemm.cu`` takes it, float32: K in
+    stages of 32, each stage x_hi w_lo + x_lo w_hi + x_hi w_hi from fresh
+    sums, the stages added in float32 one after another, in ``splits``
+    parts of K (``gemm.plan``'s) whose sums are added in their order along
+    K."""
+    K = x.shape[1]
+    xh, xl = tf32_split(x.float())
+    wh, wl = tf32_split(w.float())
+    stages = -(-K // GEMM_BK)
+    kps = -(-stages // splits)
+    y = None
+    for lo in range(0, stages, kps):
+        acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+        for s in range(lo, min(stages, lo + kps)):
+            k = slice(s * GEMM_BK, (s + 1) * GEMM_BK)
+            acc += xh[:, k] @ wl[k] + xl[:, k] @ wh[k] + xh[:, k] @ wh[k]
+        y = acc if y is None else y + acc
     return y

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (P, gather_fsdp, gather_inner, gather_inner_grad,
                                               is_dtensor, replicated)
+from repro_torch.kernels import gemm
 
 
 def _dense_init(shape, generator, device, in_axis: int = 0,
@@ -35,11 +36,19 @@ def mm(x, w):
     One dtype: a plain product.  On DTensors x's inner leading dims are
     gathered first, and so are those of the product's gradient, and w's
     fsdp shards (``sharding.gather_inner``, ``gather_inner_grad``,
-    ``gather_fsdp``)."""
+    ``gather_fsdp``).  A float32 product on the card goes to the 3xTF32
+    tensor-core kernel where ``kernels.gemm.take``'s shape rule takes it
+    (plain tensors, no gradient, T >= 64, K and N >= 128): the served
+    projections; the CPU, bfloat16, training and small products stay
+    ``x @ w``."""
     x, w = gather_inner(x), gather_fsdp(w)
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
+    if x.dtype == torch.float32:
+        y = gemm.take(x, w)
+        if y is not None:
+            return y
     return gather_inner_grad(x @ w)
 
 

@@ -51,7 +51,7 @@ def test_cpu_path_counts_no_launch():
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
                                    "decode_attention_partial": 0,
                                    "rwkv6_scan": 0, "ssd_scan": 0, "moe_experts": 0,
-                                   "alloc_all": 0, "tables": 0}
+                                   "gemm": 0, "alloc_all": 0, "tables": 0}
 
 
 def test_build_targets_hopper():
@@ -61,7 +61,7 @@ def test_build_targets_hopper():
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-O3" in _build.NVCC_FLAGS
     assert {p.name for p in _build.SOURCES} == {"attention.cu", "scan.cu", "moe.cu",
-                                                "planner.cu", "physics.cu"}
+                                                "gemm.cu", "planner.cu", "physics.cu"}
     assert all(p.exists() for p in _build.SOURCES + _build.HEADERS)
     # only the float64 sources (the planner's grant loop and the simulator's
     # latency tables) are built without fused multiply-adds

@@ -196,4 +196,4 @@ def test_scan_wrappers_refuse_bad_inputs_and_count_no_cpu_launch():
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
                                    "decode_attention_partial": 0,
                                    "rwkv6_scan": 0, "ssd_scan": 0, "moe_experts": 0,
-                                   "alloc_all": 0, "tables": 0}
+                                   "gemm": 0, "alloc_all": 0, "tables": 0}
