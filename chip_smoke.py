@@ -3,269 +3,30 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Phases (any failure raises and exits non-zero):
-  1. device   -- the card's name and power limit (nvidia-smi)
-  2. build    -- nvcc builds the CUDA kernels from src/repro_torch/kernels/csrc,
-                 one process per source, linked into one library; ptxas's
-                 registers, shared memory and spills per kernel; the SASS
-                 (cuobjdump -sass) of every instantiation of the five
-                 tensor-core kernels (flash_attn_kernel, ssd_scan_kernel,
-                 rwkv6_scan_kernel, moe_gemm_kernel, dense_gemm_kernel) must hold
-                 tensor-core products (HGMMA / HMMA ... TF32), every decode_attn_kernel (served and
-                 partial) asynchronous copies (LDGSTS, or TMA's UBLKCP /
-                 UTMALDG), and no decode_attn_combine is left; TF32 stays
-                 off in torch
-  3. kernels  -- each CUDA kernel against its plain PyTorch version on the
-                 card: the shape grid of tests/test_kernels.py in f32 and
-                 bf16 (attention 2e-5 / 2e-2, the two scans 5x that), a
-                 ragged S, rolling slots with a row that has no valid slot,
-                 caches cut into one chunk and into chunks of two tiles,
-                 head_dim 80 (zamba2's shared attention), nonzero initial
-                 states and a two-call continuation (f32 and bf16) for the
-                 scans, B and C in group form (head stride 0), the edges of
-                 the tensor-core tiling (flash: S = 1, 63, 65, 513, windows
-                 of 1 and longer than S, 1/2/4/8 query heads per kv head at
-                 every head_dim, and without a mask a kv length of its
-                 own: S = 1, 63, 512 against Skv = 1, 31, 33, 1500 at
-                 head_dim 64 and 128, whisper's encoder and cross-attention
-                 at their served shapes, a causal or windowed call at
-                 Skv != S refused; ssd: S = 1, 40, 2048 and every (hd, N),
-                 N = 128 (hd 64) at granite-4.0-h-small's prefill too;
-                 the grouped expert products (moe_experts, three launches
-                 a call) at granite-4.0-h-small's cell (1,536 tokens, top-10
-                 of 72, 18 held), every token on one expert, a ragged
-                 small case and one token; the 3xTF32 product kernel (gemm)
-                 against its plain version at ragged T, K and N, splits of
-                 K 1 to 8, T = 5 and every benchmark cell's shapes, two
-                 calls bit for bit equal, K = 130 refused;
-                 rwkv6: S = 1, 31, 33 at hd 32 and 64, S = 33 from a state;
-                 decode: S = 1, 63, 65, 1, 4 and 16 query heads per kv
-                 head at every head_dim, windows of 1 and 20, and at the
-                 served shape valid
-                 slots only in the cluster's last block and a row with no
-                 valid slot, f32 and bf16), and each kernel at its served
-                 model's own shapes (flash and decode at every served
-                 model's query heads per kv head at its head_dim: G = 1, 3,
-                 4, 6, 7, 8 at 128, whisper's G = 1 at 64; decode on
-                 whisper's cross cache with q at its last frame's position;
-                 f32 and bf16); decode's cluster size at the served shapes
-                 fills the card, but for the 16 (batch, kv head) pairs of
-                 yi-6b and qwen2-vl-7b (logged); inputs no kernel is built
-                 for raise.  decode_attention_partial (the decode step on a
-                 cache sharded over its slots: one segment's output in
-                 float32 and its log-sum-exp) against its plain version at
-                 every instantiation, a window, a ragged S, the served shape
-                 with a row with no valid slot and decode_32k's local shard
-                 (8, 2048 slots, 8, 128): o (float32 on both sides) within
-                 2e-5 in either input dtype, lse within 1e-5 where finite
-                 and NEG_INF exactly where no slot is valid; then the
-                 combine on one card: the partial kernel on
-                 2, 4 and 8 slot segments joined by combine_partials
-                 against the whole-cache kernel at qwen3-4b's served cache
-                 (f32, bf16) and at decode_32k's local shard (bf16), with an
-                 empty last segment and an empty row, one partial launch a
-                 segment (counted over each split alone; the kernels line's
-                 launches of decode_attention_partial are phase 10's)
-  4. slices   -- for each served model (qwen3-4b, rwkv6-1.6b, zamba2-2.7b,
-                 yi-6b, qwen1.5-4b, minitron-4b, mixtral-8x22b, dbrx-132b,
-                 qwen2-vl-7b, whisper-large-v3) at full width (depth cut
-                 for all but rwkv6, whisper's encoder too: see
-                 MODELS; f32, random weights from a torch.Generator on
-                 the card): a reduced model on the card
-                 must match the same model's plain CPU path (rel. err <=
-                 1e-4; an MoE model's routed experts equal, the smallest
-                 top-k / (k+1) probability gap logged; random-normal frames
-                 and patches); ServingEngine answers
-                 16 requests in 4 pumps (zero frames and patches, as the
-                 JAX engine); the
-                 kernels' launch counters are read over those pumps alone
-                 and must be exactly what the model runs, and so are the
-                 MoE layers' dropped assignments; the first decode
-                 step's logits must equal a prefill over prompt + that token
-                 (rel. err <= 1e-3; for an MoE model on a model sharing the
-                 weights whose capacity factor drops nothing; with
-                 random-normal frames or patches); apply_moe
-                 must match moe_plain on the first MoE layer's prefill input
-                 at the published capacity, drops included; a reset cache
-                 must give a fresh cache's
-                 logits bit for bit, and a fifth pump of the first pump's
-                 prompts the first pump's tokens; one prefill and one decode
-                 step alone, on the host clock and under torch.profiler.
-                 After qwen1.5-4b's slice, the benchmark cell's served pass
-                 (6 x 64, 40 layers, theta 5e6): no call between the token
-                 upload and the fetch may synchronise with the card
-                 (set_sync_debug_mode("error")), one rotation table a
-                 prefill, logits bit for bit those of RoPE's per-call
-                 formula (theta a host tensor), which the guard refuses.
-                 Each model's engine is freed before the next one loads.
-  5. timing   -- (run between phases 3 and 4, before any pump is profiled;
-                 the product kernel's after phase 8)
-                 device time (torch.profiler) of each kernel, its plain
-                 version and, for attention, one PyTorch library call
-                 (scaled_dot_product_attention under its efficient backend
-                 on K/V expanded to every query head, a yardstick the port
-                 never calls; the math-backend time of the enable_gqa call
-                 beside it where H > KV; no single call computes a scan) at
-                 the served shapes, beside the least time the card could
-                 take (bound_ms at the 3xTF32 rate, bound_f32_cores_ms at
-                 the CUDA cores' float32 rate); attention also at zamba2's
-                 head_dim 80, at mixtral's 48 / 8 heads, at qwen2-vl's 28 /
-                 4 and at whisper's shapes (encoder, cross-attention at a kv
-                 length of its own, decoder, decode on the self and the
-                 cross cache); one decode call launches exactly one kernel;
-                 the partial variant at qwen3-4b's served cache beside the
-                 served kernel; the 3xTF32 product kernel (dense_gemm_kernel,
-                 layers.mm's float32 products) at every shape the three
-                 benchmark cells send it (GEMM_CELLS), beside cuBLAS f32
-                 (x @ w, library_ms) and its plain version, both errors
-                 against float64, each cell's products a pass, layers.mm's
-                 host microseconds a call beside aten::mm's, and rwkv6-1.6b's
-                 cell pass's products through the kernel and left to cuBLAS
-  6. planner  -- (run after phase 5, before phase 4) the Alg. 2 grant loop,
-                 alloc_all_kernel (csrc/planner.cu, float64), against its
-                 plain version on the card and against the port's numpy
-                 VecCluster.alloc_all on 200 seeded random clusters (d = 1 to
-                 100 and 1100 rows; N = 1, 2, 4, 8, 16 resident slots; rows
-                 past R_MAX; a newcomer that fits nowhere): identical
-                 feasibility and grid points, r_inter within rtol 1e-6 /
-                 atol 1e-9, and the count of rows bit-identical to numpy;
-                 then provision() on the fitted tpu-v5e profiles with
-                 PlannerConfig(backend="torch") on the card against
-                 backend="numpy" for the 12-workload App study and
-                 synthetic_workloads(1000, 0) under both budgets: identical
-                 plans, 11 / 6 / 766 / 460 devices, one alloc_all launch per
-                 placement (counts read over each provision alone);
-                 provision's wall time at m = 1000 for both backends (median
-                 of 3, in turns); at that run's final cluster the kernel's
-                 and the plain version's device time, and the copies and
-                 launches of one whole torch-backend call (torch.profiler)
-  7. simulator -- (run after phase 6, before phase 4) the latency-table build,
-                 tables_kernel (csrc/physics.cu, float64), against its plain
-                 version on the card and against the port's numpy
-                 physics.device_state_arrays on seeded grids (the reference
-                 test's ranges; n = 1, 2, 3, 5, 8, 16 with R up to a full
-                 _BULK_CHUNK, rows over-subscribed, over the power cap and
-                 past the bandwidth knee) within rtol 1e-6 / atol 1e-9, with
-                 the count of values bit-identical to numpy; n = 17 refused;
-                 then synthetic_workloads(1000, 0) provisioned on the card
-                 (766 devices) and simulate_full for 10 s, seed 0, with
-                 backend="torch" on the card against backend="numpy":
-                 identical violations, requests and passes, streams within
-                 the tolerance, one tables launch per table chunk (counts
-                 read over that run alone); the 12-workload App study with
-                 shadows, Poisson arrivals, an outage, a straggler and a spike
-                 trace against the numpy vec and scalar engines (identical
-                 violations, one launch per shadow-activated device's
-                 rebuild); simulate_full's wall time for both backends
-                 (median of 3, in turns), the table build's split (staging,
-                 packing, copies, kernel, unpacking) and share, one profiled
-                 run's idle share, and the kernel's and the plain version's
-                 device time at the served chunks and at a full chunk
-  8. controller -- (run after phase 7, before phase 4) the closed loop: the
-                 five scenarios of benchmarks/dynamic_sweep.py (no_drift,
-                 diurnal, spike, churn, overload under a device cap and a
-                 priority split; the scenario helpers copied, see
-                 control_trace) on synthetic_workloads(100, 0) provisioned on
-                 tpu-v5e, for CONTROL_HORIZON_S, each simulated with a fresh
-                 Controller on PlannerConfig(backend="torch") on the card and
-                 again on backend="numpy": identical PlanEdit lists (floats
-                 within rtol 1e-6 / atol 1e-9), admission logs, overload
-                 counters, reconfigurations, violations against the
-                 trace-scaled specs and final plans; no_drift edits nothing
-                 and keeps its plan object; one alloc_all launch per
-                 vectorized placement, none for a same-device resize, one
-                 tables launch per table chunk (counts read over each run
-                 alone); tests/test_spike_fixture.py's forecast-on spike run
-                 on the card hashes to its pinned digest (62 / 58 / 0 events,
-                 182 reconfigurations); tests/test_overload.py's two health
-                 runs on both backends (a permanent straggler stays
-                 quarantined, a recovered device is readmitted); the
-                 diurnal run's controller time (reconfig_latency_ms) and wall
-                 time on both backends (median of 3, in turns); alloc_all's
-                 device time at the controller's last placement; the m = 1000
-                 diurnal run on both backends (identical edits) for
-                 CONTROL_M1000_HORIZON_S; one profiled run's idle share; and
-                 launch.serve's cluster mode on the card against numpy's flags
-  9. training -- (run after phase 4) each kernel's autograd wrapper
-                 (models/attention.FlashAttention, rwkv.RWKV6Scan,
-                 ssm.SSDScan) at the training shapes (flash at qwen3-4b's
-                 (4, 512, 32/8, 128) in bf16 and f32, at whisper's (4, 512 q /
-                 1500 kv, 20/20, 64) unmasked and at (1, 4100, 4/2, 128),
-                 whose backward runs kv-blockwise; rwkv6_scan at (4, 512,
-                 32, 64) and ssd_scan at (4, 512, 80, 64, 64), bf16 and f32,
-                 from a state): the forward launches the kernel once and the
-                 backward none, and the gradients of a random-weighted sum
-                 of the outputs equal the CPU path's (autograd through the
-                 recompute on the CPU) within 1e-4 (f32) / 2e-2 (bf16) of
-                 their max; the backward's ms per call (CUDA events, back to
-                 back) beside the forward's and, for flash, SDPA's efficient
-                 backend forward + backward and backward alone.  Then the
-                 main path: qwen3-4b at full width, 8 of 36 layers, batch 4
-                 x 512 from the port's pipeline, bf16 compute with float32
-                 master params and moments, AdamW as loop.train builds it,
-                 remat off, 10 steps through loop.make_step: every loss
-                 finite, every parameter leaf's first gradient finite and
-                 not all zero, flash launched 8 times a step (16 with remat,
-                 checked once, none in the backward), a checkpoint at step 5
-                 from which loop.train (a fresh model, restored) reproduces
-                 steps 6-10 within 1e-6 relative; step ms (CUDA events,
-                 median of steps 2-10), tokens/s, peak memory, one profiled
-                 step's device ms by group and idle share.  rwkv6-1.6b (4 of
-                 24 layers) and zamba2-2.7b (6 of 54, one shared-attention
-                 group) at full width, 3 steps, with their scans' launches
-                 a step, the same checks and measures.  The reduced
-                 qwen3-4b, rwkv6-1.6b, zamba2-2.7b, mixtral-8x22b,
-                 whisper-large-v3 and qwen2-vl-7b (f32) on the card against
-                 the CPU: loss within 1e-5, every gradient leaf
-                 within max(1e-4, twice its noise floor) of its max, MoE
-                 experts equal.  The JAX package's 60-step short run's config
-                 on the card: the last 10 losses average 0.3 below the first 10
- 10. mesh     -- (run last) the mesh layer: launch.dryrun of qwen3-4b (full
-                 depth) and dbrx-132b (MESH_DRYRUN's 2 layers; 16 experts on
-                 the 16-way data axis: apply_moe_ep) train_4k on the abstract
-                 16x16 mesh, each in a subprocess started first (the host
-                 only; meta shards, nothing allocated), every record "ok";
-                 on a 1x1 DeviceMesh of cuda:0 (one-rank nccl group,
-                 make_smoke_mesh) build_step's steps over DTensors:
-                 qwen3-4b (8 layers, batch 4 x 512) train at M = 1 without
-                 remat, its table and moments sharded over the table's rows
-                 (the lookup per vocabulary shard), against loop.make_step
-                 (loss and every updated param within 1e-6 relative), at M = 2 against M = 1 in float32
-                 compute (loss and every gradient leaf within 1e-4 of its
-                 max), flash 8 launches a microbatch and 16 with remat;
-                 mixtral-8x22b (1 layer) one step with TRAIN_MICROBATCHES'
-                 16 microbatches accumulated in bf16 (TRAIN_ACC_DTYPE) and
-                 int8 moments (TRAIN_OPTIMIZER): loss, gradients and params
-                 finite; qwen3-4b prefill + 3 decode steps with bf16 params,
-                 twice: with the cache as the steps place it (whole in its
-                 slots on a mesh dim of one device) and with every layer's
-                 K and V sharded over its slots on the model dim and the
-                 table over its rows: the 4 greedy tokens equal
-                 Model.prefill / decode_step's, the sharded run's caches
-                 within 1e-5 of their max; flash once a layer a prefill,
-                 decode_attention once a layer a step on the whole cache,
-                 decode_attention_partial (each rank's slots, the combine's
-                 nccl all-reduces) in its place on the sharded one, the
-                 kernels line's launches of it; the dry run of qwen3-4b decode_32k (full depth, its
-                 cache sharded over its slots on the 16-way model axis):
-                 collective term under 5 ms and not dominant, its saved ops
-                 (--save-hlo-dir) one partial kernel a layer and no gather
-                 of the cache; the records' memory a device, fits_hbm,
-                 dominant term and roofline terms (H100 constants)
-After the slices, granite-4.0-h-small's served pass at the benchmark cell's
-size (40 layers, 18 of 72 experts, 24 x 64) dispatches under
-torch.cuda.set_sync_debug_mode("error") from the upload to the fetch,
-twice with equal tokens and logits, no held assignment dropped
-(check_sync_free_granite).
-Prints one {"kernels": [...]} line (the four kernels, decode's partial
-variant, the grouped expert products and ssd_scan at granite's state 128,
-the 3xTF32 products at each cell shape, alloc_all and tables_kernel), one {"slice": {...}} line per model, one
-{"granite": {...}} line, one {"planner": {...}}
-line, one {"simulator": {...}} line, one {"controller": {...}} line, one
-{"train": {...}} line, one {"mesh": {...}} line (the steps' checks, times
-and launches, the dry-run records, the phase's seconds), and last
+Phases, in the order they run; any failure raises and exits non-zero.  The
+function that makes a check describes it.
+  1. device     -- the card's name and power limit (nvidia-smi).
+  2. build      -- nvcc builds kernels/csrc into one library; ptxas's registers
+                   and spills; every kernel's SASS holds its instructions (check_sass).
+  3. kernels    -- each CUDA kernel against its plain version on the card, at
+                   the test grid's, the served models' and the cells' shapes.
+     cells      -- one served pass of every workload in BENCHMARK.json, built by
+                   perfbench's own readers (check_cell_pass); check_gemm follows.
+  5. timing     -- each kernel's device time beside its plain version, a
+                   library call and its bound (time_*; time_gemm after phase 8).
+  6. planner    -- alloc_all_kernel and provision() on the card against numpy.
+  7. simulator  -- tables_kernel and simulate_full on the card against numpy.
+  8. controller -- the closed loop's scenarios on the card against numpy.
+  4. slices     -- ten served models at full width (depth cut: MODELS) against
+                   the CPU and against themselves (run_slice); checks, no timing.
+  9. training   -- the kernels' autograd wrappers and three models' training.
+ 10. mesh       -- the dry runs, and the steps on a one-card DeviceMesh.
+Prints JSON lines: {"kernels": [...]}, then {"cell": {...}} for each cell and
+{"slice": {...}} for each model, then {"planner": ...}, {"simulator": ...},
+{"controller": ...}, {"train": ...}, {"mesh": ...} and last
 {"ok": true, "device": {...}}.
 """
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -286,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 PORT_TREE = Path(__file__).resolve().parent / "src" / "repro_torch"
+BENCH_TREE = PORT_TREE.parents[1] / "perfbench"
 sys.path.insert(0, str(PORT_TREE.parent))
 
 # H100 SXM peaks (NVIDIA data sheet): float32 FMA on the CUDA cores, TF32
@@ -303,30 +65,11 @@ PARTIAL_LSE_TOL = 1e-5                   # its log-sum-exp, absolute
 SCAN_TOL = {dt: 5 * tol for dt, tol in TOL.items()}  # tests/test_kernels.py: 5x for the scans
 RWKV_SHAPE = (4, 512, 32, 64)            # rwkv6-1.6b prefill: B, S, H, hd
 SSD_SHAPE = (4, 512, 80, 64, 64)         # zamba2-2.7b prefill: B, S, H, hd, N
-# the benchmark's granite cell (perfbench/configs/granite4-h-small-ep4-f32.json):
-# 24 prompts of 64 tokens, 18 of 72 experts held, top-10
-GRANITE_ARCH, GRANITE_HELD, GRANITE_BATCH, GRANITE_PROMPT = "granite-4.0-h-small", 18, 24, 64
-GRANITE_SSD_SHAPE = (24, 64, 128, 64, 128)   # its prefill: B, S, H, hd, N
-GRANITE_MOE_SHAPE = (24 * 64, 4096, 768, 72, 18, 10)   # T, D, F, E, held, K
-# the benchmark cells' float32 products that layers.mm sends to the 3xTF32
-# kernel (csrc/gemm.cu): ((T, K, N), calls a pass).  qwen1.5-4b (6 x 64, 40
-# layers): q, k, v, o; gate, up; down.  rwkv6-1.6b (12 x 64, 24 layers): r,
-# k, v, g, o and cm_r; cm_k; cm_v; the token-shift LoRA's down-projection.
-# granite-4.0-h-small (24 x 64, 40 layers): Mamba2 in, out (36); the shared
-# expert's gate and up, down (40); attention q and o, k and v (4).
-GEMM_CELLS = {
-    "qwen15-4b.w6-closed": [((384, 2560, 2560), 160), ((384, 2560, 6912), 80),
-                            ((384, 6912, 2560), 40)],
-    "rwkv6-1.6b.w5-closed": [((768, 2048, 2048), 144), ((768, 2048, 7168), 24),
-                             ((768, 7168, 2048), 24), ((768, 2048, 160), 24)],
-    "granite4-h-small.w6x4-closed": [((1536, 4096, 16768), 36), ((1536, 8192, 4096), 36),
-                                     ((1536, 4096, 1536), 80), ((1536, 1536, 4096), 40),
-                                     ((1536, 4096, 4096), 8), ((1536, 4096, 1024), 8)]}
-# products a pass through the kernel, and left to cuBLAS by the shape rule
-# (rwkv6's rank-64 decay LoRA, granite's 72-wide router)
+# products a pass of each BENCHMARK.json cell through the 3xTF32 kernel, and
+# left to cuBLAS by the shape rule (rwkv6's rank-64 decay LoRA, granite's
+# 72-wide router); a cell added to the benchmark adds its entry here
 GEMM_CELL_PASS = {"qwen15-4b.w6-closed": (280, 0), "rwkv6-1.6b.w5-closed": (216, 48),
                   "granite4-h-small.w6x4-closed": (208, 40)}
-RWKV6_CELL = ("rwkv6-1.6b", 12, 64)                     # arch, batch, prompt
 
 BATCH, PROMPT, DECODE, PUMPS = 4, 512, 4, 4
 # (arch, layers, encoder layers): every model the port serves, at full
@@ -408,6 +151,26 @@ def device_kernels_us(prof):
             us = getattr(evt, "self_device_time_total", None)
             out.append((evt.key, evt.self_cuda_time_total if us is None else us))
     return out
+
+
+def device_groups(prof, wall, kernels):
+    """One profiled run of ``wall`` seconds: the device ms of each of
+    ``kernels`` (by name), of the host-to-device and device-to-host copies
+    and of the rest; each kernel's records; and the share of the wall time
+    in which the card was idle.  A dropped record would hide device time:
+    the idle share is an upper bound then, and the records say by how
+    much."""
+    groups = dict.fromkeys([*kernels, "memcpy_htod", "memcpy_dtoh", "other"], 0.0)
+    for key, us in device_kernels_us(prof):
+        group = next((k for k in kernels if k in key),
+                     "memcpy_htod" if "HtoD" in key else "memcpy_dtoh" if "DtoH" in key
+                     else "other")
+        groups[group] += us / 1e3
+    recorded = {k: sum(e.count for e in prof.key_averages()
+                       if k in e.key and e.device_type == torch.autograd.DeviceType.CUDA)
+                for k in kernels}
+    return {"wall_s": wall, "device_ms": groups, "kernels_recorded": recorded,
+            "idle_share": max(0.0, 1.0 - sum(groups.values()) / (wall * 1e3))}
 
 
 def device_ms(fn, n_inputs, iters=20, attempts=6, warmup=3, per_call=None):
@@ -506,6 +269,13 @@ def bound(flops, nbytes):
 # ---------------------------------------------------------------------------
 
 def check_flash(dev, rng):
+    """flash_attention against its plain version in f32 and bf16
+    (TOL): the test grid, head_dim 80, the tensor-core tiling's edges (S =
+    1, 63, 65, 513; windows of 1 and longer than S; 1 to 8 query heads a kv
+    head), every served model's heads at its head_dim, and a kv length of
+    its own (S = 1, 63, 512 against Skv = 1, 31, 33, 1500, whisper's encoder
+    and cross shapes); inputs with no kernel refused.  Returns the slice
+    shape's max_abs_err."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     cases = [(2, S, H, KV, hd, dt, c, w)
@@ -653,6 +423,14 @@ def expect_refusal(name, fn):
 
 
 def check_decode(dev, rng):
+    """decode_attention against its plain version in f32 and bf16: the
+    test grid, a ragged S, one chunk and many, the tiling's edges at every
+    instantiation, windows of 1 and 20, rolling slots with a row that has
+    no valid slot, the served shape with valid slots only in the cluster's
+    last block, every served model's first decode step and whisper's cross
+    cache; then the partial variant (check_decode_partial); the served
+    grids fill the card (but SMALL_DECODE_GRID's, logged).
+    Returns the served shape's max_abs_err."""
     from repro_torch.kernels.decode_attention import decode_attention
     dts = (torch.float32, torch.bfloat16)
     n = 0
@@ -983,6 +761,9 @@ def check_scan(name, dev, rng, kernel, plain, make, cases, state_shape, slice_ca
 
 
 def check_rwkv(dev, rng):
+    """rwkv6_scan against its plain version (check_scan): the test grid, a
+    ragged S, initial states, the chunk's edges (S = 1, 31, 33) at head_dim
+    32 and 64; head_dim 128 refused."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     grid = [((2, S, H, hd), dt, False) for S, H, hd in [(128, 2, 32), (256, 4, 64), (64, 2, 32)]
@@ -1008,6 +789,9 @@ def check_rwkv(dev, rng):
 
 
 def check_ssd(dev, rng):
+    """ssd_scan against its plain version (check_scan): the test grid, a
+    ragged S, initial states, S = 1, 40 and 2048, every (hd, N) the
+    dispatch takes, B and C in group form; N = 128 at head_dim 32 refused."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan
     grid = [((2, S, H, hd, N), dt, False) for S, H, hd, N in [(128, 2, 32, 16), (256, 4, 64, 64)]
@@ -1038,20 +822,20 @@ def check_ssd(dev, rng):
     return err
 
 
-def check_ssd_granite(dev, rng):
-    """ssd_scan at granite-4.0-h-small's prefill (state 128), B and C in
+def check_ssd_cell(dev, rng, shape):
+    """ssd_scan at a cell's prefill ``shape`` (B, S, H, hd, N), B and C in
     group form, from a state: max_abs_err."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan
-    B, S, H, hd, N = GRANITE_SSD_SHAPE
+    B, S, H, hd, N = shape
     xdt, Bm, Cm, dA = ssd_inputs(rng, B, S, H, hd, N, torch.float32, dev, group=True)
     h0 = 0.1 * rand(rng, (B, H, hd, N), torch.float32, dev)
     y, h = ssd_scan(xdt, Bm, Cm, dA, h0=h0)
     y_ref, h_ref = ref.ssd_ref(xdt, Bm, Cm, dA, h0)
-    err = check_close(f"ssd_scan {GRANITE_SSD_SHAPE}", y, y_ref, SCAN_TOL[torch.float32])
-    check_close(f"ssd_scan state {GRANITE_SSD_SHAPE}", h, h_ref, SCAN_TOL[torch.float32])
-    log(f"kernels: ssd_scan at granite-4.0-h-small's prefill {GRANITE_SSD_SHAPE} matches its "
-        f"plain version; max_abs_err {err:.3g}")
+    err = check_close(f"ssd_scan {shape}", y, y_ref, SCAN_TOL[torch.float32])
+    check_close(f"ssd_scan state {shape}", h, h_ref, SCAN_TOL[torch.float32])
+    log(f"kernels: ssd_scan at a cell's prefill {shape} matches its plain version; "
+        f"max_abs_err {err:.3g}")
     return err
 
 
@@ -1072,26 +856,26 @@ def moe_inputs(rng, T, D, F, E, held, K, dev, one_expert=False):
     return x, tok, offsets, gates, pos, *w
 
 
-def check_moe(dev, rng):
-    """The grouped expert products against their plain version: granite's
-    cell, every token on one expert (its rows = T, none dropped), a ragged
-    small case and one token; one launch counted a call.  Returns the
-    cell's max_abs_err."""
+def check_moe(dev, rng, shape):
+    """The grouped expert products against their plain version: a cell's
+    ``shape`` (T, D, F, E, held, K), there also with every token on one
+    expert (its rows = T, none dropped), a ragged small case and one token;
+    one launch counted a call.  Returns the cell shape's max_abs_err."""
     from repro_torch.kernels import ops, ref
-    cases = [(GRANITE_MOE_SHAPE, False), (GRANITE_MOE_SHAPE, True),
+    cases = [(shape, False), (shape, True),
              ((100, 256, 128, 8, 5, 3), False), ((1, 128, 64, 4, 4, 2), False)]
     errs = []
     with torch.inference_mode():
-        for shape, one in cases:
-            args = moe_inputs(rng, *shape, dev, one_expert=one)
+        for case, one in cases:
+            args = moe_inputs(rng, *case, dev, one_expert=one)
             before = ops.launch_counts()["moe_experts"]
             y = ops.moe_experts(*args)
-            assert ops.launch_counts()["moe_experts"] == before + 1, shape
-            errs.append(check_close(f"moe_experts {shape} one expert {one}", y,
+            assert ops.launch_counts()["moe_experts"] == before + 1, case
+            errs.append(check_close(f"moe_experts {case} one expert {one}", y,
                                     ref.moe_experts_ref(*args), TOL[torch.float32]))
             if one:
                 rows = (args[2][1:] - args[2][:-1]).tolist()
-                assert rows[1] == shape[0], rows
+                assert rows[1] == case[0], rows
     log(f"kernels: moe_experts matches its plain version on {len(cases)} cases; "
         f"max_abs_err {errs}")
     return errs[0]
@@ -1108,18 +892,18 @@ def rel_to_f64(y, x, w):
     return ((y.double() - y64).abs().max() / y64.abs().max()).item()
 
 
-def check_gemm(dev, rng):
+def check_gemm(dev, rng, passes):
     """The 3xTF32 product kernel against its plain version (at the plan's
     split of K): ragged T, K and N, splits 1 to 8, T below 64, and every
-    cell's shapes; two calls bit for bit equal, one launch a call; K not a
-    multiple of 4 refused.  Logs the cell shapes where its error against
-    float64 exceeds cuBLAS f32's.  Returns the largest difference from the
-    plain version, over its max."""
+    shape the cells' ``passes`` (check_cell_pass) sent it; two calls bit for
+    bit equal, one launch a call; K not a multiple of 4 refused.  Logs the
+    cell shapes where its error against float64 exceeds cuBLAS f32's.
+    Returns the largest difference from the plain version, over its max."""
     from repro_torch.kernels import gemm, ops, ref
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     small = [(128, 128, 128), (5, 128, 128), (200, 160, 136), (130, 1000, 300),
              (768, 2048, 160), (64, 4100, 132)]
-    cells = [shape for shapes in GEMM_CELLS.values() for shape, _ in shapes]
+    cells = [shape for p in passes.values() for shape, _ in p["gemm_shapes"]]
     worst, worse_than_cublas = 0.0, []
     with torch.inference_mode():
         for T, K, N in small + cells:
@@ -1146,22 +930,26 @@ def check_gemm(dev, rng):
 # Phase 4: the slice
 # ---------------------------------------------------------------------------
 
-def want_launches(cfg):
-    """Launches of each kernel over the timed pumps: every prefill runs
-    flash attention once per attention block (an encoder-decoder model: once
-    per encoder block, and twice per decoder block, self- and
-    cross-attention) and a scan once per recurrent block; every decode step
-    after the first token runs decode attention once per attention block
-    (twice per encoder-decoder block)."""
-    kind = cfg.pattern[0]
-    n_attn = cfg.n_layers if kind == "attn" else (
+def want_launches(cfg, gemms, decode=DECODE, passes=PUMPS):
+    """Launches of each kernel over ``passes`` passes of a prompt and
+    ``decode`` tokens: every prefill runs flash attention once per
+    attention block (an encoder-decoder model: once per encoder block, and
+    twice per decoder block, self- and cross-attention), a scan once per
+    recurrent block and ``gemms`` products through the 3xTF32 kernel; every
+    decode step after the first token runs decode attention once per
+    attention block (twice per encoder-decoder block); a dropless MoE
+    launches the grouped products once a layer a step."""
+    pattern = cfg.pattern
+    n_attn = pattern.count("attn") + (
         cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0)
     per_block = 2 if cfg.cross_attention else 1
-    return {"flash_attention": (cfg.encoder_layers + per_block * n_attn) * PUMPS,
-            "decode_attention": per_block * n_attn * (DECODE - 1) * PUMPS,
-            "rwkv6_scan": cfg.n_layers * PUMPS if kind == "rwkv6" else 0,
-            "ssd_scan": cfg.n_layers * PUMPS if kind == "mamba2" else 0,
-            "moe_experts": 0, "gemm": prefill_gemms(cfg) * PUMPS,
+    moe_layers = (cfg.n_layers if cfg.mamba_ffn else pattern.count("attn")) \
+        if cfg.moe_dropless else 0
+    return {"flash_attention": (cfg.encoder_layers + per_block * n_attn) * passes,
+            "decode_attention": per_block * n_attn * (decode - 1) * passes,
+            "rwkv6_scan": pattern.count("rwkv6") * passes,
+            "ssd_scan": pattern.count("mamba2") * passes,
+            "moe_experts": moe_layers * decode * passes, "gemm": gemms * passes,
             "decode_attention_partial": 0, "alloc_all": 0, "tables": 0}
 
 
@@ -1197,7 +985,13 @@ def random_extras(cfg, B, S, dev, rng):
 
 def run_slice(dev, arch, layers=None, encoder_layers=None):
     """Serve ``arch`` at full width (``layers``, ``encoder_layers``: cut
-    depth) on the card."""
+    depth) on the card: BATCH x PUMPS requests through ServingEngine, each
+    kernel launched as often as the model asks (want_launches); an MoE
+    model's drops logged and apply_moe held against moe_plain; the first
+    decode step's logits equal to a prefill over prompt + that token
+    (REL_TOL_FULL; an MoE model's on a dropless twin); a reset cache gives
+    a fresh cache's logits bit for bit, and a repeated pump the first
+    pump's tokens.  Returns the launches and the slice's record."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import moe
@@ -1226,13 +1020,11 @@ def run_slice(dev, arch, layers=None, encoder_layers=None):
     done = []
     ops.reset_launch_counts()
     moe.reset_drop_counts()
-    t_start = time.perf_counter()
     for p in range(PUMPS):
         for i in range(BATCH):
             rid = p * BATCH + i
             eng.submit(Request(rid=rid, tokens=prompts[rid], arrival_s=time.time()))
         done += eng.pump()
-    wall = time.perf_counter() - t_start
     launches = ops.launch_counts()
     drops = moe.drop_counts()
 
@@ -1240,7 +1032,7 @@ def run_slice(dev, arch, layers=None, encoder_layers=None):
     for c in done:
         assert c.tokens.shape == (DECODE,), c.tokens.shape
         assert ((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all(), c.tokens
-    want = want_launches(cfg)
+    want = want_launches(cfg, prefill_gemms(cfg))
     assert launches == want, (launches, want)
     log(f"slice: {arch}: {len(done)} completions in {PUMPS} pumps, launches {launches}")
 
@@ -1266,9 +1058,11 @@ def run_slice(dev, arch, layers=None, encoder_layers=None):
     batch = {"tokens": toks, **eng.extras}
     extras = random_extras(cfg, BATCH, PROMPT, dev, rng)
     buf = PROMPT + DECODE + 8
+    moe_in = []         # the first MoE layer's weights and input
     with torch.inference_mode():
         cache = model.init_cache(BATCH, buf, dtype=torch.float32)
-        with capture_moe_input() as moe_in:
+        with Spy({"moe": (moe, "apply_moe")},
+                 seen={"moe": lambda p, x, *a, **kw: moe_in or moe_in.extend((p, x))}):
             lg0, cache = model.prefill(params, batch, cache)
         tok = lg0.argmax(-1).to(torch.int32)[:, None]
         ctok = tok
@@ -1298,32 +1092,16 @@ def run_slice(dev, arch, layers=None, encoder_layers=None):
     log(f"slice: {arch}: decode-vs-prefill rel. err {rel:.3g} (limit {REL_TOL_FULL})")
     assert rel <= REL_TOL_FULL, rel
 
-    # one prefill and one decode step alone, host clock around a synchronize
-    with torch.inference_mode():
-        cache = model.init_cache(BATCH, buf, dtype=torch.float32)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lg0, cache = model.prefill(params, batch, cache)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        model.decode_step(params, tok, cache)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-
-    lats = np.array([c.latency_ms for c in done])
     stats = {"arch": arch, "layers": cfg.n_layers, "batch": BATCH, "prompt_len": PROMPT,
              "decode_tokens": DECODE, "requests": len(done), "launches": launches,
-             "p50_ms": float(np.percentile(lats, 50)),
-             "p99_ms": float(np.percentile(lats, 99)),
-             "tokens_per_s": len(done) * DECODE / wall,
-             "prefill_ms": (t1 - t0) * 1e3, "decode_step_ms": (t2 - t1) * 1e3,
-             "decode_vs_prefill_rel_err": rel, "unreset_cache_rel_err": stale_rel,
-             "alone": profile_alone(model, params, cfg, batch, tok, buf)}
+             "decode_vs_prefill_rel_err": rel, "unreset_cache_rel_err": stale_rel}
     if moe_stats:
         stats["moe"] = moe_stats
     # a pump of the first pump's prompts again: the engine's cache, reset,
     # must give the same tokens (a state left from the last pass would not)
-    stats["profile"], again = profile_pump(eng, prompts[:BATCH], wall * 1e3 / PUMPS)
+    for i, p in enumerate(prompts[:BATCH]):
+        eng.submit(Request(rid=BATCH * PUMPS + i, tokens=p, arrival_s=time.time()))
+    again = eng.pump()
     assert all(np.array_equal(a.tokens, c.tokens) for a, c in zip(again, done[:BATCH])), \
         "a repeated pump gave other tokens"
     log(f"slice: {arch}: a repeated pump returns the first pump's tokens")
@@ -1331,12 +1109,6 @@ def run_slice(dev, arch, layers=None, encoder_layers=None):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, stats
-
-
-# the benchmark's qwen1.5-4b cell (perfbench/configs/qwen15-4b-f32.json):
-# App W6's 6 prompts of 64 tokens, one scored token, 40 layers, theta 5e6
-SYNC_FREE_ARCH, SYNC_FREE_BATCH, SYNC_FREE_PROMPT = "qwen1.5-4b", 6, 64
-SYNC_FREE_OVERRIDES = dict(rope_theta=5e6, norm_eps=1e-6)
 
 
 def per_call_rope_freqs(head_dim, theta, device=None):
@@ -1390,86 +1162,108 @@ def sync_errors(eng, guard=True):
         eng.model, spans.span = model, span
 
 
-def check_sync_free_granite(dev):
-    """granite-4.0-h-small's served pass at the benchmark cell's size, its
-    dispatch under ``SyncErrors``: the router's sort, the experts' offsets,
-    the grouped products and the mixed cache's reset make no call that
-    synchronises with the card.  Two passes give equal tokens and logits;
-    no held assignment is dropped; the launches a pass."""
-    from repro_torch.configs import get_config
+def benchmark_cells():
+    """{workload: (Cell, ArchConfig)} of every workload in BENCHMARK.json,
+    read by perfbench's own readers (harness.cell.load_cell,
+    harness.bench.program_config)."""
+    if str(BENCH_TREE) not in sys.path:
+        sys.path.insert(0, str(BENCH_TREE))
+    from harness.bench import program_config
+    from harness.cell import MANIFEST, load_cell, load_json
+    cells = {w["name"]: load_cell(w["name"]) for w in load_json(MANIFEST)["workloads"]}
+    return {name: (cell, program_config(cell)[0]) for name, cell in cells.items()}
+
+
+def kernel_shapes(cell, cfg):
+    """The shapes at which a cell's prefill calls the Mamba2 scan and the
+    grouped expert products, where its model has them: {"ssd_scan": (B, S,
+    H, hd, N), "moe_experts": (T, D, F, E, held, K)}."""
+    from repro_torch.models import ssm
+    B, S = cell.traffic["batch_size"], cell.traffic["prompt_len"]
+    shapes = {}
+    if "mamba2" in cfg.pattern:
+        d_in, H, _, N, _ = ssm._dims(cfg)
+        shapes["ssd_scan"] = (B, S, H, d_in // H, N)
+    if cfg.moe_dropless:
+        shapes["moe_experts"] = (B * S, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_held,
+                                 cfg.top_k)
+    return shapes
+
+
+def check_cell_pass(dev, name, cell, cfg):
+    """One served pass of the benchmark cell ``name`` at its configuration
+    and traffic (perfbench's build_engine, the engine's seeded weights),
+    twice under ``sync_errors``: no call between the token upload and the
+    fetch synchronises with the card; the two passes' tokens and logits are
+    equal bit for bit; each kernel launches as the layers ask
+    (want_launches) and the products through the 3xTF32 kernel and left to
+    cuBLAS are GEMM_CELL_PASS's.  A dropless MoE counts every layer's held
+    assignments and drops none; a model that rotates positions passes
+    check_rotation.  Returns the pass's record, with the (T, K, N) shapes
+    the product kernel ran and their calls a pass, the most called first."""
+    from harness.bench import build_engine
     from repro_torch.kernels import gemm, ops
     from repro_torch.models import moe
-    from repro_torch.serving.engine import ServingEngine
-    cfg = get_config(GRANITE_ARCH).replace(experts_held=GRANITE_HELD)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    eng = ServingEngine(cfg, batch_size=GRANITE_BATCH, prompt_len=GRANITE_PROMPT,
-                        decode_tokens=1, seed=0, device=dev)
-    tokens = np.random.default_rng(7).integers(
-        0, cfg.vocab_size, size=(GRANITE_BATCH, GRANITE_PROMPT)).astype(np.int32)
+    eng = build_engine(cell, cfg, None, dev)
+    B, S = eng.batch_size, eng.prompt_len
+    tokens = np.random.default_rng(0).integers(3, cfg.vocab_size, size=(B, S)).astype(np.int32)
     moe.reset_held_counts()
     ops.reset_launch_counts()
-    with sync_errors(eng) as guard:
+    shapes = collections.Counter()      # the product kernel's (T, K, N), launch by launch
+    with Spy({"gemm": (gemm, "_launch")}, seen={"gemm": lambda *a: shapes.update([a[4:]])}), \
+            sync_errors(eng) as guard:
         out = eng._serve(tokens)
         out_again = eng._serve(tokens)
-    launches = {k: n // 2 for k, n in ops.launch_counts().items() if n}
+    launches = {k: n // 2 for k, n in ops.launch_counts().items()}
     declined = gemm.gemm.declined // 2
-    counts = moe.held_counts()
-    assert len(guard.logits) == 2 and np.array_equal(out, out_again), "passes differ"
-    assert torch.equal(guard.logits[0], guard.logits[1]), "logits differ between passes"
-    assert len(counts) == cfg.n_layers and all(c["dropped"] == 0 and c["assignments"] > 0
-                                               for c in counts.values()), counts
-    want = GEMM_CELL_PASS["granite4-h-small.w6x4-closed"]
-    assert launches == {"flash_attention": 4, "ssd_scan": 36, "moe_experts": 40,
-                        "gemm": want[0]}, launches
-    assert declined == want[1], declined
-    assignments = sum(c["assignments"] for c in counts.values()) // 2
-    stats = {"arch": GRANITE_ARCH, "layers": cfg.n_layers, "experts_held": GRANITE_HELD,
-             "batch": GRANITE_BATCH, "prompt_len": GRANITE_PROMPT,
-             "held_assignments_a_pass": assignments,
-             "largest_expert_rows": max(c["max_rows"] for c in counts.values()),
-             "dropped": 0, "launches_a_pass": launches, "gemm_declined_a_pass": declined,
-             "sync_free": True,
-             "memory_peak_bytes": torch.cuda.max_memory_allocated(dev),
-             "seconds": time.perf_counter() - t0}
-    log(f"sync-free pass: {GRANITE_ARCH} ({GRANITE_HELD} of {cfg.n_experts} experts) "
-        f"{GRANITE_BATCH} x {GRANITE_PROMPT}, {cfg.n_layers} layers: no synchronising call "
-        f"in the dispatch; {assignments} held assignments a pass, none dropped; launches "
-        f"{launches}; {stats['seconds']:.1f} s")
+    assert len(guard.logits) == 2 and np.array_equal(out, out_again), f"{name}: passes differ"
+    assert torch.equal(guard.logits[0], guard.logits[1]), f"{name}: logits differ between passes"
+    routed, want_declined = GEMM_CELL_PASS[name]
+    want = want_launches(cfg, routed, eng.decode_tokens, 1)
+    assert launches == want, (name, launches, want)
+    assert declined == want_declined, (name, declined)
+    stats = {"cell": name, "arch": cfg.name, "layers": cfg.n_layers, "batch": B,
+             "prompt_len": S, "sync_free": True,
+             "launches_a_pass": {k: n for k, n in launches.items() if n},
+             "gemm_declined_a_pass": declined,
+             "gemm_shapes": sorted(((shape, n // 2) for shape, n in shapes.items()),
+                                   key=lambda sn: -sn[1])}
+    if cfg.moe_dropless:
+        counts = moe.held_counts()
+        assert len(counts) == want["moe_experts"] and all(
+            c["dropped"] == 0 and c["assignments"] > 0 for c in counts.values()), counts
+        stats.update(experts_held=cfg.n_held, dropped=0,
+                     held_assignments_a_pass=sum(c["assignments"] for c in counts.values()) // 2,
+                     largest_expert_rows=max(c["max_rows"] for c in counts.values()))
+    if cfg.rope_theta > 0 and cfg.attn_layers:
+        stats.update(check_rotation(eng, tokens, guard.logits[0], out))
+    stats.update(memory_peak_bytes=torch.cuda.max_memory_allocated(dev),
+                 seconds=time.perf_counter() - t0)
+    log(f"cell: {name} ({cfg.name}, {cfg.n_layers} layers, {B} x {S}): no synchronising call "
+        f"in the dispatch, two passes bit for bit equal; launches a pass "
+        f"{stats['launches_a_pass']}, {declined} products left to cuBLAS; products "
+        f"(T, K, N) x calls {stats['gemm_shapes']}"
+        + (f"; {stats['held_assignments_a_pass']} held assignments a pass, none dropped"
+           if cfg.moe_dropless else "") + f"; {stats['seconds']:.1f} s")
     del eng, guard
     gc.collect()
     torch.cuda.empty_cache()
     return stats
 
 
-def check_sync_free_pass(dev):
-    """The served pass of the benchmark's qwen1.5-4b cell, its dispatch
-    under ``SyncErrors``: no call between the token upload and the fetch
-    may synchronise with the card.  Its logits and tokens must equal, bit
-    for bit, the same pass's with RoPE's per-call formula in
-    ``rope_freqs``'s place, which the same guard must refuse."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import gemm, ops
+def check_rotation(eng, tokens, logits, out):
+    """A model that rotates positions builds one rotation table a prefill
+    (and one a layer a decode step); its pass's ``logits`` and tokens
+    (``out``) equal, bit for bit, those with RoPE's per-call formula in
+    ``rope_freqs``'s place, which ``sync_errors`` refuses."""
     from repro_torch.models import rope
-    from repro_torch.serving.engine import ServingEngine
-    cfg = get_config(SYNC_FREE_ARCH).replace(**SYNC_FREE_OVERRIDES)
-    t0 = time.perf_counter()
-    eng = ServingEngine(cfg, batch_size=SYNC_FREE_BATCH, prompt_len=SYNC_FREE_PROMPT,
-                        decode_tokens=1, seed=0, device=dev)
-    tokens = np.random.default_rng(5).integers(
-        3, cfg.vocab_size, size=(SYNC_FREE_BATCH, SYNC_FREE_PROMPT)).astype(np.int32)
-    ops.reset_launch_counts()
-    with sync_errors(eng) as guard:
-        out = eng._serve(tokens)
-        out_again = eng._serve(tokens)
-    gemms = (ops.launch_counts()["gemm"] // 2, gemm.gemm.declined // 2)
-    assert len(guard.logits) == 2 and np.array_equal(out, out_again), "passes differ"
-    assert torch.equal(guard.logits[0], guard.logits[1]), "logits differ between passes"
-    assert gemms == GEMM_CELL_PASS["qwen15-4b.w6-closed"], gemms
     built = rope.position_table.built
     eng._serve(tokens)
     built = rope.position_table.built - built
-    assert built == 1, f"the served prefill built {built} rotation tables, not 1"
+    want = 1 + len(eng.cfg.attn_layers) * (eng.decode_tokens - 1)
+    assert built == want, f"the served pass built {built} rotation tables, not {want}"
     formula, rope.rope_freqs = rope.rope_freqs, per_call_rope_freqs
     try:
         try:
@@ -1484,44 +1278,12 @@ def check_sync_free_pass(dev):
             out_formula = eng._serve(tokens)
     finally:
         rope.rope_freqs = formula
-    assert torch.equal(guard.logits[0], control.logits[0]), \
-        "the device-built rotation changes the logits"
+    assert torch.equal(logits, control.logits[0]), "the device-built rotation changes the logits"
     assert np.array_equal(out, out_formula)
-    stats = {"arch": SYNC_FREE_ARCH, "layers": cfg.n_layers, "batch": SYNC_FREE_BATCH,
-             "prompt_len": SYNC_FREE_PROMPT, **SYNC_FREE_OVERRIDES,
-             "tables_a_prefill": built, "logits_equal_per_call_formula": True,
-             "gemm_launches_a_pass": gemms[0], "gemm_declined_a_pass": gemms[1],
-             "per_call_formula_refused": refused,
-             "seconds": time.perf_counter() - t0}
-    log(f"sync-free pass: {SYNC_FREE_ARCH} {SYNC_FREE_BATCH} x {SYNC_FREE_PROMPT}, "
-        f"{cfg.n_layers} layers: no synchronising call in the dispatch, two passes bit for "
-        f"bit equal, {gemms[0]} products a pass through the 3xTF32 kernel and {gemms[1]} "
-        f"left to cuBLAS, one table a "
-        f"prefill, logits equal to the per-call formula's bit for bit; that formula "
-        f"refused ({refused}); {stats['seconds']:.1f} s")
-    del eng, guard, control
-    gc.collect()
-    torch.cuda.empty_cache()
-    return stats
-
-
-@contextlib.contextmanager
-def capture_moe_input():
-    """Inside the block, the first MoE layer's call keeps its weights and
-    input in the list it yields."""
-    from repro_torch.models import moe
-    apply_moe, seen = moe.apply_moe, []
-
-    def keep(p, x, cfg, **kw):
-        if not seen:
-            seen.extend((p, x))
-        return apply_moe(p, x, cfg, **kw)
-
-    moe.apply_moe = keep
-    try:
-        yield seen
-    finally:
-        moe.apply_moe = apply_moe
+    log(f"cell: one rotation table a prefill, logits equal to the per-call formula's bit for "
+        f"bit; that formula refused ({refused})")
+    return {"rope_theta": eng.cfg.rope_theta, "tables_a_pass": built,
+            "logits_equal_per_call_formula": True, "per_call_formula_refused": refused}
 
 
 def moe_against_plain(cfg, p, x):
@@ -1548,113 +1310,6 @@ def moe_against_plain(cfg, p, x):
     assert abs(float(aux) - float(aux_plain)) <= 1e-6 * abs(float(aux_plain)), (aux, aux_plain)
     return {"apply_moe_vs_plain_rel_err": rel, "layer0_prefill_dropped": dropped,
             "layer0_prefill_assignments": total, "capacity": C}
-
-
-KERNEL_GROUPS = {"flash_attn_kernel": "flash_attention", "decode_attn": "decode_attention",
-                 "rwkv6_scan_kernel": "rwkv6_scan", "ssd_scan_kernel": "ssd_scan"}
-
-
-def kernel_groups(prof):
-    """Device ms by kernel group in one torch.profiler run."""
-    groups = dict.fromkeys([*KERNEL_GROUPS.values(), "matmul", "other"], 0.0)
-    for key, us in device_kernels_us(prof):
-        name = key.lower()
-        group = next((g for k, g in KERNEL_GROUPS.items() if k in name), None)
-        if group:
-            groups[group] += us / 1e3
-        elif "gemm" in name or "gemv" in name or "cutlass" in name:
-            groups["matmul"] += us / 1e3
-        else:
-            groups["other"] += us / 1e3
-    if sum(groups.values()) <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return groups
-
-
-def aten_calls(prof):
-    """ATen operator calls the host issued in one torch.profiler run,
-    nested calls included."""
-    return sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
-
-
-def prefill_matmul_flops(cfg, batch, seq):
-    """Operations of the prefill's matrix products, from the shapes: every
-    projection of every block (attention QKV/O and the MLP: SwiGLU's three
-    products or GELU's two; the MoE layer's router and its three expert
-    products over the slots the port computes, E·ks virtual experts x B x
-    min(ceil(C / ks), Sc) rows a chunk; RWKV6 r, k, v, g, o, its low-rank mixes and
-    channel mix; Mamba2 in/out projections), zamba2's shared block once per
-    group, whisper's encoder blocks over its frames and each decoder block's
-    cross-attention (q and o over the prompt, K and V over the frames),
-    qwen2-vl's vision projection, and the head on the last token."""
-    from repro_torch.models import moe, rwkv, ssm
-    T, d, hd, kind = batch * seq, cfg.d_model, cfg.hd, cfg.pattern[0]
-    proj = (2 * T * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
-            + 2 * T * cfg.n_heads * hd * d)
-    attn = proj + (3 if cfg.act_fn == "silu" else 2) * 2 * T * d * cfg.d_ff
-    if kind == "attn" and cfg.is_moe:
-        n, Sc, C = moe._chunking(seq, cfg, 512)
-        ks = cfg.expert_shards
-        rows = n * cfg.n_experts * ks * batch * moe._fillable(C, Sc, ks)
-        per_layer = proj + 2 * T * d * cfg.n_experts + 3 * 2 * rows * d * (cfg.d_ff // ks)
-    elif kind == "attn":
-        per_layer = attn
-    elif kind == "rwkv6":
-        per_layer = 2 * T * (6 * d * d + 2 * d * cfg.d_ff
-                             + 2 * 5 * rwkv.LORA_R * d + 2 * rwkv.DECAY_R * d)
-    else:
-        d_in, H, G, N, _ = ssm._dims(cfg)
-        per_layer = 2 * T * (d * (2 * d_in + 2 * G * N + H) + d_in * d)
-    groups = cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
-    extra = 0
-    if cfg.encoder_layers:
-        T_enc = batch * cfg.encoder_seq_len
-        enc = prefill_matmul_flops(cfg.replace(encoder_layers=0, cross_attention=False,
-                                               n_layers=cfg.encoder_layers, vocab_size=0),
-                                   batch, cfg.encoder_seq_len)
-        cross = 2 * 2 * T * d * cfg.n_heads * hd + 2 * 2 * T_enc * d * cfg.n_kv_heads * hd
-        extra = enc + cfg.n_layers * cross
-    if cfg.frontend == "vision" and cfg.frontend_dim:
-        extra += 2 * batch * min(cfg.vision_patches, seq) * cfg.frontend_dim * d
-    return cfg.n_layers * per_layer + groups * attn + 2 * batch * d * cfg.vocab_size + extra
-
-
-def profile_alone(model, params, cfg, batch, tok, buf):
-    """One prefill and then one decode step, each alone under
-    torch.profiler: device ms by group, the prefill's matmul rate, and the
-    host's ATen calls per layer of the decode step."""
-    with torch.inference_mode():
-        cache = model.init_cache(BATCH, buf, dtype=torch.float32)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=ACTIVITIES) as prof:
-            model.prefill(params, batch, cache)
-            torch.cuda.synchronize()
-        prefill = kernel_groups(prof)
-        with torch.profiler.profile(activities=ACTIVITIES) as prof:
-            model.decode_step(params, tok, cache)
-            torch.cuda.synchronize()
-        decode = kernel_groups(prof)
-        decode_aten = aten_calls(prof)
-    flops = prefill_matmul_flops(cfg, BATCH, PROMPT)
-    return {"prefill_device_ms": prefill,
-            "prefill_matmul_tflop": flops / 1e12,
-            "prefill_matmul_tflop_per_s": flops / (prefill["matmul"] * 1e-3) / 1e12,
-            "decode_step_device_ms": decode,
-            "decode_step_aten_calls_per_layer": decode_aten / cfg.n_layers}
-
-
-def profile_pump(eng, prompts, pump_ms):
-    """Device time by kernel group over one more pump (torch.profiler), and
-    the share of an unprofiled pump's wall time (pump_ms, the mean of the
-    timed pumps) in which no kernel ran; also the pump's completions."""
-    from repro_torch.serving.engine import Request
-    for i, p in enumerate(prompts):
-        eng.submit(Request(rid=1000 + i, tokens=p, arrival_s=time.time()))
-    with torch.profiler.profile(activities=ACTIVITIES) as prof:
-        done = eng.pump()
-    groups = kernel_groups(prof)
-    return {"pump_ms": pump_ms, "device_ms": groups,
-            "idle_share": max(0.0, 1.0 - sum(groups.values()) / pump_ms)}, done
 
 
 @contextlib.contextmanager
@@ -1742,6 +1397,7 @@ def time_flash(dev, rng, H=32, KV=8, hd=128, S=PROMPT, Skv=None, causal=True):
     by default; Skv: a kv length of its own, without a mask): the kernel
     against its plain version on the timed inputs (max_abs_err), kernel,
     plain version and SDPA device times, and bound."""
+    import repro_torch.kernels.flash_attention as kernel
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     B, Skv = BATCH, S if Skv is None else Skv
@@ -1764,8 +1420,7 @@ def time_flash(dev, rng, H=32, KV=8, hd=128, S=PROMPT, Skv=None, causal=True):
                 qt, kt, vt, is_causal=causal), 1),
             None if H == KV else lambda: device_ms(lambda i: F.scaled_dot_product_attention(
                 qt, kg, vg, is_causal=causal, enable_gqa=True), 1))
-    pairs = S * (S + 1) // 2 if causal else S * Skv   # (q, k) pairs per head
-    flops = 4 * hd * pairs * B * H                # QK^T and PV, 2 flops per FMA
+    flops = kernel.flops(q.shape, k.shape, v.shape, causal, None)
     nbytes = 4 * (2 * B * S * H * hd + 2 * B * Skv * KV * hd)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/attention.cu",
@@ -1858,6 +1513,7 @@ def library_times(efficient, gqa_math=None):
 def time_rwkv(dev, rng, err):
     """rwkv6_scan at rwkv6-1.6b's prefill, from a zero initial state as the
     model passes it; no single PyTorch call computes the recurrence."""
+    import repro_torch.kernels.rwkv6_scan as kernel
     from repro_torch.kernels import ref
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     B, S, H, hd = RWKV_SHAPE
@@ -1867,10 +1523,7 @@ def time_rwkv(dev, rng, err):
         ms = device_ms(lambda i: rwkv6_scan(r, k, v, logw, u, s0=s0), 1)
         # thousands of small kernels a call: the profiler's own cost grows with them
         plain_ms = device_ms(lambda i: ref.rwkv6_ref(r, k, v, logw, u, s0), 1, iters=1, warmup=1)
-    # the recurrence's least work per step and head: the state's read-out
-    # r·S and its rank-1 update kᵀv, 2 flops per FMA (a chunked form decays
-    # the state once a chunk, so the per-step decay is left out)
-    flops = B * S * H * 4 * hd * hd
+    flops = kernel.flops(r.shape)
     nbytes = 4 * (5 * B * S * H * hd + H * hd + 2 * B * H * hd * hd)
     return {"name": "rwkv6_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/scan.cu",
@@ -1884,6 +1537,7 @@ def time_ssd(dev, rng, err, shape=SSD_SHAPE):
     """ssd_scan at zamba2-2.7b's prefill (or ``shape``): B and C in group
     form expanded over the heads and a zero initial state, as the Mamba2
     block passes them; no single PyTorch call computes the recurrence."""
+    import repro_torch.kernels.ssd_scan as kernel
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan
     B, S, H, hd, N = shape
@@ -1892,9 +1546,7 @@ def time_ssd(dev, rng, err, shape=SSD_SHAPE):
     with torch.inference_mode():
         ms = device_ms(lambda i: ssd_scan(xdt, Bm, Cm, dA, h0=h0), 1)
         plain_ms = device_ms(lambda i: ref.ssd_ref(xdt, Bm, Cm, dA, h0), 1, iters=1, warmup=1)
-    # as for rwkv6: the read-out C·S and the rank-1 update xdtᵀB per step and
-    # head, 2 flops per FMA
-    flops = B * S * H * 4 * hd * N
+    flops = kernel.flops(xdt.shape, Bm.shape)
     nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * N + B * S * H + 2 * B * H * hd * N)
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/scan.cu",
@@ -1904,13 +1556,14 @@ def time_ssd(dev, rng, err, shape=SSD_SHAPE):
             "library_ms": None}
 
 
-def time_moe(dev, rng, err):
-    """The grouped expert products at granite-4.0-h-small's cell (one call:
-    the gate and up products, the down product, the combine); no single
-    PyTorch call computes them without the expert counts on the host."""
+def time_moe(dev, rng, err, shape):
+    """The grouped expert products at a cell's ``shape`` (T, D, F, E, held,
+    K) (one call: the gate and up products, the down product, the
+    combine); no single PyTorch call computes them without the expert
+    counts on the host."""
     from repro_torch.kernels import ops, ref
-    T, D, F, E, held, K = GRANITE_MOE_SHAPE
-    args = moe_inputs(rng, *GRANITE_MOE_SHAPE, dev)
+    T, D, F, E, held, K = shape
+    args = moe_inputs(rng, *shape, dev)
     rows = int(args[2][-1])
     with torch.inference_mode():
         ms = device_ms(lambda i: ops.moe_experts(*args), 1)
@@ -1923,7 +1576,7 @@ def time_moe(dev, rng, err):
     return {"name": "moe_experts", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/moe.cu",
             "replaces": "none (the JAX package's MoE layer drops assignments; einsums)",
-            "max_abs_err": err, "shape": GRANITE_MOE_SHAPE, "rows": rows,
+            "max_abs_err": err, "shape": shape, "rows": rows,
             "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes),
             "library_ms": None}
 
@@ -1945,43 +1598,23 @@ def host_us(fn, calls=50, reps=7):
     return float(np.median(runs))
 
 
-def cell_pass_counts(dev, arch, batch, prompt):
-    """layers.mm's products through the kernel, and left to cuBLAS, in one
-    served pass of ``arch`` at a cell's batch and prompt (full depth)."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import gemm, ops
-    from repro_torch.serving.engine import ServingEngine
-    cfg = get_config(arch)
-    eng = ServingEngine(cfg, batch_size=batch, prompt_len=prompt, decode_tokens=1, seed=0,
-                        device=dev)
-    tokens = np.random.default_rng(3).integers(3, cfg.vocab_size, size=(batch, prompt))
-    ops.reset_launch_counts()
-    eng._serve(tokens.astype(np.int32))
-    counts = (ops.launch_counts()["gemm"], gemm.gemm.declined)
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    return counts
-
-
-def time_gemm(dev, rng, err):
-    """The 3xTF32 product kernel at every shape the three benchmark cells
-    send through layers.mm: its device ms (CUDA events over 20 calls back
-    to back), its bound (2 T K N at 165 TFLOP/s) and share, its plain
-    version's and cuBLAS f32's ms, both errors against float64, and the
-    products' ms a pass of each cell;
-    layers.mm's host microseconds a call to the kernel, beside layers.mm's
-    to cuBLAS (its path before the kernel) and aten::mm's alone; rwkv6-1.6b's
-    cell pass's launches and declined products (qwen's and granite's come
-    from their sync-free passes)."""
+def time_gemm(dev, rng, err, passes):
+    """The 3xTF32 product kernel at every shape the cells' ``passes``
+    (check_cell_pass) sent through layers.mm: its device ms (CUDA events
+    over 20 calls back to back), its bound (2 T K N at 165 TFLOP/s) and
+    share, its plain version's and cuBLAS f32's ms, both errors against
+    float64, and the products' ms a pass of each cell; at a cell's most
+    called shape layers.mm's host microseconds a call to the kernel, beside
+    layers.mm's to cuBLAS (its path before the kernel) and aten::mm's
+    alone."""
     from repro_torch.kernels import gemm, ref
     from repro_torch.models import layers
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, cells = [], {}
     with torch.inference_mode():
-        for cell, shapes in GEMM_CELLS.items():
+        for cell, p in passes.items():
             kernel_pass = cublas_pass = 0.0
-            for (T, K, N), calls in shapes:
+            for (T, K, N), calls in p["gemm_shapes"]:
                 x, w = gemm_operands(rng, T, K, N, dev)
                 # CUDA events, not torch.profiler: the plain version's thousands of
                 # small kernels would make later profiler runs drop records (device_ms)
@@ -2001,9 +1634,11 @@ def time_gemm(dev, rng, err):
                 rows.append(row)
                 kernel_pass += calls * ms
                 cublas_pass += calls * lib_ms
-            T, K, N = shapes[0][0]
+            T, K, N = p["gemm_shapes"][0][0]
             x, w = gemm_operands(rng, T, K, N, dev)
-            cells[cell] = {"products_ms_a_pass": kernel_pass,
+            cells[cell] = {"launches_a_pass": p["launches_a_pass"]["gemm"],
+                           "declined_a_pass": p["gemm_declined_a_pass"],
+                           "products_ms_a_pass": kernel_pass,
                            "library_products_ms_a_pass": cublas_pass,
                            "host_us_a_call": host_us(lambda: layers.mm(x, w)),
                            "host_us_shape": [T, K, N]}
@@ -2013,9 +1648,6 @@ def time_gemm(dev, rng, err):
             finally:
                 gemm.take = take
             cells[cell]["aten_mm_host_us_a_call"] = host_us(lambda: x @ w)
-    launches, declined = cell_pass_counts(dev, *RWKV6_CELL)
-    assert (launches, declined) == GEMM_CELL_PASS["rwkv6-1.6b.w5-closed"], (launches, declined)
-    cells["rwkv6-1.6b.w5-closed"].update(launches_a_pass=launches, declined_a_pass=declined)
     for r in rows:
         log(f"timing: gemm {r['cell']} {r['shape']} x {r['calls_a_pass']}: {r['ms']:.4f} ms "
             f"({r['tflop_per_s']:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.1%} of bound, "
@@ -2174,39 +1806,15 @@ def planner_breakdown(provision):
     device ms of the grant-loop kernels and of the copies, and the share
     of that run's wall time in which the card was idle."""
     from repro_torch.core import perf_model_vec as pmv
-    alloc_all = pmv.VecCluster.alloc_all
-    spent = {"numpy": 0.0, "torch": 0.0}
-
-    def timed(self, *args):
-        t0 = time.perf_counter()
-        try:
-            return alloc_all(self, *args)
-        finally:
-            spent[self.backend] += time.perf_counter() - t0
-
     out = {}
-    pmv.VecCluster.alloc_all = timed
-    try:
-        for backend in spent:
+    for backend in ("numpy", "torch"):
+        with Spy({"alloc_all": (pmv.VecCluster, "alloc_all")}) as spy:
             _, wall = provision(1000, "queueing", backend)
-            out[backend] = {"wall_s": wall, "alloc_all_s": spent[backend],
-                            "alloc_all_share": spent[backend] / wall}
-    finally:
-        pmv.VecCluster.alloc_all = alloc_all
+        spent = spy.seconds["alloc_all"]
+        out[backend] = {"wall_s": wall, "alloc_all_s": spent, "alloc_all_share": spent / wall}
     with torch.profiler.profile(activities=ACTIVITIES) as prof:
         _, wall = provision(1000, "queueing", "torch")
-    groups = {"alloc_all_kernel": 0.0, "memcpy_htod": 0.0, "memcpy_dtoh": 0.0, "other": 0.0}
-    kernels = 0
-    for key, us in device_kernels_us(prof):
-        group = ("alloc_all_kernel" if "alloc_all_kernel" in key else "memcpy_htod"
-                 if "HtoD" in key else "memcpy_dtoh" if "DtoH" in key else "other")
-        groups[group] += us / 1e3
-    for evt in prof.key_averages():
-        if "alloc_all_kernel" in evt.key and evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels += evt.count
-    out["torch_profiled"] = {"wall_s": wall, "device_ms": groups,
-                             "alloc_all_kernels_recorded": kernels,
-                             "idle_share": max(0.0, 1.0 - sum(groups.values()) / (wall * 1e3))}
+    out["torch_profiled"] = device_groups(prof, wall, ("alloc_all_kernel",))
     log(f"planner: breakdown at m=1000: {out}")
     return out
 
@@ -2238,24 +1846,17 @@ def run_planner(dev):
             torch.cuda.synchronize()
         return plan, time.perf_counter() - t0
 
-    # record the cluster and the newcomer of the last grant-loop call
+    # record the cluster and the newcomer of m = 1000's last grant-loop call
     last = {}
-    alloc_all_torch = pmt.alloc_all_torch
-
-    def recording(cl, *args):
-        last["cl"], last["args"] = cl, args
-        return alloc_all_torch(cl, *args)
-
     plans, refs, launches_m1000 = [], {}, None
     for m, budget in PLANNER_DEVICES:
         ref, _ = provision(m, budget, "numpy")
         refs[(m, budget)] = plan_key(ref)
-        pmt.alloc_all_torch = recording if (m, budget) == (1000, "queueing") else alloc_all_torch
         ops.reset_launch_counts()
-        try:
+        seen = {"alloc_all": lambda cl, *args: last.update(cl=cl, args=args)}
+        with Spy({"alloc_all": (pmt, "alloc_all_torch")},
+                 seen=seen if (m, budget) == (1000, "queueing") else None):
             plan, _ = provision(m, budget, "torch")
-        finally:
-            pmt.alloc_all_torch = alloc_all_torch
         launches = ops.launch_counts()
         assert plan_key(plan) == plan_key(ref), f"m={m} {budget}: torch and numpy plans differ"
         assert plan.n_gpus == PLANNER_DEVICES[(m, budget)], (m, budget, plan.n_gpus)
@@ -2517,18 +2118,7 @@ def table_build_breakdown(simulate):
                     "table_build_share": spy.seconds["build"] / wall}
     with torch.profiler.profile(activities=ACTIVITIES) as prof:
         _, wall = simulate("torch")
-    groups = {"tables_kernel": 0.0, "memcpy_htod": 0.0, "memcpy_dtoh": 0.0, "other": 0.0}
-    kernels = 0
-    for key, us in device_kernels_us(prof):
-        group = ("tables_kernel" if "tables_kernel" in key else "memcpy_htod"
-                 if "HtoD" in key else "memcpy_dtoh" if "DtoH" in key else "other")
-        groups[group] += us / 1e3
-    for evt in prof.key_averages():
-        if "tables_kernel" in evt.key and evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels += evt.count
-    out["torch_profiled"] = {"wall_s": wall, "device_ms": groups,
-                             "tables_kernels_recorded": kernels,
-                             "idle_share": max(0.0, 1.0 - sum(groups.values()) / (wall * 1e3))}
+    out["torch_profiled"] = device_groups(prof, wall, ("tables_kernel",))
     log(f"simulator: breakdown at m=1000: {out}")
     return out
 
@@ -3000,24 +2590,9 @@ def control_breakdown(dev, name, specs, plan, ctx):
     with torch.profiler.profile(activities=ACTIVITIES) as prof:
         _, _, wall, counts = controlled_run(dev, "torch", plan, ctx, CONTROL_HORIZON_S,
                                             trace=tr, poisson=poisson)
-    groups = {"alloc_all_kernel": 0.0, "tables_kernel": 0.0, "memcpy_htod": 0.0,
-              "memcpy_dtoh": 0.0, "other": 0.0}
-    for key, us in device_kernels_us(prof):
-        group = next((k for k in ("alloc_all_kernel", "tables_kernel") if k in key),
-                     "memcpy_htod" if "HtoD" in key else "memcpy_dtoh" if "DtoH" in key
-                     else "other")
-        groups[group] += us / 1e3
-    recorded = {k: 0 for k in ("alloc_all_kernel", "tables_kernel")}
-    for evt in prof.key_averages():
-        for k in recorded:
-            if k in evt.key and evt.device_type == torch.autograd.DeviceType.CUDA:
-                recorded[k] += evt.count
-    # a dropped record would hide device time: the idle share is an upper
-    # bound then, and the recorded counts say by how much
-    out = {"scenario": name, "wall_s": wall, "device_ms": groups,
-           "idle_share": max(0.0, 1.0 - sum(groups.values()) / (wall * 1e3)),
+    out = {"scenario": name, **device_groups(prof, wall, ("alloc_all_kernel", "tables_kernel")),
            "alloc_all_launches": counts["alloc_all_launches"],
-           "tables_launches": counts["tables_launches"], "kernels_recorded": recorded}
+           "tables_launches": counts["tables_launches"]}
     log(f"controller: profiled {name} run: {out}")
     return out
 
@@ -4022,6 +3597,11 @@ def main():
     from repro_torch.kernels import _build
     t_all = time.perf_counter()
     dev = resolve_device()
+    cells = benchmark_cells()
+    cell_shapes = [(name, kernel, shape) for name, cc in cells.items()
+                   for kernel, shape in kernel_shapes(*cc).items()]
+    # each such kernel's check (phase 3) and timing (phase 5) at a cell's shape
+    cell_fns = {"ssd_scan": (check_ssd_cell, time_ssd), "moe_experts": (check_moe, time_moe)}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4045,15 +3625,18 @@ def main():
         errs = {"flash_attention": check_flash(dev, rng),
                 "decode_attention": check_decode(dev, rng),
                 "rwkv6_scan": check_rwkv(dev, rng), "ssd_scan": check_ssd(dev, rng)}
-        granite_errs = {"ssd_scan": check_ssd_granite(dev, rng), "moe_experts": check_moe(dev, rng)}
-        errs["gemm"] = check_gemm(dev, rng)
+        cell_errs = [cell_fns[kernel][0](dev, rng, shape) for _, kernel, shape in cell_shapes]
+        # the cells' passes, which give check_gemm and time_gemm their shapes
+        passes = {name: check_cell_pass(dev, name, *cc) for name, cc in cells.items()}
+        errs["gemm"] = check_gemm(dev, rng, passes)
         # the combine of a cache sharded over its slots, as segments on one card
         segments_err = decode_segments(dev, rng)
         for kernel, counts in sass.result().items():
             log(f"sass: every {kernel} instantiation holds {SASS_CHECKS[kernel][2]}: "
                 f"{counts}")
-    # phase 5 before phase 4: the larger the profiler runs before a timing,
-    # the more kernel records it drops (see device_ms)
+    # phase 5 before the slices' and the later phases' large runs: the larger
+    # the profiler runs before a timing, the more kernel records it drops
+    # (see device_ms)
     kernels = [time_flash(dev, rng), time_decode(dev, rng)]
     kernels.append({**time_decode(dev, rng, partial=True), "segments_max_abs_err": segments_err,
                     "launches_on": "phase 10's decode steps on a cache sharded over its "
@@ -4062,68 +3645,52 @@ def main():
         kernels.append(timer(dev, rng, errs[name]))
     for k in kernels:
         log_timing(k)
-    # granite-4.0-h-small's: the grouped expert products and the scan at state 128
-    granite_kernels = [time_moe(dev, rng, granite_errs["moe_experts"]),
-                       time_ssd(dev, rng, granite_errs["ssd_scan"], GRANITE_SSD_SHAPE)]
-    for k in granite_kernels:
-        log_timing(k, f"{k['name']} (granite-4.0-h-small, {k['shape']})")
-    # the attention kernels at zamba2-2.7b's shared block: head_dim 80, 32 kv heads
-    hd80 = [time_flash(dev, rng, 32, 32, 80),
-            time_decode(dev, rng, 32, 32, 80)]
-    for k in hd80:
-        log_timing(k, f"{k['name']} (zamba2-2.7b, head_dim 80)")
-    # and at mixtral-8x22b's and dbrx-132b's: 48 query heads on 8 kv heads
-    h48 = [time_flash(dev, rng, 48, 8, 128),
-           time_decode(dev, rng, 48, 8, 128)]
-    for k in h48:
-        log_timing(k, f"{k['name']} (mixtral-8x22b / dbrx-132b, 48 / 8 heads)")
-    # qwen2-vl-7b's 28 query heads on 4 kv heads (G = 7); whisper-large-v3's
-    # encoder over its frames and its prompt's cross-attention to them (no
-    # mask), its decoder's causal prompt, and its decode step against the
-    # self cache and against the cross cache
+    # the cells' own shapes of the Mamba2 scan and the grouped expert products
+    cell_kernels = [{**cell_fns[kernel][1](dev, rng, err, shape), "cell": name}
+                    for (name, kernel, shape), err in zip(cell_shapes, cell_errs)]
+    # the attention kernels at the other served models' heads: zamba2-2.7b's
+    # shared block (head_dim 80, 32 kv heads), mixtral-8x22b's and dbrx-132b's
+    # 48 / 8, qwen2-vl-7b's 28 / 4 (G = 7); whisper-large-v3's encoder over its
+    # frames and its prompt's cross-attention to them (no mask), its decoder's
+    # causal prompt, and its decode step on the self and on the cross cache
     cfgs = model_configs()
     vl, wh = cfgs["qwen2-vl-7b"], cfgs["whisper-large-v3"]
-    g7 = [time_flash(dev, rng, vl.n_heads, vl.n_kv_heads, vl.hd),
-          time_decode(dev, rng, vl.n_heads, vl.n_kv_heads, vl.hd)]
+    g7 = (vl.n_heads, vl.n_kv_heads, vl.hd)
     heads, Se = (wh.n_heads, wh.n_kv_heads, wh.hd), wh.encoder_seq_len
-    whisper = [time_flash(dev, rng, *heads, S=Se, causal=False),
-               time_flash(dev, rng, *heads, Skv=Se, causal=False),
-               time_flash(dev, rng, *heads),
-               time_decode(dev, rng, *heads),
-               time_decode(dev, rng, *heads, cross_frames=Se)]
-    for k in g7:
-        log_timing(k, f"{k['name']} (qwen2-vl-7b, {k['shape']})")
-    for k in whisper:
-        log_timing(k, f"{k['name']} (whisper-large-v3, {k['shape']})")
-    # phase 6, the planner, before the pumps' large profiler runs as well
+    served = [("zamba2-2.7b", time_flash(dev, rng, 32, 32, 80)),
+              ("zamba2-2.7b", time_decode(dev, rng, 32, 32, 80)),
+              ("mixtral-8x22b / dbrx-132b", time_flash(dev, rng, 48, 8, 128)),
+              ("mixtral-8x22b / dbrx-132b", time_decode(dev, rng, 48, 8, 128)),
+              ("qwen2-vl-7b", time_flash(dev, rng, *g7)),
+              ("qwen2-vl-7b", time_decode(dev, rng, *g7)),
+              ("whisper-large-v3", time_flash(dev, rng, *heads, S=Se, causal=False)),
+              ("whisper-large-v3", time_flash(dev, rng, *heads, Skv=Se, causal=False)),
+              ("whisper-large-v3", time_flash(dev, rng, *heads)),
+              ("whisper-large-v3", time_decode(dev, rng, *heads)),
+              ("whisper-large-v3", time_decode(dev, rng, *heads, cross_frames=Se))]
+    served = [{**k, "model": model} for model, k in served]
+    for k in cell_kernels + served:
+        log_timing(k, f"{k['name']} ({k.get('cell') or k['model']}, {k['shape']})")
+    # phase 6, the planner
     clusters, planner_err = check_planner(dev, np.random.default_rng(17))
     planner_kernel, planner = run_planner(dev)
     planner_kernel["max_abs_err"] = planner_err
-    # phase 7, the simulator, before the pumps as well
+    # phase 7, the simulator
     grids, tables_err = check_tables(dev, np.random.default_rng(29))
     tables_kernel, simulator_stats = run_simulator(dev)
     tables_kernel["max_abs_err"] = tables_err
-    # phase 8, the controller, before the pumps as well
+    # phase 8, the controller
     controller_stats = run_controller(dev)
-    # the 3xTF32 products at the three benchmark cells' shapes, after every
+    # the 3xTF32 products at the benchmark cells' shapes, after every
     # torch.profiler timing (they time by CUDA events, and the runs they make
     # can leave a later profiler run short of records: see device_ms)
-    gemm_rows, gemm_cells = time_gemm(dev, rng, errs["gemm"])
+    gemm_rows, gemm_cells = time_gemm(dev, rng, errs["gemm"], passes)
     launches, slices = dict.fromkeys(errs, 0), []
     for arch, layers, encoder_layers in MODELS:
         check_small_against_cpu(dev, arch)
         counts, stats = run_slice(dev, arch, layers, encoder_layers)
         launches = {k: n + counts[k] for k, n in launches.items()}
         slices.append(stats)
-        if arch == SYNC_FREE_ARCH:
-            stats["sync_free_pass"] = check_sync_free_pass(dev)
-            gemm_cells["qwen15-4b.w6-closed"].update(
-                launches_a_pass=stats["sync_free_pass"]["gemm_launches_a_pass"],
-                declined_a_pass=stats["sync_free_pass"]["gemm_declined_a_pass"])
-    granite = check_sync_free_granite(dev)
-    gemm_cells["granite4-h-small.w6x4-closed"].update(
-        launches_a_pass=granite["launches_a_pass"]["gemm"],
-        declined_a_pass=granite["gemm_declined_a_pass"])
     # phase 9, training, after the slices
     train = run_train(dev)
     # phase 10, the mesh layer, last
@@ -4131,30 +3698,17 @@ def main():
     launches["decode_attention_partial"] = (
         mesh["serve"]["slot_sharded"]["decode_launches"]["decode_attention_partial"])
     kernels = ([{**k, "launches": launches[k["name"]]} for k in kernels]
-               + [{**k, "launches": granite["launches_a_pass"][k["name"]]}
-                  for k in granite_kernels]
+               + [{**k, "launches": passes[k["cell"]]["launches_a_pass"][k["name"]]}
+                  for k in cell_kernels]
                + [{**k, "launches": launches["gemm"], "cell_pass": gemm_cells[k["cell"]]}
                   for k in gemm_rows]
-               + [planner_kernel, tables_kernel])
-    timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_cores_ms",
-                   "max_abs_err")
-    for st in slices:
-        # one row per kernel where each kernel is timed at one shape, else
-        # a list of rows that name their shapes
-        extra = {"zamba2-2.7b": ("attention_hd80", hd80), "mixtral-8x22b": ("attention_h48", h48),
-                 "dbrx-132b": ("attention_h48", h48)}.get(st["arch"])
-        if extra:
-            st[extra[0]] = {k["name"]: {key: k[key] for key in timing_keys} for k in extra[1]}
-        listed = {"qwen2-vl-7b": ("attention_g7", g7),
-                  "whisper-large-v3": ("attention_whisper", whisper)}.get(st["arch"])
-        if listed:
-            st[listed[0]] = [{key: k[key] for key in ("name", "shape") + timing_keys}
-                             for k in listed[1]]
+               + served + [planner_kernel, tables_kernel])
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     for stats in slices:
         print(json.dumps({"slice": {**stats, "gpu": smi}}), flush=True)
-    print(json.dumps({"granite": {**granite, "gpu": smi}}), flush=True)
+    for stats in passes.values():
+        print(json.dumps({"cell": {**stats, "gpu": smi}}), flush=True)
     print(json.dumps({"planner": {"random_clusters": clusters, **planner, "gpu": smi}}),
           flush=True)
     print(json.dumps({"simulator": {"table_grids": grids, **simulator_stats, "gpu": smi}}),

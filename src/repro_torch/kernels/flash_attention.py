@@ -104,8 +104,8 @@ def attention_pairs(S: int, Skv: int, causal: bool, window: Optional[int]) -> in
 
 
 def flops(q_shape, k_shape, v_shape, causal, window, *args, out_shape=None, **kwargs):
-    """QKᵀ and PV over the unmasked pairs, 2 flops per FMA (the bound's
-    count in ``chip_smoke.py``)."""
+    """QKᵀ and PV over the unmasked pairs, 2 flops per FMA: the count that
+    ``chip_smoke.py``'s kernel table bounds the kernel by."""
     B, S, H, hd = q_shape
     return 4 * hd * H * B * attention_pairs(S, k_shape[1], causal, window)
 

@@ -97,7 +97,9 @@ def _(r, k, v, logw, u, s0):
 
 def flops(r_shape, *args, out_shape=None, **kwargs):
     """The state's read-out r·S and its rank-1 update kᵀv per step and
-    head, 2 flops per FMA (the bound's count in ``chip_smoke.py``)."""
+    head, 2 flops per FMA (a chunked form decays the state once a chunk, so
+    the per-step decay is left out): the count that ``chip_smoke.py``'s
+    kernel table bounds the kernel by."""
     B, S, H, hd = r_shape
     return B * S * H * 4 * hd * hd
 

@@ -105,7 +105,8 @@ def _(xdt, Bm, Cm, dA, h0):
 
 def flops(xdt_shape, Bm_shape, *args, out_shape=None, **kwargs):
     """The read-out C·S and the rank-1 update xdtᵀB per step and head, 2
-    flops per FMA (the bound's count in ``chip_smoke.py``)."""
+    flops per FMA: the count that ``chip_smoke.py``'s kernel table bounds
+    the kernel by."""
     B, S, H, hd = xdt_shape
     return B * S * H * 4 * hd * Bm_shape[-1]
 
