@@ -1124,18 +1124,24 @@ class SyncErrors:
     With ``guard``, each pass, from ``reset_cache`` (just after the token
     upload) to the span ``engine.fetch`` (just before the copy back), runs
     under ``torch.cuda.set_sync_debug_mode("error")``, so a call that
-    synchronises with the card raises there."""
+    synchronises with the card raises there.  With ``eager``, each prefill
+    is ``transformer.prefill`` itself, run eagerly: the model's replayed
+    graph never runs the pass's Python."""
 
-    def __init__(self, model, guard):
-        self._model, self.guard, self.logits = model, guard, []
+    def __init__(self, model, guard, eager=False):
+        self._model, self.guard, self.eager, self.logits = model, guard, eager, []
 
     def reset_cache(self, cache):
         if self.guard:
             torch.cuda.set_sync_debug_mode("error")
         return self._model.reset_cache(cache)
 
-    def prefill(self, *args, **kwargs):
-        logits, cache = self._model.prefill(*args, **kwargs)
+    def prefill(self, params, batch, cache, **kwargs):
+        if self.eager:
+            from repro_torch.models import transformer
+            logits, cache = transformer.prefill(params, self._model.cfg, batch, cache, **kwargs)
+        else:
+            logits, cache = self._model.prefill(params, batch, cache, **kwargs)
         self.logits.append(logits)
         return logits, cache
 
@@ -1144,7 +1150,7 @@ class SyncErrors:
 
 
 @contextlib.contextmanager
-def sync_errors(eng, guard=True):
+def sync_errors(eng, guard=True, eager=False):
     """Inside the block, ``eng``'s passes dispatch under ``SyncErrors``."""
     from repro_torch.profiling import spans
     span, model = spans.span, eng.model
@@ -1154,7 +1160,7 @@ def sync_errors(eng, guard=True):
             torch.cuda.set_sync_debug_mode(0)
         return span(name)
 
-    eng.model, spans.span = SyncErrors(model, guard), fetch_unguarded
+    eng.model, spans.span = SyncErrors(model, guard, eager), fetch_unguarded
     try:
         yield eng.model
     finally:
@@ -1192,32 +1198,43 @@ def kernel_shapes(cell, cfg):
 
 def check_cell_pass(dev, name, cell, cfg):
     """One served pass of the benchmark cell ``name`` at its configuration
-    and traffic (perfbench's build_engine, the engine's seeded weights),
-    twice under ``sync_errors``: no call between the token upload and the
-    fetch synchronises with the card; the two passes' tokens and logits are
-    equal bit for bit; each kernel launches as the layers ask
-    (want_launches) and the products through the 3xTF32 kernel and left to
-    cuBLAS are GEMM_CELL_PASS's.  A dropless MoE counts every layer's held
-    assignments and drops none; a model that rotates positions passes
-    check_rotation.  Returns the pass's record, with the (T, K, N) shapes
-    the product kernel ran and their calls a pass, the most called first."""
+    and traffic (perfbench's build_engine, the engine's seeded weights).
+    Building the engine captures its prefill as a CUDA graph; two passes
+    under ``sync_errors`` replay it: no call between the token upload and
+    the fetch synchronises with the card; the two passes' tokens and logits
+    are equal bit for bit, and equal to a third pass's, which runs
+    ``transformer.prefill`` eagerly under the guard too; each kernel
+    launches as the layers ask (want_launches) and the products through the
+    3xTF32 kernel and left to cuBLAS are GEMM_CELL_PASS's, as the replays
+    count them.  A dropless MoE counts every layer's held assignments and
+    drops none; a model that rotates positions passes check_rotation.
+    Returns the pass's record, with the (T, K, N) shapes the product kernel
+    ran in the captured pass and their calls, the most called first."""
     from harness.bench import build_engine
     from repro_torch.kernels import gemm, ops
     from repro_torch.models import moe
+    from repro_torch.profiling import spans
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    eng = build_engine(cell, cfg, None, dev)
+    spans.reset_graph_counts()
+    shapes = collections.Counter()      # the product kernel's (T, K, N), launch by launch
+    capturing = torch.cuda.is_current_stream_capturing
+    with Spy({"gemm": (gemm, "_launch")},
+             seen={"gemm": lambda *a: capturing() and shapes.update([a[4:]])}):
+        eng = build_engine(cell, cfg, None, dev)
+    built = spans.graph_counts()
+    assert built == {"captured": 1, "replayed": 0, "eager": 0}, (name, built)
     B, S = eng.batch_size, eng.prompt_len
     tokens = np.random.default_rng(0).integers(3, cfg.vocab_size, size=(B, S)).astype(np.int32)
     moe.reset_held_counts()
     ops.reset_launch_counts()
-    shapes = collections.Counter()      # the product kernel's (T, K, N), launch by launch
-    with Spy({"gemm": (gemm, "_launch")}, seen={"gemm": lambda *a: shapes.update([a[4:]])}), \
-            sync_errors(eng) as guard:
+    with sync_errors(eng) as guard:
         out = eng._serve(tokens)
         out_again = eng._serve(tokens)
+    replays = spans.graph_counts()
     launches = {k: n // 2 for k, n in ops.launch_counts().items()}
     declined = gemm.gemm.declined // 2
+    assert replays == {"captured": 1, "replayed": 2, "eager": 0}, (name, replays)
     assert len(guard.logits) == 2 and np.array_equal(out, out_again), f"{name}: passes differ"
     assert torch.equal(guard.logits[0], guard.logits[1]), f"{name}: logits differ between passes"
     routed, want_declined = GEMM_CELL_PASS[name]
@@ -1225,24 +1242,30 @@ def check_cell_pass(dev, name, cell, cfg):
     assert launches == want, (name, launches, want)
     assert declined == want_declined, (name, declined)
     stats = {"cell": name, "arch": cfg.name, "layers": cfg.n_layers, "batch": B,
-             "prompt_len": S, "sync_free": True,
+             "prompt_len": S, "sync_free": True, "replayed": True,
              "launches_a_pass": {k: n for k, n in launches.items() if n},
              "gemm_declined_a_pass": declined,
-             "gemm_shapes": sorted(((shape, n // 2) for shape, n in shapes.items()),
-                                   key=lambda sn: -sn[1])}
+             "gemm_shapes": sorted(shapes.items(), key=lambda sn: -sn[1])}
     if cfg.moe_dropless:
         counts = moe.held_counts()
         assert len(counts) == want["moe_experts"] and all(
-            c["dropped"] == 0 and c["assignments"] > 0 for c in counts.values()), counts
+            c["dropped"] == 0 and c["assignments"] > 0 and c["calls"] == 2
+            for c in counts.values()), counts
         stats.update(experts_held=cfg.n_held, dropped=0,
                      held_assignments_a_pass=sum(c["assignments"] for c in counts.values()) // 2,
                      largest_expert_rows=max(c["max_rows"] for c in counts.values()))
+    with sync_errors(eng, eager=True) as eager:
+        out_eager = eng._serve(tokens)
+    assert np.array_equal(out, out_eager) and torch.equal(guard.logits[0], eager.logits[0]), \
+        f"{name}: the replayed pass differs from the eager pass"
+    stats["replay_equals_eager"] = True
     if cfg.rope_theta > 0 and cfg.attn_layers:
         stats.update(check_rotation(eng, tokens, guard.logits[0], out))
     stats.update(memory_peak_bytes=torch.cuda.max_memory_allocated(dev),
                  seconds=time.perf_counter() - t0)
-    log(f"cell: {name} ({cfg.name}, {cfg.n_layers} layers, {B} x {S}): no synchronising call "
-        f"in the dispatch, two passes bit for bit equal; launches a pass "
+    log(f"cell: {name} ({cfg.name}, {cfg.n_layers} layers, {B} x {S}): captured at build; no "
+        f"synchronising call in the dispatch, two replayed passes bit for bit equal to each other "
+        f"and to the eager pass; launches a pass "
         f"{stats['launches_a_pass']}, {declined} products left to cuBLAS; products "
         f"(T, K, N) x calls {stats['gemm_shapes']}"
         + (f"; {stats['held_assignments_a_pass']} held assignments a pass, none dropped"
@@ -1255,9 +1278,11 @@ def check_cell_pass(dev, name, cell, cfg):
 
 def check_rotation(eng, tokens, logits, out):
     """A model that rotates positions builds one rotation table a prefill
-    (and one a layer a decode step); its pass's ``logits`` and tokens
-    (``out``) equal, bit for bit, those with RoPE's per-call formula in
-    ``rope_freqs``'s place, which ``sync_errors`` refuses."""
+    (and one a layer a decode step), as a replayed pass counts it; its
+    pass's ``logits`` and tokens (``out``) equal, bit for bit, those of
+    ``transformer.prefill`` run eagerly with RoPE's per-call formula in
+    ``rope_freqs``'s place (a replay never calls it), which ``sync_errors``
+    refuses."""
     from repro_torch.models import rope
     built = rope.position_table.built
     eng._serve(tokens)
@@ -1267,14 +1292,14 @@ def check_rotation(eng, tokens, logits, out):
     formula, rope.rope_freqs = rope.rope_freqs, per_call_rope_freqs
     try:
         try:
-            with sync_errors(eng):
+            with sync_errors(eng, eager=True):
                 eng._serve(tokens)
         except RuntimeError as e:
             assert "synchroniz" in str(e), e
             refused = str(e).splitlines()[0]
         else:
             raise AssertionError("the sync guard let RoPE's host copy through")
-        with sync_errors(eng, guard=False) as control:
+        with sync_errors(eng, guard=False, eager=True) as control:
             out_formula = eng._serve(tokens)
     finally:
         rope.rope_freqs = formula
@@ -1315,13 +1340,15 @@ def moe_against_plain(cfg, p, x):
 @contextlib.contextmanager
 def record_routes():
     """Inside the block, every MoE routing appends its (top-k ids, probs)
-    to the list it yields."""
+    to the list it yields; a routing inside a CUDA graph's capture (which
+    computes nothing yet) appends nothing."""
     from repro_torch.models import moe
     route, seen = moe._route, []
 
     def keep(router_w, x, top_k):
         out = route(router_w, x, top_k)
-        seen.append((out[0], out[2].detach()))
+        if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+            seen.append((out[0], out[2].detach()))
         return out
 
     moe._route = keep

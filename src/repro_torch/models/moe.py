@@ -44,12 +44,17 @@ dropped (``drop_counts``, ``reset_drop_counts``), as the kernels count
 their launches; the dropped count stays on the tensor's device until it
 is read (an integer tensor: it holds no graph), and a remat recompute in
 the backward counts again.  ``apply_moe_dropless`` counts in
-``held_counts`` (below).  Training differentiates ``apply_moe`` as it
-is: the gather and combine are indexing, so the gradient reaches the
-experts, the gates (and through them the router) and the aux loss.
+``held_counts`` (below).  A layer's device counts are one tensor, made on
+its first call and added to in place ever after (a reset zeroes it), so a
+CUDA graph that captured the call adds to it on every replay; the host
+counts (``tallies``) are what ``models/graphs.py`` advances on a replay.
+Training differentiates ``apply_moe`` as it is: the gather and combine are
+indexing, so the gradient reaches the experts, the gates (and through them
+the router) and the aux loss.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -60,17 +65,65 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import _dense_init, apply_mlp, init_mlp, mm, specs_mlp
 from repro_torch.profiling.spans import span
 
-_drops: dict = {}          # layer -> (dropped assignments (tensor), assignments)
+@dataclasses.dataclass
+class Tally:
+    """A layer's counts since the last reset: ``dev`` on the device, added to
+    in place, and ``host``, counted on the host."""
+    dev: torch.Tensor
+    host: int = 0
+
+
+_drops: dict = {}          # layer -> Tally(dropped assignments, assignments)
+_held: dict = {}           # layer -> Tally((held, largest rows, past the grid), calls)
+
+
+def tallies() -> list:
+    """Every layer's Tally, dropping and dropless: the host counts a
+    replayed graph advances."""
+    return [*_drops.values(), *_held.values()]
+
+
+def _reset(table: dict):
+    """Zero each tally in place (a captured graph keeps adding to its
+    tensor); a mesh's DTensor count goes."""
+    for layer, t in list(table.items()):
+        if is_dtensor(t.dev):
+            del table[layer]
+        else:
+            t.dev.zero_()
+            t.host = 0
+
+
+def _tally(table: dict, layer: int, like) -> Tally:
+    """``layer``'s Tally, made on its first call on ``like``'s device: zeros
+    shaped as ``like``, made outside inference mode, so that any later call
+    may add to them in place."""
+    t = table.get(layer)
+    if t is None or is_dtensor(t.dev) or t.dev.device != like.device:
+        with torch.inference_mode(False):
+            t = table[layer] = Tally(torch.zeros_like(like))
+    return t
 
 
 def reset_drop_counts():
-    _drops.clear()
+    _reset(_drops)
 
 
 def drop_counts() -> dict:
     """{layer: (dropped, assignments)} over the calls since the last reset;
     an assignment is one (token, k) pair."""
-    return {layer: (int(d), n) for layer, (d, n) in sorted(_drops.items())}
+    return {layer: (int(t.dev), t.host) for layer, t in sorted(_drops.items()) if t.host}
+
+
+def _count_dropped(layer: int, dropped, assignments: int):
+    if is_dtensor(dropped):         # a mesh's count, summed out of place
+        t = _drops.get(layer)
+        _drops[layer] = Tally(dropped if t is None else t.dev + dropped,
+                              assignments + (0 if t is None else t.host))
+        return
+    t = _tally(_drops, layer, dropped)
+    t.dev.add_(dropped)
+    t.host += assignments
 
 
 def init_moe(generator, cfg, device):
@@ -238,8 +291,7 @@ def apply_moe(p, x, cfg, *, chunk: int = 512, layer: int = 0,
         yc, d = run(x[:, part], ids[:, part], gates[:, part], w, E, C, ks)
         ys.append(yc)
         dropped = dropped + d
-    seen, total = _drops.get(layer, (0, 0))
-    _drops[layer] = (seen + dropped, total + B * S * K)
+    _count_dropped(layer, dropped, B * S * K)
     return (ys[0] if n == 1 else torch.cat(ys, 1)), aux
 
 
@@ -247,11 +299,8 @@ def apply_moe(p, x, cfg, *, chunk: int = 512, layer: int = 0,
 # The dropless served layer (granite-4.0-h)
 # ---------------------------------------------------------------------------
 
-_held: dict = {}           # layer -> (counts tensor on the device, calls)
-
-
 def reset_held_counts():
-    _held.clear()
+    _reset(_held)
 
 
 def held_counts() -> dict:
@@ -263,21 +312,23 @@ def held_counts() -> dict:
     covers as many rows as tokens).  Reading it synchronises with the
     device; read it after the window, as ``drop_counts``."""
     out = {}
-    for layer, (c, calls) in sorted(_held.items()):
-        n, rows, dropped = c.tolist()
-        out[layer] = {"assignments": n, "max_rows": rows, "dropped": dropped, "calls": calls}
+    for layer, t in sorted(_held.items()):
+        if t.host:
+            n, rows, dropped = t.dev.tolist()
+            out[layer] = {"assignments": n, "max_rows": rows, "dropped": dropped,
+                          "calls": t.host}
     return out
 
 
 def _count_held(layer: int, offsets, T: int):
-    """Accumulate a call's counts on the device (no host synchronisation)."""
+    """Accumulate a call's counts on the device, in place (no host
+    synchronisation): a sum, a max and a sum."""
     rows = offsets[1:] - offsets[:-1]
     c = torch.stack([offsets[-1], rows.max(), (rows - T).clamp(min=0).sum()])
-    calls = 0
-    if layer in _held:
-        prev, calls = _held[layer]
-        c = torch.stack([prev[0] + c[0], torch.maximum(prev[1], c[1]), prev[2] + c[2]])
-    _held[layer] = (c, calls + 1)
+    t = _tally(_held, layer, c)
+    t.dev[0::2].add_(c[0::2])
+    torch.maximum(t.dev[1:2], c[1:2], out=t.dev[1:2])
+    t.host += 1
 
 
 def route_sorted(router_w, x, K: int, held: int):

@@ -417,19 +417,38 @@ def _run_blocks(params, cfg: ArchConfig, x, cache, attend, mamba, rwkv, cross=No
     return x
 
 
+def _mrope_delta(cfg: ArchConfig, batch) -> Optional[int]:
+    """qwen2-vl's text-position offset, side - Pn for Pn patches on a square
+    grid of side int(sqrt(Pn)); None without patches or M-RoPE."""
+    if not (cfg.frontend == "vision" and cfg.m_rope and "patches" in batch):
+        return None
+    Pn = batch["patches"].shape[1]
+    return max(1, int(Pn ** 0.5)) - Pn
+
+
+def prefill_host_fields(cfg: ArchConfig, batch) -> Dict[str, int]:
+    """The cache's host fields a prefill of ``batch`` sets: ``step``, the
+    prompt's length, and qwen2-vl's ``mrope_delta`` where patches come in.
+    They follow from shapes alone."""
+    out = {"step": batch["tokens"].shape[1]}
+    delta = _mrope_delta(cfg, batch)
+    if delta is not None:
+        out["mrope_delta"] = delta
+    return out
+
+
 def _embed_inputs(params, cfg: ArchConfig, batch, shard: ShardingHints = NO_HINTS):
-    """Token embeddings and the modality stub's merge -> (x, positions_thw,
-    mrope_delta).
+    """Token embeddings and the modality stub's merge -> (x, positions_thw).
 
     qwen2-vl: the projected patches replace the first Pn token embeddings;
     they take a square grid's M-RoPE positions and the text after them
     positions compressed to pos - Pn + side, so decoding continues at step
-    + mrope_delta, mrope_delta = side - Pn (None without patches).
+    + mrope_delta, mrope_delta = side - Pn (``_mrope_delta``).
     whisper: the sinusoidal table is added."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
-    positions_thw = mrope_delta = None
+    positions_thw = None
     if cfg.frontend == "vision" and "patches" in batch:
         pe = batch["patches"]
         Pn = pe.shape[1]
@@ -437,15 +456,14 @@ def _embed_inputs(params, cfg: ArchConfig, batch, shard: ShardingHints = NO_HINT
             pe = L.mm(pe, params["vis_proj"]["w"]) + params["vis_proj"]["b"]
         x = torch.cat([pe.to(x.dtype), x[:, Pn:]], dim=1)
         if cfg.m_rope:
-            side = max(1, int(Pn ** 0.5))
-            mrope_delta = side - Pn
-            txt = torch.arange(Pn, S, dtype=torch.int32, device=x.device) + mrope_delta
+            txt = (torch.arange(Pn, S, dtype=torch.int32, device=x.device)
+                   + _mrope_delta(cfg, batch))
             positions_thw = torch.cat(
                 [rope_lib.vision_positions_thw(B, Pn, device=x.device),
                  rope_lib.text_positions_thw(txt[None].expand(B, S - Pn))], dim=1)
     if cfg.family == "encdec":
         x = x + L.sinusoidal_positions(S, cfg.d_model, device=x.device).to(x.dtype)[None]
-    return _c(x, shard.residual, shard), positions_thw, mrope_delta
+    return _c(x, shard.residual, shard), positions_thw
 
 
 def _remat(fn, remat: bool):
@@ -483,7 +501,7 @@ def prefill(params, cfg: ArchConfig, batch, cache, *, shard: ShardingHints = NO_
     shard = _serving(shard)
     tokens = batch["tokens"]
     with span("model.embed"):
-        x, positions_thw, mrope_delta = _embed_inputs(params, cfg, batch, shard)
+        x, positions_thw = _embed_inputs(params, cfg, batch, shard)
     cross = None
     if cfg.encoder_layers:
         enc_out = _encoder_forward(params, cfg, batch["frames"].to(x.dtype), shard=shard)
@@ -501,9 +519,7 @@ def prefill(params, cfg: ArchConfig, batch, cache, *, shard: ShardingHints = NO_
     x = _run_blocks(params, cfg, x, cache,
                     lambda p, xin, lc: attn_lib.attention_prefill(p, xin, cfg, lc, table=table),
                     ssm_lib.mamba2_prefill, _rwkv_prefill, cross, shard)
-    cache["step"] = tokens.shape[1]
-    if mrope_delta is not None:
-        cache["mrope_delta"] = mrope_delta
+    cache.update(prefill_host_fields(cfg, batch))
     with span("model.head"):
         return _logits(params, cfg, x[:, -1, :]), cache
 
@@ -571,7 +587,7 @@ def forward(params, cfg: ArchConfig, batch, *, remat: bool = False,
     it) is recomputed in the backward instead of keeping its activations,
     as the JAX package's ``jax.checkpoint`` sites do."""
     check_supported(cfg)
-    x, positions_thw, _ = _embed_inputs(params, cfg, batch, shard)
+    x, positions_thw = _embed_inputs(params, cfg, batch, shard)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     every = cfg.shared_attn_every
     if every:          # zamba2: [shared attention + k Mamba2 layers] groups

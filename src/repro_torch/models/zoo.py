@@ -8,6 +8,10 @@ packages the data pipeline's batches).  ``param_specs`` gives the logical
 sharding specs of the parameter tree and ``abstract_params`` its shapes
 and dtypes on the meta device (the mesh layer's inputs); the compute
 methods take the mesh's ``ShardingHints`` as ``shard``.
+
+``prefill`` replays a CUDA graph of ``transformer.prefill`` where the call
+allows it (on a card, autograd off, no hints: ``models/graphs.py``) and
+runs it eagerly otherwise; the outputs are the same bit for bit.
 """
 from __future__ import annotations
 
@@ -19,12 +23,15 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models.graphs import PrefillGraphs
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
     device: torch.device
+    graphs: PrefillGraphs = dataclasses.field(default_factory=PrefillGraphs, compare=False,
+                                              repr=False)
 
     # -- params ---------------------------------------------------------
     def init(self, seed: int = 0):
@@ -46,7 +53,7 @@ class Model:
         return T.forward(params, self.cfg, batch, remat=remat, shard=shard)
 
     def prefill(self, params, batch, cache, *, shard=T.NO_HINTS):
-        return T.prefill(params, self.cfg, batch, cache, shard=shard)
+        return self.graphs.prefill(self.cfg, self.device, params, batch, cache, shard)
 
     def decode_step(self, params, token, cache, *, shard=T.NO_HINTS):
         return T.decode_step(params, self.cfg, token, cache, shard=shard)

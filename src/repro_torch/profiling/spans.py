@@ -23,6 +23,14 @@ norm) and ``model.head`` use it.  The profiler stamps host events on the
 ``time.time_ns()`` clock, so a trace's spans line up with the log's
 stamps.
 
+``graph_counts()`` counts what ``Model.prefill`` did with each call
+(``models/graphs.py``): ``captured``, a key's first call, run eagerly and
+then captured as a CUDA graph; ``replayed``, a later call of that key,
+replayed under the span ``model.graph.replay``; ``eager``, a call that is
+not eligible (off the card, under autograd, on a mesh) or whose key's
+capture failed.  Under replay the ``model.*`` spans of the blocks are not
+emitted: the graph's kernels run inside ``model.graph.replay``.
+
 The module imports only torch: the model imports ``span`` from it, and the
 serving layer's ``RingBuffer`` is imported when the log is first read or
 written, which is the engine's first pass.
@@ -39,7 +47,8 @@ import torch.autograd.profiler as _autograd_profiler
 if TYPE_CHECKING:
     from repro_torch.serving.telemetry import RingBuffer
 
-__all__ = ["PHASES", "PASS_LOG_CAPACITY", "PassRecord", "passes", "span"]
+__all__ = ["PHASES", "PASS_LOG_CAPACITY", "PassRecord", "passes", "span", "graph_counts",
+           "reset_graph_counts"]
 
 PHASES = ("engine.take", "engine.dispatch", "engine.fetch", "engine.complete")
 PASS_LOG_CAPACITY = 4096        # about four minutes of passes at 16 a second
@@ -97,3 +106,21 @@ def passes() -> "RingBuffer":
 
 def record(rec: PassRecord) -> None:
     passes().append(rec)
+
+
+GRAPH_OUTCOMES = ("captured", "replayed", "eager")
+_GRAPHS = dict.fromkeys(GRAPH_OUTCOMES, 0)
+
+
+def graph_counts() -> Dict[str, int]:
+    """``Model.prefill``'s calls since the last reset, by outcome:
+    ``captured``, ``replayed``, ``eager``."""
+    return dict(_GRAPHS)
+
+
+def reset_graph_counts() -> None:
+    _GRAPHS.update(dict.fromkeys(GRAPH_OUTCOMES, 0))
+
+
+def count_graph(outcome: str) -> None:
+    _GRAPHS[outcome] += 1
