@@ -17,7 +17,7 @@ function that makes a check describes it.
   6. planner    -- alloc_all_kernel and provision() on the card against numpy.
   7. simulator  -- tables_kernel and simulate_full on the card against numpy.
   8. controller -- the closed loop's scenarios on the card against numpy.
-  4. slices     -- ten served models at full width (depth cut: MODELS) against
+  4. slices     -- eleven served models at full width (depth cut: MODELS) against
                    the CPU and against themselves (run_slice); checks, no timing.
   9. training   -- the kernels' autograd wrappers and three models' training.
  10. mesh       -- the dry runs, and the steps on a one-card DeviceMesh.
@@ -69,7 +69,8 @@ SSD_SHAPE = (4, 512, 80, 64, 64)         # zamba2-2.7b prefill: B, S, H, hd, N
 # left to cuBLAS by the shape rule (rwkv6's rank-64 decay LoRA, granite's
 # 72-wide router); a cell added to the benchmark adds its entry here
 GEMM_CELL_PASS = {"qwen15-4b.w6-closed": (280, 0), "rwkv6-1.6b.w5-closed": (216, 48),
-                  "granite4-h-small.w6x4-closed": (208, 40)}
+                  "granite4-h-small.w6x4-closed": (208, 40),
+                  "deepseek-v2-lite.w6-closed": (189, 26)}
 
 BATCH, PROMPT, DECODE, PUMPS = 4, 512, 4, 4
 # (arch, layers, encoder layers): every model the port serves, at full
@@ -78,11 +79,12 @@ BATCH, PROMPT, DECODE, PUMPS = 4, 512, 4, 4
 # them) and qwen2-vl-7b run 8 layers, whisper-large-v3 8 of its 32 decoder
 # and 8 of its 32 encoder layers, the MoE models 2 (9.66 and 12.68 GB of
 # float32 experts a layer); zamba2-2.7b 18 of its 54 (3 shared-attention
-# groups), cut when phase 9 added about 80 s.
+# groups), cut when phase 9 added about 80 s; deepseek-v2-lite 2 of its 27
+# (the dense layer and one MoE layer of 64 experts, 2.2 GB).
 MODELS = [("qwen3-4b", 8, None), ("rwkv6-1.6b", None, None), ("zamba2-2.7b", 18, None),
           ("yi-6b", 8, None), ("qwen1.5-4b", 8, None), ("minitron-4b", 8, None),
           ("mixtral-8x22b", 2, None), ("dbrx-132b", 2, None),
-          ("qwen2-vl-7b", 8, None), ("whisper-large-v3", 8, 8)]
+          ("qwen2-vl-7b", 8, None), ("whisper-large-v3", 8, 8), ("deepseek-v2-lite", 2, None)]
 # decode grids that cannot fill the card: 4 x 4 (batch, kv head) pairs in
 # clusters of at most 8 blocks (logged, not asserted)
 SMALL_DECODE_GRID = ("yi-6b", "qwen2-vl-7b")
@@ -104,9 +106,11 @@ def model_configs():
 
 
 def served_attention():
-    """{arch: config} of the served models whose blocks are all attention:
-    head_dim 128, but whisper-large-v3's 64."""
-    cfgs = {arch: c for arch, c in model_configs().items() if set(c.pattern) == {"attn"}}
+    """{arch: config} of the served models whose blocks are all GQA
+    attention: head_dim 128, but whisper-large-v3's 64.  deepseek-v2-lite's
+    latent attention (q.k 192, v 128; no decode kernel) is timed apart."""
+    cfgs = {arch: c for arch, c in model_configs().items()
+            if set(c.pattern) == {"attn"} and not c.mla}
     assert all(c.hd == (64 if c.family == "encdec" else 128) for c in cfgs.values()), \
         {a: c.hd for a, c in cfgs.items()}
     assert {c.hd for c in cfgs.values()} == {64, 128}, {a: c.hd for a, c in cfgs.items()}
@@ -268,15 +272,16 @@ def bound(flops, nbytes):
 # Phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_flash(dev, rng):
+def check_flash(dev, rng, cells):
     """flash_attention against its plain version in f32 and bf16
     (TOL): the test grid, head_dim 80, the tensor-core tiling's edges (S =
     1, 63, 65, 513; windows of 1 and longer than S; 1 to 8 query heads a kv
-    head), every served model's heads at its head_dim, and a kv length of
+    head), every served model's heads at its head_dim, a kv length of
     its own (S = 1, 63, 512 against Skv = 1, 31, 33, 1500, whisper's encoder
-    and cross shapes); inputs with no kernel refused.  Returns the slice
-    shape's max_abs_err."""
-    from repro_torch.kernels import ref
+    and cross shapes), and latent attention's q.k 192 / V 128 as each such
+    cell of ``cells`` (benchmark_cells) hands it over; inputs with no kernel
+    refused.  Returns the slice shape's max_abs_err."""
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
     cases = [(2, S, H, KV, hd, dt, c, w)
              for S, H, KV, hd in [(128, 4, 4, 64), (256, 8, 2, 64), (256, 4, 1, 128)]
@@ -334,13 +339,30 @@ def check_flash(dev, rng):
     k, v = rand(rng, (B, S, KV, hd), torch.float32, dev), rand(rng, (B, S, KV, hd), torch.float32, dev)
     err = check_close("flash slice shape", flash_attention(q, k, v),
                       ref.attention_ref(q, k, v), TOL[torch.float32])
-    log(f"kernels: flash_attention matches its plain version on {len(cases) + 1} "
+    # latent attention (MLA) at q.k 192 / V 128 as an MLA cell's prefill
+    # hands it over: the cell's batch and heads, K contiguous, V the strided
+    # half kv[..., 128:] of W_kvb's (k_nope | v) product; at the cell's
+    # prompt and the tiling's edges, S = 1, 63, 65, 513
+    mla = [(cell.traffic["batch_size"], S, c.n_heads, c.qk_nope_head_dim, c.hd, c.v_head_dim,
+            dt) for cell, c in cells.values() if c.mla
+           for S in (cell.traffic["prompt_len"], 1, 63, 65, 513) for dt in dts]
+    mla_before = ops.launch_counts()["flash_attention_mla"]
+    for B, S, H, n, hd, hdv, dt in mla:
+        q, k = rand(rng, (B, S, H, hd), dt, dev), rand(rng, (B, S, H, hd), dt, dev)
+        v = rand(rng, (B, S, H, n + hdv), dt, dev)[..., n:]
+        check_close(f"flash MLA {B, S, H, hd, hdv, dt}", flash_attention(q, k, v),
+                    ref.attention_ref(q, k, v), TOL[dt])
+    assert ops.launch_counts()["flash_attention_mla"] - mla_before == len(mla)
+    log(f"kernels: flash_attention matches its plain version on {len(cases) + 1 + len(mla)} "
         f"cases ({len(served)} at the served group sizes G = "
         f"{sorted({H // KV for H, KV, _, _ in heads})} and head_dims "
         f"{sorted({hd for _, _, _, hd in heads})}, {len(kv_cases)} at a kv length of "
-        f"their own); slice-shape max_abs_err {err:.3g}")
+        f"their own, {len(mla)} at the MLA cells' q.k 192 / V 128 with a strided V); "
+        f"slice-shape max_abs_err {err:.3g}")
     x = torch.zeros((1, 64, 2, 96), device=dev)          # head_dim 96: no kernel
     expect_refusal("flash_attention head_dim 96", lambda: flash_attention(x, x, x))
+    q, v = torch.zeros((1, 64, 2, 192), device=dev), torch.zeros((1, 64, 2, 96), device=dev)
+    expect_refusal("flash_attention q.k 192 / V 96", lambda: flash_attention(q, q, v))
     q, kv = torch.zeros((1, 64, 2, 64), device=dev), torch.zeros((1, 96, 2, 64), device=dev)
     expect_refusal("flash_attention causal at a kv length of its own",
                    lambda: flash_attention(q, kv, kv, causal=True))
@@ -355,7 +377,8 @@ def check_flash(dev, rng):
 # copies (LDGSTS is cp.async; UBLKCP / UTMALDG are TMA bulk copies)
 TENSOR_CORE = (r"\bHMMA\.\S*TF32|\bHGMMA\.", "tensor-core products (HMMA ... TF32 / HGMMA)")
 ASYNC_COPY = (r"\bLDGSTS\b|\bUBLKCP\b|\bUTMALDG\b", "asynchronous copies (LDGSTS / UBLKCP / UTMALDG)")
-SASS_CHECKS = {"flash_attn_kernel": (2 * 4, *TENSOR_CORE),
+# flash: x hd 32, 64, 80, 128 and latent attention's q.k 192 / v 128
+SASS_CHECKS = {"flash_attn_kernel": (2 * 5, *TENSOR_CORE),
                # x hd 32, 64 x N 16, 32, 64, and N 128 at hd 64
                "ssd_scan_kernel": (2 * (2 * 3 + 1), *TENSOR_CORE),
                "moe_gemm_kernel": (2, *TENSOR_CORE),     # gate and up, down
@@ -497,7 +520,7 @@ def check_decode(dev, rng):
     from repro_torch.kernels.decode_attention import cluster_room, decode_cluster
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grids = {arch: (c.n_kv_heads, PROMPT + DECODE + 8) for arch, c in model_configs().items()
-             if "attn" in c.pattern or c.shared_attn_every}
+             if ("attn" in c.pattern or c.shared_attn_every) and not c.mla}
     grids.update({f"{arch} cross": (c.n_kv_heads, c.encoder_seq_len)
                   for arch, c in model_configs().items() if c.encoder_layers})
     split = {name: decode_cluster(BATCH, kv, slots, dev) for name, (kv, slots) in grids.items()}
@@ -938,15 +961,20 @@ def want_launches(cfg, gemms, decode=DECODE, passes=PUMPS):
     recurrent block and ``gemms`` products through the 3xTF32 kernel; every
     decode step after the first token runs decode attention once per
     attention block (twice per encoder-decoder block); a dropless MoE
-    launches the grouped products once a layer a step."""
+    launches the grouped products once a layer a step (after its leading
+    dense layers).  Latent attention (MLA) runs flash at K 192 / V 128 once
+    a layer (``flash_attention_mla``, within ``flash_attention``) and
+    decodes with no kernel."""
     pattern = cfg.pattern
     n_attn = pattern.count("attn") + (
         cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0)
     per_block = 2 if cfg.cross_attention else 1
-    moe_layers = (cfg.n_layers if cfg.mamba_ffn else pattern.count("attn")) \
-        if cfg.moe_dropless else 0
+    moe_layers = ((cfg.n_layers if cfg.mamba_ffn else pattern.count("attn"))
+                  - cfg.first_dense_layers) if cfg.moe_dropless else 0
+    mla_widths = cfg.mla and cfg.v_head_dim != cfg.hd
     return {"flash_attention": (cfg.encoder_layers + per_block * n_attn) * passes,
-            "decode_attention": per_block * n_attn * (decode - 1) * passes,
+            "flash_attention_mla": n_attn * passes if mla_widths else 0,
+            "decode_attention": 0 if cfg.mla else per_block * n_attn * (decode - 1) * passes,
             "rwkv6_scan": pattern.count("rwkv6") * passes,
             "ssd_scan": pattern.count("mamba2") * passes,
             "moe_experts": moe_layers * decode * passes, "gemm": gemms * passes,
@@ -961,8 +989,12 @@ def prefill_gemms(cfg):
     g, o, cm_k, cm_r, cm_v and token-shift LoRA (its rank-64 decay LoRA stays
     cuBLAS); Mamba2's in and out projections and zamba2's shared block once
     a group; whisper's encoder blocks and each decoder block's cross q, o, K
-    and V; qwen2-vl's vision projection.  Decode steps (T = BATCH) stay
-    cuBLAS."""
+    and V; qwen2-vl's vision projection; a latent attention block's q, kv_a,
+    kv_b and o, with a leading dense layer's MLP or a dropless MoE layer's
+    shared expert.  Decode steps (T = BATCH) stay cuBLAS."""
+    if cfg.mla:
+        return cfg.n_layers * 4 + 3 * cfg.first_dense_layers + (
+            3 * (cfg.n_layers - cfg.first_dense_layers) if cfg.shared_expert_ff else 0)
     kind = cfg.pattern[0]
     attn = 4 + (3 if cfg.act_fn == "silu" else 2)
     per_layer = {"rwkv6": 9, "mamba2": 2}.get(kind, 4 if cfg.is_moe else attn)
@@ -1037,7 +1069,8 @@ def run_slice(dev, arch, layers=None, encoder_layers=None):
     log(f"slice: {arch}: {len(done)} completions in {PUMPS} pumps, launches {launches}")
 
     moe_stats = None
-    if cfg.is_moe:
+    capacity = cfg.is_moe and not cfg.moe_dropless     # a dropless MoE drops nothing
+    if capacity:
         moe_stats = {"drop_share_per_layer": [d / n for d, n in drops.values()],
                      "dropped_per_layer": [d for d, _ in drops.values()],
                      "assignments_per_layer": [n for _, n in drops.values()]}
@@ -1051,7 +1084,7 @@ def run_slice(dev, arch, layers=None, encoder_layers=None):
     # frames or patches (the engine's zeros leave the vision projection out)
     model, params = eng.model, eng.params
     check = model
-    if cfg.is_moe:
+    if capacity:
         dropless = cfg.expert_shards * cfg.n_experts / cfg.top_k
         check = build_model(cfg.replace(capacity_factor=dropless), dev)
     toks = torch.from_numpy(np.stack(prompts[:BATCH])).to(dev)
@@ -1345,8 +1378,8 @@ def record_routes():
     from repro_torch.models import moe
     route, seen = moe._route, []
 
-    def keep(router_w, x, top_k):
-        out = route(router_w, x, top_k)
+    def keep(router_w, x, top_k, *gating):
+        out = route(router_w, x, top_k, *gating)
         if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
             seen.append((out[0], out[2].detach()))
         return out
@@ -1419,17 +1452,19 @@ def check_small_against_cpu(dev, arch):
 # Phase 5: timing at the slice's shapes
 # ---------------------------------------------------------------------------
 
-def time_flash(dev, rng, H=32, KV=8, hd=128, S=PROMPT, Skv=None, causal=True):
+def time_flash(dev, rng, H=32, KV=8, hd=128, S=PROMPT, Skv=None, causal=True, hdv=None):
     """Flash attention at a served model's prefill shape (qwen3-4b's heads
-    by default; Skv: a kv length of its own, without a mask): the kernel
-    against its plain version on the timed inputs (max_abs_err), kernel,
-    plain version and SDPA device times, and bound."""
+    by default; Skv: a kv length of its own, without a mask; hdv: a V width
+    of its own, MLA's 128 beside a q.k width of 192): the kernel against
+    its plain version on the timed inputs (max_abs_err), kernel, plain
+    version and SDPA device times, and bound."""
     import repro_torch.kernels.flash_attention as kernel
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    B, Skv = BATCH, S if Skv is None else Skv
+    B, Skv, hdv = BATCH, S if Skv is None else Skv, hd if hdv is None else hdv
     q = rand(rng, (B, S, H, hd), torch.float32, dev)
-    k, v = rand(rng, (B, Skv, KV, hd), torch.float32, dev), rand(rng, (B, Skv, KV, hd), torch.float32, dev)
+    k = rand(rng, (B, Skv, KV, hd), torch.float32, dev)
+    v = rand(rng, (B, Skv, KV, hdv), torch.float32, dev)
     with torch.inference_mode():
         err = check_close(f"flash timed {B, S, Skv, H, KV, hd, causal}",
                           flash_attention(q, k, v, causal=causal),
@@ -1448,11 +1483,12 @@ def time_flash(dev, rng, H=32, KV=8, hd=128, S=PROMPT, Skv=None, causal=True):
             None if H == KV else lambda: device_ms(lambda i: F.scaled_dot_product_attention(
                 qt, kg, vg, is_causal=causal, enable_gqa=True), 1))
     flops = kernel.flops(q.shape, k.shape, v.shape, causal, None)
-    nbytes = 4 * (2 * B * S * H * hd + 2 * B * Skv * KV * hd)
+    nbytes = 4 * (B * S * H * (hd + hdv) + B * Skv * KV * (hd + hdv))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:72",
-            "shape": {"B": B, "S": S, "Skv": Skv, "H": H, "KV": KV, "hd": hd, "causal": causal},
+            "shape": {"B": B, "S": S, "Skv": Skv, "H": H, "KV": KV, "hd": hd, "causal": causal,
+                      **({"hdv": hdv} if hdv != hd else {})},
             "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes), **lib}
 
@@ -3649,7 +3685,7 @@ def main():
     with ThreadPoolExecutor(1) as pool:
         sass = pool.submit(check_sass, _build.library_path())
         rng = np.random.default_rng(0)
-        errs = {"flash_attention": check_flash(dev, rng),
+        errs = {"flash_attention": check_flash(dev, rng, cells),
                 "decode_attention": check_decode(dev, rng),
                 "rwkv6_scan": check_rwkv(dev, rng), "ssd_scan": check_ssd(dev, rng)}
         cell_errs = [cell_fns[kernel][0](dev, rng, shape) for _, kernel, shape in cell_shapes]
@@ -3679,9 +3715,10 @@ def main():
     # shared block (head_dim 80, 32 kv heads), mixtral-8x22b's and dbrx-132b's
     # 48 / 8, qwen2-vl-7b's 28 / 4 (G = 7); whisper-large-v3's encoder over its
     # frames and its prompt's cross-attention to them (no mask), its decoder's
-    # causal prompt, and its decode step on the self and on the cross cache
+    # causal prompt, and its decode step on the self and on the cross cache;
+    # deepseek-v2-lite's latent attention at q.k 192 / v 128 (16 heads)
     cfgs = model_configs()
-    vl, wh = cfgs["qwen2-vl-7b"], cfgs["whisper-large-v3"]
+    vl, wh, ds = cfgs["qwen2-vl-7b"], cfgs["whisper-large-v3"], cfgs["deepseek-v2-lite"]
     g7 = (vl.n_heads, vl.n_kv_heads, vl.hd)
     heads, Se = (wh.n_heads, wh.n_kv_heads, wh.hd), wh.encoder_seq_len
     served = [("zamba2-2.7b", time_flash(dev, rng, 32, 32, 80)),
@@ -3694,7 +3731,9 @@ def main():
               ("whisper-large-v3", time_flash(dev, rng, *heads, Skv=Se, causal=False)),
               ("whisper-large-v3", time_flash(dev, rng, *heads)),
               ("whisper-large-v3", time_decode(dev, rng, *heads)),
-              ("whisper-large-v3", time_decode(dev, rng, *heads, cross_frames=Se))]
+              ("whisper-large-v3", time_decode(dev, rng, *heads, cross_frames=Se)),
+              ("deepseek-v2-lite", time_flash(dev, rng, ds.n_heads, ds.n_kv_heads, ds.hd,
+                                              hdv=ds.v_head_dim))]
     served = [{**k, "model": model} for model, k in served]
     for k in cell_kernels + served:
         log_timing(k, f"{k['name']} ({k.get('cell') or k['model']}, {k['shape']})")

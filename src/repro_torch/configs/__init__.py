@@ -1,7 +1,7 @@
 """Config registry: ``--arch <id>`` lookup for every assigned architecture."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchConfig, GraniteConfig, reduced
+from repro_torch.configs.base import ArchConfig, GraniteConfig, MLAConfig, reduced
 from repro_torch.configs import (
     whisper_large_v3,
     yi_6b,
@@ -14,6 +14,7 @@ from repro_torch.configs import (
     mixtral_8x22b,
     dbrx_132b,
     granite_4h_small,
+    deepseek_v2_lite,
 )
 
 REGISTRY: dict[str, ArchConfig] = {
@@ -30,6 +31,7 @@ REGISTRY: dict[str, ArchConfig] = {
     "dbrx-132b": dbrx_132b.CONFIG,
     # served beyond the paper's ten (a benchmark configuration, not an assignment)
     "granite-4.0-h-small": granite_4h_small.CONFIG,
+    "deepseek-v2-lite": deepseek_v2_lite.CONFIG,
 }
 
 # The 10 assigned architectures (qwen3-4b-swa is a variant, not an assignment).
@@ -53,4 +55,5 @@ def get_config(name: str) -> ArchConfig:
     return REGISTRY[name]
 
 
-__all__ = ["ArchConfig", "GraniteConfig", "REGISTRY", "ASSIGNED", "get_config", "reduced"]
+__all__ = ["ArchConfig", "GraniteConfig", "MLAConfig", "REGISTRY", "ASSIGNED", "get_config",
+           "reduced"]

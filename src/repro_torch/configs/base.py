@@ -7,8 +7,10 @@ Configs carry citations to their source paper / model card in ``source``.
 both packages read the same architectures.  ``GraniteConfig`` (below) is
 the port's own: it adds the fields granite-4.0-h needs (a held share of
 the experts, the dropless MoE with a shared expert, and the muP
-multipliers); ``ArchConfig`` reads each of them as a class default, the
-behaviour every other configuration has.
+multipliers); ``MLAConfig`` adds DeepSeek-V2's (multi-head latent
+attention, YaRN rotation, leading dense layers, un-renormalised gates).
+``ArchConfig`` reads each of them as a class default, the behaviour every
+other configuration has.
 
 Block kinds (``block_pattern`` entries):
   "attn"    -- self-attention + MLP (dense or MoE depending on n_experts)
@@ -90,6 +92,17 @@ class ArchConfig:
     residual_multiplier = 1.0
     attention_multiplier = None
     logits_scaling = 1.0
+    # -- MLAConfig's, likewise
+    kv_lora_rank = 0
+    qk_nope_head_dim = 0
+    qk_rope_head_dim = 0
+    v_head_dim = 0
+    rope_factor = 1.0
+    rope_original_max = 0
+    yarn_mscale_all_dim = 0.0
+    first_dense_layers = 0
+    dense_d_ff = 0
+    norm_topk = True
 
     # -- modality frontend (STUB per brief: precomputed embeddings) ----------
     frontend: Optional[str] = None   # None | "audio" | "vision"
@@ -116,6 +129,23 @@ class ArchConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def mla(self) -> bool:
+        """Multi-head latent attention (DeepSeek-V2) in every attention layer."""
+        return self.kv_lora_rank > 0
+
+    @property
+    def yarn(self) -> Optional[Tuple[float, int]]:
+        """YaRN's (factor, original context), or None for plain RoPE."""
+        if self.rope_factor == 1.0:
+            return None
+        return (self.rope_factor, self.rope_original_max)
+
+    def is_dense_layer(self, layer: int) -> bool:
+        """A layer whose FFN is a dense MLP: every layer of a model without
+        experts, and an MoE model's first ``first_dense_layers``."""
+        return not self.is_moe or layer < self.first_dense_layers
 
     @property
     def pattern(self) -> Tuple[str, ...]:
@@ -168,15 +198,20 @@ class ArchConfig:
         attn = d * q + 2 * d * kv + q * d          # wq, wk, wv, wo
         if self.qkv_bias:
             attn += q + 2 * kv
+        if self.mla:      # wq, wkv_a, the latent's norm, wkv_b, wo
+            H, r = self.n_heads, self.qk_rope_head_dim
+            attn = (d * H * hd + d * (self.kv_lora_rank + r) + self.kv_lora_rank
+                    + self.kv_lora_rank * H * (self.qk_nope_head_dim + self.v_head_dim)
+                    + H * self.v_head_dim * d)
         mlp_dense = (3 if self.act_fn == "silu" else 2) * d * ff
         mlp_moe = self.n_held * mlp_dense + d * self.n_experts + 3 * d * self.shared_expert_ff
         ffn = mlp_moe if self.is_moe else mlp_dense
         n = V * d                                   # token embedding
         if not self.tie_embeddings:
             n += V * d                              # lm head
-        for kind in self.pattern:
+        for i, kind in enumerate(self.pattern):
             if kind == "attn":
-                n += attn + ffn
+                n += attn + (3 * d * self.dense_d_ff if i < self.first_dense_layers else ffn)
                 n += 2 * d                          # two rmsnorm scales
             elif kind == "mamba2":
                 d_in = self.ssm_expand * d
@@ -205,7 +240,8 @@ class ArchConfig:
             return self.n_params()
         d, ff = self.d_model, self.d_ff
         per_expert = 3 * d * ff
-        moe_layers = self.n_layers if self.mamba_ffn else self.pattern.count("attn")
+        moe_layers = (self.n_layers if self.mamba_ffn else self.pattern.count("attn")) \
+            - self.first_dense_layers
         inactive = (self.n_held - self.top_k * self.n_held // self.n_experts) * per_expert
         return self.n_params() - inactive * moe_layers
 
@@ -223,6 +259,23 @@ class GraniteConfig(ArchConfig):
     residual_multiplier: float = 1.0   # on every mixer's and FFN's output before the add
     attention_multiplier: Optional[float] = None   # score scale; None = 1 / sqrt(head_dim)
     logits_scaling: float = 1.0        # logits divided by it
+
+
+@dataclass(frozen=True)
+class MLAConfig(GraniteConfig):
+    """A ``GraniteConfig`` with DeepSeek-V2's fields; each default is
+    ``ArchConfig``'s class default.  ``head_dim`` is the q.k width,
+    qk_nope_head_dim + qk_rope_head_dim."""
+    kv_lora_rank: int = 0          # the latent c's width; 0 = no MLA
+    qk_nope_head_dim: int = 0      # a head's unrotated q / k columns
+    qk_rope_head_dim: int = 0      # its rotated ones (k's shared by every head)
+    v_head_dim: int = 0            # a head's value width
+    rope_factor: float = 1.0       # YaRN's scale; 1 = plain RoPE
+    rope_original_max: int = 0     # YaRN's original context
+    yarn_mscale_all_dim: float = 0.0   # the softmax scale's m(f, all_dim)^2; 0 = none
+    first_dense_layers: int = 0    # leading layers with a dense MLP of dense_d_ff
+    dense_d_ff: int = 0
+    norm_topk: bool = True         # gates renormalised over the top k, else the probabilities
 
 
 def reduced(cfg: ArchConfig, *, layers: int = 2, d_model: int = 256,
@@ -263,4 +316,8 @@ def reduced(cfg: ArchConfig, *, layers: int = 2, d_model: int = 256,
         frontend_dim=min(cfg.frontend_dim, d_model) if cfg.frontend_dim else 0,
         dtype="float32",
     )
+    if cfg.mla:     # the q.k width split in half, a latent of 2 heads' width
+        kw.update(qk_nope_head_dim=hd // 2, qk_rope_head_dim=hd // 2, v_head_dim=hd,
+                  kv_lora_rank=2 * hd, dense_d_ff=2 * d_model,
+                  shared_expert_ff=min(cfg.shared_expert_ff, 2 * d_model))
     return cfg.replace(**kw)

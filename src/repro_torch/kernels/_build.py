@@ -82,7 +82,7 @@ def library_path() -> Path:
 def _bind(lib):
     vp, i32, i64p, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float
     lib.repro_flash_attention.argtypes = [
-        i32, i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, i64p, i32, i32, f32, vp]
+        i32, i32, i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, i64p, i32, i32, f32, vp]
     lib.repro_flash_attention.restype = i32
     lib.repro_decode_attention.argtypes = [
         i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i64p, i32, f32, vp]

@@ -40,6 +40,13 @@
 //   encoder's frames): the kv loop, its zero-fill and the ragged-edge mask
 //   run to Skv, the q tiles, the grid and the output to S.  The G query
 //   heads of a kv head each stream and split its K/V (from L2).
+//   V may be narrower than Q and K (HDV < HD): DeepSeek-V2's multi-head
+//   latent attention scores over 128 + 64 rotated dims and averages 128-wide
+//   values.  At HD 192 Q's split halves would take 192 registers a thread
+//   beside the 64 of the accumulator, so that instantiation keeps them in
+//   shared memory and wgmma reads A from there (222,208 B of shared memory
+//   in float32, one block an SM); V is not padded to 192, which would add
+//   half to P V.  The other widths keep Q in registers, as before.
 //
 // decode_attn_kernel replaces the Pallas kernel
 //   src/repro/kernels/decode_attention.py::decode_attention (_decode_kernel).
@@ -114,30 +121,51 @@ struct FlashArgs {
   float sm_scale;
 };
 
-// Shared memory: the current kv tile split into tf32 halves in wgmma's
-// canonical layout (K hi, K lo: [BK][HD]; V^T hi, V^T lo: [HD][BK]; float32
-// bits), then the raw K and V tiles the next copy lands in (rows of HD + 4
-// in the input's type).  hd 128, float32: 4 * 32 * 128 * 4 + 2 * 32 * 132 *
-// 4 = 99,328 B, two blocks per SM.
-template <typename T, int HD>
-__host__ __device__ constexpr size_t flash_smem_bytes() {
-  return sizeof(float) * 4 * FA_BK * HD + sizeof(T) * 2 * FA_BK * (HD + 4);
+// Q's split halves live in shared memory (wgmma's A from a descriptor)
+// where registers cannot hold them beside the accumulators: at q.k width
+// 192 they would take 192 registers a thread.
+template <int HD>
+__host__ __device__ constexpr bool flash_q_in_smem() {
+  return HD > 128;
 }
 
-template <typename T, int HD>
+// Shared memory: Q split into tf32 halves where flash_q_in_smem (Q hi, Q lo:
+// [BQ][HD]), the current kv tile split likewise in wgmma's canonical layout
+// (K hi, K lo: [BK][HD]; V^T hi, V^T lo: [HDV][BK]; float32 bits), then the
+// raw K and V tiles the next copy lands in (rows of HD + 4 and HDV + 4 in
+// the input's type).  hd 128, float32: 4 * 32 * 128 * 4 + 2 * 32 * 132 * 4
+// = 99,328 B, two blocks per SM.  q.k width 192 and V width 128 (MLA),
+// float32: 2 * 64 * 192 * 4 + 2 * 32 * 320 * 4 + 32 * (196 + 132) * 4 =
+// 222,208 B, one block per SM.
+template <typename T, int HD, int HDV>
+__host__ __device__ constexpr size_t flash_smem_bytes() {
+  return sizeof(float) * 2 * FA_BK * (HD + HDV) + sizeof(T) * FA_BK * (HD + 4 + HDV + 4) +
+         (flash_q_in_smem<HD>() ? sizeof(float) * 2 * FA_BQ * HD : 0);
+}
+
+// HD: q and k's width; HDV: v's and the output's (MLA's 128 beside a q.k
+// width of 192; every other model's equals HD).
+template <typename T, int HD, int HDV = HD>
 __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
   constexpr int LDR = HD + 4;     // raw rows: the split pass's 16-byte reads hit distinct banks
+  constexpr int LDV = HDV + 4;
   constexpr int KS = HD / 8;      // k-steps of the score product
   constexpr int NJ = FA_BK / 8;   // key chunks of a kv tile: score n-tiles, k-steps of P V
-  constexpr int TS = FA_BK * HD;  // floats of one split tile
+  constexpr int TS = FA_BK * HD;  // floats of one split K tile
+  constexpr int TV = FA_BK * HDV; // floats of one split V tile
+  constexpr bool QS = flash_q_in_smem<HD>();
+  constexpr int TQ = QS ? FA_BQ * HD : 0;  // floats of one split Q tile
   static_assert(HD % 16 == 0 || HD == 80, "head_dim");
+  static_assert(HDV % 16 == 0 || HDV == 80, "v width");
 
   extern __shared__ float4 smem4[];
-  float* Khi = reinterpret_cast<float*>(smem4);
+  float* Qhi = reinterpret_cast<float*>(smem4);
+  float* Qlo = Qhi + TQ;
+  float* Khi = Qlo + TQ;
   float* Klo = Khi + TS;
   float* Vhi = Klo + TS;  // V^T
-  float* Vlo = Vhi + TS;
-  T* Kr = reinterpret_cast<T*>(Vlo + TS);  // [BK][LDR] raw K, then [BK][LDR] raw V
+  float* Vlo = Vhi + TV;
+  T* Kr = reinterpret_cast<T*>(Vlo + TV);  // [BK][LDR] raw K, then [BK][LDV] raw V
   T* Vr = Kr + FA_BK * LDR;
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
@@ -158,15 +186,29 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
 
   auto load_tile = [&](int kt) {
     copy_rows_async<FA_BK, HD, LDR, FA_THREADS>(Kr, kp, a.k_ss, kt * FA_BK, a.Skv);
-    copy_rows_async<FA_BK, HD, LDR, FA_THREADS>(Vr, vp, a.v_ss, kt * FA_BK, a.Skv);
+    copy_rows_async<FA_BK, HDV, LDV, FA_THREADS>(Vr, vp, a.v_ss, kt * FA_BK, a.Skv);
     cp_async_commit();
   };
   if (kt_lo < kt_hi) load_tile(kt_lo);
 
   // Q, pre-scaled by sm_scale and split into hi/lo once, as wgmma A
-  // fragments in registers for the whole kv loop (rows past S are 0)
-  Split qa[KS][4];
-  {
+  // fragments in registers for the whole kv loop (rows past S are 0); or,
+  // where flash_q_in_smem, into shared memory in the K tile's canonical
+  // layout ([row / 8][d / 4] cores), which the first tile's fence and
+  // barrier make visible to wgmma
+  Split qa[QS ? 1 : KS][4];
+  if constexpr (QS) {
+    for (int idx = tid; idx < FA_BQ * HD / 4; idx += FA_THREADS) {
+      const int r8 = idx & 7, kb = (idx >> 3) % (HD / 4), nb = (idx >> 3) / (HD / 4);
+      const int r = q0 + 8 * nb + r8;
+      const float4 x = r < a.S ? load4(qp + r * a.q_ss + 4 * kb) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const Split s0 = split_tf32(x.x * a.sm_scale), s1 = split_tf32(x.y * a.sm_scale),
+                  s2 = split_tf32(x.z * a.sm_scale), s3 = split_tf32(x.w * a.sm_scale);
+      const int at = nb * HD * 8 + kb * 32 + r8 * 4;
+      *reinterpret_cast<uint4*>(Qhi + at) = make_uint4(s0.hi, s1.hi, s2.hi, s3.hi);
+      *reinterpret_cast<uint4*>(Qlo + at) = make_uint4(s0.lo, s1.lo, s2.lo, s3.lo);
+    }
+  } else {
     const int ra = r0 + g, rb = r0 + g + 8;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
@@ -182,9 +224,9 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
   // running sum (the quad's shares are added at the end), output columns
   // 8n + 2t, 8n + 2t + 1 (o[4n + e], wgmma's accumulator layout)
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[HD / 2];
+  float o[HDV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HDV / 2; ++i) o[i] = 0.f;
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     cp_async_wait<0>();  // this thread's copies of tile kt landed
@@ -204,11 +246,11 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
       *reinterpret_cast<uint4*>(Khi + at) = make_uint4(s0.hi, s1.hi, s2.hi, s3.hi);
       *reinterpret_cast<uint4*>(Klo + at) = make_uint4(s0.lo, s1.lo, s2.lo, s3.lo);
     }
-    for (int idx = tid; idx < FA_BK * HD / 4; idx += FA_THREADS) {
+    for (int idx = tid; idx < FA_BK * HDV / 4; idx += FA_THREADS) {
       const int d8 = idx & 7, kb = (idx >> 3) % (FA_BK / 4), nb = (idx >> 3) / (FA_BK / 4);
-      const T* vc = Vr + (8 * (kb >> 1) + (kb & 1)) * LDR + 8 * nb + d8;
-      const Split s0 = split_tf32(to_f32(vc[0])), s1 = split_tf32(to_f32(vc[2 * LDR])),
-                  s2 = split_tf32(to_f32(vc[4 * LDR])), s3 = split_tf32(to_f32(vc[6 * LDR]));
+      const T* vc = Vr + (8 * (kb >> 1) + (kb & 1)) * LDV + 8 * nb + d8;
+      const Split s0 = split_tf32(to_f32(vc[0])), s1 = split_tf32(to_f32(vc[2 * LDV])),
+                  s2 = split_tf32(to_f32(vc[4 * LDV])), s3 = split_tf32(to_f32(vc[6 * LDV]));
       const int at = nb * FA_BK * 8 + kb * 32 + d8 * 4;
       *reinterpret_cast<uint4*>(Vhi + at) = make_uint4(s0.hi, s1.hi, s2.hi, s3.hi);
       *reinterpret_cast<uint4*>(Vlo + at) = make_uint4(s0.lo, s1.lo, s2.lo, s3.lo);
@@ -224,10 +266,19 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
     for (int i = 0; i < NJ * 4; ++i) sc[i] = 0.f;
     pin_regs(sc);
     wgmma_fence();
+    if constexpr (QS) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wgmma3<FA_BK>(sc, qa[ks], wgmma_desc(Khi + 64 * ks, 128, HD * 32),
-                    wgmma_desc(Klo + 64 * ks, 128, HD * 32));
+      for (int ks = 0; ks < KS; ++ks)
+        wgmma3_ss<FA_BK>(sc, wgmma_desc(Qhi + 64 * ks, 128, HD * 32),
+                         wgmma_desc(Qlo + 64 * ks, 128, HD * 32),
+                         wgmma_desc(Khi + 64 * ks, 128, HD * 32),
+                         wgmma_desc(Klo + 64 * ks, 128, HD * 32));
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        wgmma3<FA_BK>(sc, qa[ks], wgmma_desc(Khi + 64 * ks, 128, HD * 32),
+                      wgmma_desc(Klo + 64 * ks, 128, HD * 32));
+    }
     wgmma_commit();
     wgmma_wait();
     pin_regs(sc);
@@ -272,7 +323,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
     }
     if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
+      for (int n = 0; n < HDV / 8; ++n) {
         o[4 * n + 0] *= alpha[0];
         o[4 * n + 1] *= alpha[0];
         o[4 * n + 2] *= alpha[1];
@@ -295,7 +346,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      wgmma3<HD>(o, pa[j], wgmma_desc(Vhi + 64 * j, 128, FA_BK * 32),
+      wgmma3<HDV>(o, pa[j], wgmma_desc(Vhi + 64 * j, 128, FA_BK * 32),
                  wgmma_desc(Vlo + 64 * j, 128, FA_BK * 32));
     wgmma_commit();
     wgmma_wait();
@@ -313,28 +364,31 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(FlashArgs a) {
     const int s = r0 + g + 8 * r;
     if (s >= a.S) continue;
     const float inv = 1.f / fmaxf(lr, 1e-30f);
-    T* orow = op + (((long long)b * a.S + s) * a.H + h) * HD + 2 * t;
+    T* orow = op + (((long long)b * a.S + s) * a.H + h) * HDV + 2 * t;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
+    for (int n = 0; n < HDV / 8; ++n) {
       orow[8 * n] = from_f32<T>(o[4 * n + 2 * r] * inv);
       orow[8 * n + 1] = from_f32<T>(o[4 * n + 2 * r + 1] * inv);
     }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV = HD>
 cudaError_t launch_flash(const FlashArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = flash_smem_bytes<T, HD>();
+  constexpr size_t smem = flash_smem_bytes<T, HD, HDV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_attn_kernel<T, HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + FA_BQ - 1) / FA_BQ, a.H, a.B);
-  flash_attn_kernel<T, HD><<<grid, FA_THREADS, smem, stream>>>(a);
+  flash_attn_kernel<T, HD, HDV><<<grid, FA_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_flash(const FlashArgs& a, int hd, cudaStream_t stream) {
+cudaError_t dispatch_flash(const FlashArgs& a, int hd, int hdv, cudaStream_t stream) {
+  if (hdv != hd)  // MLA (DeepSeek-V2): q.k over 128 + 64 rotated dims, v of 128
+    return hd == 192 && hdv == 128 ? launch_flash<T, 192, 128>(a, stream)
+                                   : cudaErrorInvalidValue;
   switch (hd) {
     case 32: return launch_flash<T, 32>(a, stream);
     case 64: return launch_flash<T, 64>(a, stream);
@@ -795,7 +849,8 @@ int decode_entry(int dtype, int hd, const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 
 // S: query rows; Skv: keys, != S only with causal = 0 and window = 0.
-extern "C" int repro_flash_attention(int dtype, int hd, const void* q, const void* k,
+// hd: q's and k's width; hdv: v's and o's.
+extern "C" int repro_flash_attention(int dtype, int hd, int hdv, const void* q, const void* k,
                                      const void* v, void* o, int B, int S, int Skv, int H,
                                      int KV,
                                      const long long* strides,  // q b,s,h  k b,s,h  v b,s,h
@@ -806,8 +861,8 @@ extern "C" int repro_flash_attention(int dtype, int hd, const void* q, const voi
               strides[5], strides[6], strides[7], strides[8],
               causal, window, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_flash<float>(a, hd, st);
-  if (dtype == 1) return dispatch_flash<__nv_bfloat16>(a, hd, st);
+  if (dtype == 0) return dispatch_flash<float>(a, hd, hdv, st);
+  if (dtype == 1) return dispatch_flash<__nv_bfloat16>(a, hd, hdv, st);
   return cudaErrorInvalidValue;
 }
 

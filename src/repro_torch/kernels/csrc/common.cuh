@@ -292,4 +292,31 @@ __device__ __forceinline__ void wgmma3(float (&d)[N / 2], const Split (&a)[4], u
   wgmma_tf32<N>(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b_hi);
 }
 
+// d += A B, one tf32 pass (m64n32k8), A from shared memory too: K-major in
+// the same canonical layout as B (core matrices of 8 rows x 4 k values, LBO
+// bytes apart along k and SBO bytes apart along the rows).
+__device__ __forceinline__ void wgmma_tf32_ss32(float (&d)[16], uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b));
+}
+
+// wgmma3 with A's halves from shared memory (N = 32).
+template <int N>
+__device__ __forceinline__ void wgmma3_ss(float (&d)[N / 2], uint64_t a_hi, uint64_t a_lo,
+                                          uint64_t b_hi, uint64_t b_lo) {
+  static_assert(N == 32, "the score tile");
+  wgmma_tf32_ss32(d, a_lo, b_hi);
+  wgmma_tf32_ss32(d, a_hi, b_lo);
+  wgmma_tf32_ss32(d, a_hi, b_hi);
+}
+
 }  // namespace

@@ -4,7 +4,10 @@ Replaces the Pallas TPU kernel ``repro.kernels.flash_attention`` (same
 layout and masks: q (B,S,H,hd), k/v (B,S,KV,hd), GQA, causal and/or a
 sliding window, finite NEG_INF).  Unlike the Pallas kernel, a call
 without a mask may take k/v of a kv length of their own, (B,Skv,KV,hd):
-a prompt's cross-attention to an encoder's frames.  On a CUDA tensor it
+a prompt's cross-attention to an encoder's frames; and v may be narrower
+than q and k, (B,Skv,KV,hdv): multi-head latent attention (DeepSeek-V2)
+scores over hd = 192 and averages values of hdv = 128, the one such pair
+the kernel is built for.  On a CUDA tensor it
 launches the CUDA kernel in ``csrc/attention.cu``; on a CPU tensor it
 runs the plain ``ref.attention_ref``.  There is no other path, and no
 backward: under grad mode an input that requires grad is refused (the
@@ -16,11 +19,13 @@ meta tensors (the dry run), and ``sharding_rule`` / ``flops`` are the
 DTensor sharding rule and the flop formula ``kernels.ops.register_mesh_rules``
 registers.
 
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches, and
+``mla_widths.launches`` those of them at q.k width 192 and v width 128.
 """
 from __future__ import annotations
 
 import math
+import types
 from typing import Optional
 
 import torch
@@ -36,7 +41,7 @@ def _validate(q, k, v, causal, window):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q (B,S,H,hd), k/v (B,Skv,KV,hd)")
     B, S, H, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd or k.shape[1] < 1:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != hd or k.shape[1] < 1:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)} disagree")
     if k.shape[1] != S and (causal or window is not None):
@@ -52,8 +57,9 @@ def _validate(q, k, v, causal, window):
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
-    """q: (B, S, H, hd); k, v: (B, Skv, KV, hd) -> (B, S, H, hd).  Skv may
-    differ from S only for causal=False without a window."""
+    """q, k: (B, S, H, hd), (B, Skv, KV, hd); v: (B, Skv, KV, hdv) -> (B,
+    S, H, hdv).  Skv may differ from S only for causal=False without a
+    window; hdv from hd only as 128 beside 192 on the card."""
     _validate(q, k, v, causal, window)
     _build.refuse_grad("flash_attention", "repro_torch.models.attention.flash_attention", q, k, v)
     _build.check_device("flash_attention", q)
@@ -75,23 +81,26 @@ def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError("flash_attention: the head dimension must be contiguous")
     for t in (q, k, v):
         _build.check_vector_aligned("flash_attention", t, (0, 1, 2))
+    hdv = v.shape[3]
     lib = _build.load()
-    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, S, H, hdv), dtype=q.dtype, device=q.device)
     strides = _build.strides_arg((q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)))
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention(
-            DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            DTYPES[q.dtype], hd, hdv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), B, S, k.shape[1], H, k.shape[2], strides, int(causal),
             0 if window is None else window, 1.0 / math.sqrt(hd),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    if hdv != hd:
+        mla_widths.launches += 1
     return out
 
 
 @_flash_op.register_fake
 def _(q, k, v, causal, window):
-    return q.new_empty(q.shape)
+    return q.new_empty(q.shape[:3] + v.shape[3:])
 
 
 def attention_pairs(S: int, Skv: int, causal: bool, window: Optional[int]) -> int:
@@ -107,7 +116,7 @@ def flops(q_shape, k_shape, v_shape, causal, window, *args, out_shape=None, **kw
     """QKᵀ and PV over the unmasked pairs, 2 flops per FMA: the count that
     ``chip_smoke.py``'s kernel table bounds the kernel by."""
     B, S, H, hd = q_shape
-    return 4 * hd * H * B * attention_pairs(S, k_shape[1], causal, window)
+    return 2 * (hd + v_shape[3]) * H * B * attention_pairs(S, k_shape[1], causal, window)
 
 
 def sharding_rule(q, k, v, causal, window):
@@ -124,3 +133,4 @@ def sharding_rule(q, k, v, causal, window):
 
 
 flash_attention.launches = 0
+mla_widths = types.SimpleNamespace(launches=0)     # those at q.k width 192, v width 128

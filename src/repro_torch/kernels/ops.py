@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import (combine_partials, decode_attention,
                                                    decode_attention_partial)
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, mla_widths
 from repro_torch.kernels.gemm import gemm
 from repro_torch.kernels.grant_loop import alloc_all
 from repro_torch.kernels.moe_gemm import moe_experts
@@ -20,6 +20,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.tables import tables
 
 KERNELS = {"flash_attention": flash_attention,
+           "flash_attention_mla": mla_widths,      # of flash_attention's, at K 192 / V 128
            "decode_attention": decode_attention,
            "decode_attention_partial": decode_attention_partial,
            "rwkv6_scan": rwkv6_scan,

@@ -21,8 +21,9 @@ NEG_INF = -1e30
 
 def attention_ref(q, k, v, *, causal: bool = True,
                   window: Optional[int] = None):
-    """Naive quadratic attention. q: (B,S,H,hd); k,v: (B,Skv,KV,hd); query
-    i and key j at positions i and j."""
+    """Naive quadratic attention. q: (B,S,H,hd); k: (B,Skv,KV,hd); v:
+    (B,Skv,KV,hdv), hdv v's own width (MLA's 128 beside a q.k width of 192);
+    query i and key j at positions i and j."""
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -38,7 +39,7 @@ def attention_ref(q, k, v, *, causal: bool = True,
     s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bqkgs,bskd->bqkgd", w, v.float())
-    return o.reshape(B, S, H, hd).to(q.dtype)
+    return o.reshape(B, S, H, v.shape[3]).to(q.dtype)
 
 
 def decode_attention_ref(q, k, v, q_positions, kv_positions, *,

@@ -1,5 +1,6 @@
-"""GQA self-attention with a KV cache (prompt and one-token decode), and
-cross-attention to an encoder's output.
+"""GQA self-attention with a KV cache (prompt and one-token decode),
+cross-attention to an encoder's output, and DeepSeek-V2's multi-head
+latent attention (MLA) with its latent cache.
 
 Counterpart of the JAX package's ``models/attention.py`` for the serving
 path: GQA, optional QKV bias, qk_norm (per-head RMSNorm on q/k as in
@@ -22,6 +23,22 @@ cross-attention (``x_kv=``).
 Unlike the JAX functions, the cache is updated in place: the functions
 write into ``cache.k`` / ``cache.v`` / ``cache.pos`` and return the same
 object.
+
+MLA (the JAX package has none; ``mla_prefill``, ``mla_decode``): per
+token, q = h W_q splits per head into 128 unrotated and 64 rotated
+columns; [c | k_pe] = h W_kva, c (512) RMSNorm'd; [k_nope | v] = c W_kvb
+per head; q_pe and the one k_pe, shared by every head, turn by YaRN's
+table in consecutive pairs.  The prompt runs expanded: K = [k_nope |
+k_pe] (192) and V (128) into ``flash_attention`` at the softmax scale
+192^-0.5 · m^2 (q pre-multiplied by m^2).  The cache keeps only c and the
+rotated k_pe, 576 numbers a token a layer (``LatentCache``), and a decode
+step attends in the absorbed form over it: q_nope through W_kvb's K half
+against c, plus q_pe · k_pe, then the weights times c through W_kvb's V
+half.  That step is batched products and a softmax in plain PyTorch on the
+card: no decode kernel (no benchmark cell decodes).  A prompt's spans are
+``model.mla.project`` (the projections, the norm, the rotation and the
+cache write) and ``model.mla.attend`` (flash and the output projection).
+Training does not run MLA.
 """
 from __future__ import annotations
 
@@ -36,6 +53,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.layers import _dense_init, mm, rms_norm
+from repro_torch.profiling.spans import span
 
 FULL_MAX = 4096     # past this many positions the gradient runs kv-blockwise
 
@@ -45,6 +63,8 @@ FULL_MAX = 4096     # past this many positions the gradient runs kv-blockwise
 # ---------------------------------------------------------------------------
 
 def init_attention(generator, cfg, device):
+    if cfg.mla:
+        return init_mla(generator, cfg, device)
     d, hd = cfg.d_model, cfg.hd
     H, KV = cfg.n_heads, cfg.n_kv_heads
     p = {
@@ -62,6 +82,9 @@ def init_attention(generator, cfg, device):
 
 
 def specs_attention(cfg):
+    if cfg.mla:
+        return {"wq": P("fsdp", "tp"), "wkv_a": P("fsdp", None), "kv_norm": P(None),
+                "wkv_b": P(None, "tp"), "wo": P("tp", "fsdp")}
     p = {"wq": P("fsdp", "tp"), "wk": P("fsdp", "tp"), "wv": P("fsdp", "tp"),
          "wo": P("tp", "fsdp")}
     if cfg.qkv_bias:
@@ -119,10 +142,13 @@ def _scale_q(q, cfg):
 def _position_table(cfg, positions, positions_thw=None):
     """The rotation of q and k (``rope.position_table``'s (cos, sin)): RoPE
     at ``positions`` (B, S); M-RoPE at ``positions_thw`` (B, S, 3), or at
-    text positions t = h = w = ``positions`` without it; None for a model
-    without rotation."""
+    text positions t = h = w = ``positions`` without it; MLA's YaRN over
+    its rope columns; None for a model without rotation."""
     if cfg.rope_theta <= 0:
         return None
+    if cfg.mla:
+        return rope_lib.position_table(positions, cfg.qk_rope_head_dim, cfg.rope_theta,
+                                       yarn=cfg.yarn)
     if cfg.m_rope:
         if positions_thw is None:
             positions_thw = rope_lib.text_positions_thw(positions)
@@ -588,3 +614,108 @@ def cross_attention_decode(p, x, cfg, k, v):
     q_pos = torch.full((B,), Se - 1, dtype=torch.int32, device=x.device)
     o = ops.decode_attention(q.to(k.dtype), k, v, q_pos, kv_pos)
     return mm(merge_dims(o, 2), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def init_mla(generator, cfg, device):
+    """W_q (d, H·192), W_kva (d, 512 + 64), the latent's zero-centred RMSNorm
+    scale, W_kvb (512, H·(128 + 128): each head's k_nope then v), W_o
+    (H·128, d).  No q latent and no bias (DeepSeek-V2-Lite)."""
+    d, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    return {"wq": _dense_init((d, H * cfg.hd), generator, device),
+            "wkv_a": _dense_init((d, r + cfg.qk_rope_head_dim), generator, device),
+            "kv_norm": torch.zeros((r,), dtype=torch.float32, device=device),
+            "wkv_b": _dense_init((r, H * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                                 generator, device),
+            "wo": _dense_init((H * cfg.v_head_dim, d), generator, device)}
+
+
+@dataclasses.dataclass
+class LatentCache:
+    """MLA's decode cache: each token's normed latent c and rotated k_pe,
+    (B, S_buf, 512) and (B, S_buf, 64); every head's K and V follow from
+    them.  A linear buffer, no window."""
+    c: torch.Tensor
+    k_pe: torch.Tensor
+    pos: torch.Tensor     # (B,) int32, next absolute position to write
+
+
+def init_latent_cache(batch, max_len, cfg, *, dtype=torch.bfloat16, device=None):
+    zeros = lambda n: torch.zeros((batch, max_len, n), dtype=dtype, device=device)
+    return LatentCache(c=zeros(cfg.kv_lora_rank), k_pe=zeros(cfg.qk_rope_head_dim),
+                       pos=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def mla_softmax_scale(cfg) -> float:
+    """192^-0.5 · m(factor, mscale_all_dim)^2."""
+    return rope_lib.yarn_softmax_scale(cfg.rope_factor, cfg.yarn_mscale_all_dim) / math.sqrt(cfg.hd)
+
+
+def _mla_project(p, x, cfg, table):
+    """-> q_nope (B, S, H, 128), q_pe rotated (B, S, H, 64), c normed (B,
+    S, 512), k_pe rotated (B, S, 64)."""
+    B, S, _ = x.shape
+    n = cfg.qk_nope_head_dim
+    q = mm(x, p["wq"]).view(B, S, cfg.n_heads, cfg.hd)
+    kva = mm(x, p["wkv_a"])
+    c = rms_norm(kva[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    q_pe = rope_lib.rotate_pairs(q[..., n:], table)
+    k_pe = rope_lib.rotate_pairs(kva[..., None, cfg.kv_lora_rank:], table)[:, :, 0]
+    return q[..., :n], q_pe, c, k_pe
+
+
+def mla_prefill(p, x, cfg, cache: LatentCache, *, table=None):
+    """A prompt through MLA in its expanded form: K (B, S, H, 192) of each
+    head's k_nope and the shared k_pe, V (B, S, H, 128), flash at
+    192^-0.5 · m^2.  Writes c and k_pe to ``cache`` (slots past the prompt
+    zeroed).  ``table``: the prefill's ``prompt_table``.  Returns (out,
+    cache)."""
+    B, S, _ = x.shape
+    H, n = cfg.n_heads, cfg.qk_nope_head_dim
+    if table is None:
+        table = prompt_table(cfg, B, S, x.device)
+    with span("model.mla.project"):
+        q_nope, q_pe, c, k_pe = _mla_project(p, x, cfg, table)
+        kv = mm(c, p["wkv_b"]).view(B, S, H, n + cfg.v_head_dim)
+        m2 = rope_lib.yarn_softmax_scale(cfg.rope_factor, cfg.yarn_mscale_all_dim)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        q = q * m2 if m2 != 1.0 else q
+        k = torch.cat([kv[..., :n], k_pe[:, :, None].expand(B, S, H, cfg.qk_rope_head_dim)],
+                      dim=-1)
+        cache.c[:, :S] = c
+        cache.k_pe[:, :S] = k_pe
+        cache.c[:, S:] = 0
+        cache.k_pe[:, S:] = 0
+        cache.pos.fill_(S)
+    with span("model.mla.attend"):
+        o = flash_attention(q, k, kv[..., n:], causal=True)
+        return mm(o.reshape(B, S, H * cfg.v_head_dim), p["wo"]), cache
+
+
+def mla_decode(p, x, cfg, cache: LatentCache):
+    """One token through MLA in the absorbed form over the latent cache
+    (B, 1, d) -> (out, cache): the new c and k_pe are written at the
+    sequences' position, then per head scores = (q_nope W_kvb_k^T) c^T +
+    q_pe k_pe^T over the written slots, and the output (softmax · c) W_kvb_v.
+    Batched products and a softmax in plain PyTorch, on the card too."""
+    B = x.shape[0]
+    H, n, r = cfg.n_heads, cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    positions = cache.pos[:, None].clone()                           # (B, 1)
+    q_nope, q_pe, c, k_pe = _mla_project(p, x, cfg, _position_table(cfg, positions))
+    buf = cache.c.shape[1]
+    idx = torch.clamp(cache.pos.max(), max=buf - 1).reshape(1).long()
+    cache.c.index_copy_(1, idx, c.to(cache.c.dtype))
+    cache.k_pe.index_copy_(1, idx, k_pe.to(cache.k_pe.dtype))
+    cache.pos += 1
+    w = p["wkv_b"].float().view(r, H, n + cfg.v_head_dim)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w[..., :n])
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, cache.c.float())
+         + torch.einsum("bhe,bse->bhs", q_pe[:, 0].float(), cache.k_pe.float()))
+    valid = torch.arange(buf, device=x.device)[None, None, :] < cache.pos[:, None, None]
+    s = torch.where(valid, s * mla_softmax_scale(cfg), NEG_INF)
+    o_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), cache.c.float())
+    o = torch.einsum("bhr,rhv->bhv", o_lat, w[..., n:])
+    return mm(o.reshape(B, 1, H * cfg.v_head_dim).to(x.dtype), p["wo"]), cache

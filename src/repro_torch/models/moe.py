@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer (Mixtral / DBRX style top-k routing), and the
-dropless served layer of granite-4.0-h.
+dropless served layer of granite-4.0-h and DeepSeek-V2.
 
 Counterpart of the JAX package's ``models/moe.py``: ``apply_moe``, and
 ``apply_moe_ep``, the expert-parallel layer for a mesh (below).  The port
@@ -156,12 +156,15 @@ def specs_moe(cfg):
     return s
 
 
-def _route(router_w, x, top_k: int):
-    """x: (..., D) -> (top-k ids, normalised gates, full probs)."""
+def _route(router_w, x, top_k: int, norm: bool = True):
+    """x: (..., D) -> (top-k ids, gates, full probs): the gates renormalised
+    over the k chosen (``norm``), or else the chosen probabilities
+    (DeepSeek-V2)."""
     probs = torch.softmax(mm(x.float(), router_w), dim=-1)      # (..., E)
     gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, ids = gates[..., :top_k], ids[..., :top_k]
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    if norm:
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     return ids, gates, probs
 
 
@@ -331,16 +334,16 @@ def _count_held(layer: int, offsets, T: int):
     t.host += 1
 
 
-def route_sorted(router_w, x, K: int, held: int):
+def route_sorted(router_w, x, K: int, held: int, norm: bool = True):
     """Route the tokens x (T, D) over all experts and sort the assignments
     by expert, on the device -> (tok, gates, offsets, pos): each sorted
     assignment's token and gate (T·K,); offsets (held + 1,), held expert
     e's rows offsets[e] .. offsets[e + 1] - 1, the assignments to experts
     this card does not hold past offsets[held]; pos (T, K), each (token, k)
     assignment's sorted row.  A stable sort on the expert id keeps each
-    expert's rows in token order."""
+    expert's rows in token order.  ``norm``: as ``_route``."""
     T = x.shape[0]
-    ids, gates, _ = _route(router_w, x, K)                       # (T, K)
+    ids, gates, _ = _route(router_w, x, K, norm)                 # (T, K)
     key = torch.where(ids < held, ids, held).reshape(-1)
     key, perm = torch.sort(key, stable=True)
     offsets = torch.searchsorted(key, torch.arange(held + 1, device=x.device, dtype=key.dtype))
@@ -354,7 +357,9 @@ def apply_moe_dropless(p, x, cfg, *, layer: int = 0):
 
     The router keeps all ``n_experts`` outputs in float32: softmax, top k
     (ties to the lower expert), gates renormalised over the k chosen, as
-    ``_route`` (equal to a softmax over the chosen logits).  Each
+    ``_route`` (equal to a softmax over the chosen logits); with
+    ``cfg.norm_topk`` false (DeepSeek-V2) the chosen probabilities
+    instead.  Each
     assignment to one of the ``n_held`` experts this card holds (experts
     0 .. n_held - 1) is computed, none dropped; the others are this card's
     share of zero (on a card of an expert-parallel group, the other cards
@@ -368,7 +373,7 @@ def apply_moe_dropless(p, x, cfg, *, layer: int = 0):
     T, K, held = B * S, cfg.top_k, cfg.n_held
     xf = x.reshape(T, D)
     with span("model.moe.route"):
-        tok, gates, offsets, pos = route_sorted(p["router"], xf, K, held)
+        tok, gates, offsets, pos = route_sorted(p["router"], xf, K, held, cfg.norm_topk)
         _count_held(layer, offsets, T)
     with span("model.moe.experts"):
         y = ops.moe_experts(xf, tok, offsets, gates, pos, p["w_gate"], p["w_up"], p["w_down"])
@@ -385,7 +390,7 @@ def moe_dropless_plain(p, x, cfg):
     tests and of ``chip_smoke.py``, never on the served path."""
     B, S, D = x.shape
     xf = x.reshape(-1, D)
-    ids, gates, _ = _route(p["router"], xf, cfg.top_k)
+    ids, gates, _ = _route(p["router"], xf, cfg.top_k, cfg.norm_topk)
     y = torch.zeros_like(xf, dtype=torch.float32)
     for e in range(cfg.n_held):
         w = (gates * (ids == e)).sum(-1)                         # (T,) 0 where not chosen

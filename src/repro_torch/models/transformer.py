@@ -6,7 +6,9 @@
 blocks, ``shared_attn_every``) and granite-4.0-h's mix of "mamba2" and
 "attn" layers, each followed by its FFN (``cfg.mamba_ffn``: the dropless
 MoE and its shared expert), with its muP multipliers on the embedding,
-every residual branch and the logits.
+every residual branch and the logits, and DeepSeek-V2 ("attn" blocks of
+multi-head latent attention, ``cfg.mla``, each with a latent cache; a
+dense MLP in the first ``first_dense_layers``, the dropless MoE after).
 
 Counterpart of the JAX package's ``models/transformer.py``: for serving
 ``init_params``, ``init_cache``, ``prefill`` and ``decode_step``, plus
@@ -75,6 +77,16 @@ def check_supported(cfg: ArchConfig):
             f"{cfg.name}: encoders, cross-attention, frontends and M-RoPE need attention blocks")
     if cfg.cross_attention != bool(cfg.encoder_layers):
         raise NotImplementedError(f"{cfg.name}: cross-attention reads an encoder's output")
+    if cfg.mla and (kinds != {"attn"} or cfg.encoder_layers or cfg.frontend or cfg.m_rope
+                    or cfg.sliding_window or cfg.qk_norm or cfg.qkv_bias
+                    or cfg.hd != cfg.qk_nope_head_dim + cfg.qk_rope_head_dim):
+        raise NotImplementedError(f"{cfg.name}: MLA runs in plain causal attention blocks, "
+                                  "its head width the nope and rope widths' sum")
+    if cfg.yarn and not cfg.yarn_mscale_all_dim:
+        raise NotImplementedError(f"{cfg.name}: YaRN without mscale_all_dim scales the "
+                                  "table's cos / sin by m(f, 1); the port's is unscaled")
+    if cfg.first_dense_layers and not cfg.moe_dropless:
+        raise NotImplementedError(f"{cfg.name}: leading dense layers before a dropless MoE only")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,19 +126,21 @@ def _groups(cfg: ArchConfig) -> int:
 # Params
 # ---------------------------------------------------------------------------
 
-def _init_ffn(generator, cfg: ArchConfig, device):
-    if cfg.is_moe:
+def _init_ffn(generator, cfg: ArchConfig, device, layer: int = 0):
+    if not cfg.is_dense_layer(layer):
         return {"moe": moe_lib.init_moe(generator, cfg, device)}
-    return {"ffn": L.init_mlp(generator, cfg.d_model, cfg.d_ff, device, cfg.act_fn)}
+    return {"ffn": L.init_mlp(generator, cfg.d_model, cfg.dense_d_ff or cfg.d_ff, device,
+                              cfg.act_fn)}
 
 
-def _init_block(generator, cfg: ArchConfig, device, kind: str, *, cross: bool = False):
+def _init_block(generator, cfg: ArchConfig, device, kind: str, *, cross: bool = False,
+                layer: int = 0):
     if kind == "attn":
         ln_bias = cfg.family == "encdec"            # whisper: LayerNorm with a bias
         p = {"ln1": L.init_norm(cfg.d_model, device, with_bias=ln_bias),
              "attn": attn_lib.init_attention(generator, cfg, device),
              "ln2": L.init_norm(cfg.d_model, device, with_bias=ln_bias),
-             **_init_ffn(generator, cfg, device)}
+             **_init_ffn(generator, cfg, device, layer)}
         if cross:
             p["ln_c"] = L.init_norm(cfg.d_model, device, with_bias=ln_bias)
             p["cross"] = attn_lib.init_attention(generator, cfg, device)
@@ -135,7 +149,8 @@ def _init_block(generator, cfg: ArchConfig, device, kind: str, *, cross: bool = 
         p = {"ln1": L.init_norm(cfg.d_model, device),
              "mamba": ssm_lib.init_mamba2(generator, cfg, device)}
         if cfg.mamba_ffn:
-            p.update(ln2=L.init_norm(cfg.d_model, device), **_init_ffn(generator, cfg, device))
+            p.update(ln2=L.init_norm(cfg.d_model, device),
+                     **_init_ffn(generator, cfg, device, layer))
         return p
     return {"ln1": L.init_norm(cfg.d_model, device, with_bias=True),
             "ln2": L.init_norm(cfg.d_model, device, with_bias=True),
@@ -149,8 +164,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     p: Dict[str, Any] = {
         "embed": L.init_embedding(generator, cfg.vocab_size, cfg.d_model, device),
         "final_norm": L.init_norm(cfg.d_model, device, with_bias=cfg.family == "encdec"),
-        "blocks": [_init_block(generator, cfg, device, kind, cross=cfg.cross_attention)
-                   for kind in cfg.pattern],
+        "blocks": [_init_block(generator, cfg, device, kind, cross=cfg.cross_attention, layer=i)
+                   for i, kind in enumerate(cfg.pattern)],
     }
     if not cfg.tie_embeddings:
         p["head"] = L.init_head(generator, cfg.d_model, cfg.vocab_size, device)
@@ -166,10 +181,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return p
 
 
-def _specs_block(cfg: ArchConfig, kind: str, *, cross: bool = False):
+def _specs_block(cfg: ArchConfig, kind: str, *, cross: bool = False, layer: int = 0):
     """One layer's logical specs: the JAX package's stacked spec without
     its leading None (the port keeps one dict per layer)."""
-    ffn = {"moe": moe_lib.specs_moe(cfg)} if cfg.is_moe else {"ffn": L.specs_mlp(cfg.act_fn)}
+    ffn = ({"ffn": L.specs_mlp(cfg.act_fn)} if cfg.is_dense_layer(layer)
+           else {"moe": moe_lib.specs_moe(cfg)})
     if kind == "attn":
         ln_bias = cfg.family == "encdec"
         p = {"ln1": L.specs_norm(with_bias=ln_bias),
@@ -194,8 +210,8 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
     s: Dict[str, Any] = {
         "embed": L.specs_embedding(),
         "final_norm": L.specs_norm(with_bias=cfg.family == "encdec"),
-        "blocks": [_specs_block(cfg, kind, cross=cfg.cross_attention)
-                   for kind in cfg.pattern],
+        "blocks": [_specs_block(cfg, kind, cross=cfg.cross_attention, layer=i)
+                   for i, kind in enumerate(cfg.pattern)],
     }
     if not cfg.tie_embeddings:
         s["head"] = L.specs_head()
@@ -260,8 +276,8 @@ def _branch(cfg: ArchConfig, h):
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, *,
                dtype=torch.bfloat16, window: Optional[int] = None,
                device=None):
-    """One cache per layer (heads-major KV, or recurrent state: in a mixed
-    pattern each layer's of its own kind), zamba2's shared-attention KV
+    """One cache per layer (heads-major KV, MLA's latent cache, or recurrent
+    state: in a mixed pattern each layer's of its own kind), zamba2's shared-attention KV
     caches (one per application), whisper's cross K/V (one (B, Se, KV, hd)
     pair per decoder layer, filled at prefill), qwen2-vl's M-RoPE offset,
     and the decode step."""
@@ -269,6 +285,9 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, *,
     window = window if window is not None else cfg.sliding_window
 
     def make(kind):
+        if kind == "attn" and cfg.mla:
+            return attn_lib.init_latent_cache(batch_size, max_len, cfg, dtype=dtype,
+                                              device=device)
         if kind == "attn":
             return attn_lib.init_kv_cache(batch_size, max_len, cfg, window=window,
                                           dtype=dtype, device=device)
@@ -294,10 +313,10 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, *,
 
 def reset_cache(cache):
     """Zero every recurrent state, conv tail and token shift, and the M-RoPE
-    offset, in place (a KV cache and the cross K/V need none: a prefill
-    overwrites all their slots)."""
+    offset, in place (a KV cache, a latent cache and the cross K/V need
+    none: a prefill overwrites all their slots)."""
     for lc in cache["layers"]:
-        if not isinstance(lc, attn_lib.KVCache):
+        if not isinstance(lc, (attn_lib.KVCache, attn_lib.LatentCache)):
             lc.reset()
     cache["step"] = 0
     if "mrope_delta" in cache:
@@ -322,22 +341,22 @@ def _attn_mix(bp, x, cfg: ArchConfig, attend, cross=None, shard: ShardingHints =
 
 def _attn_ffn(bp, x, cfg: ArchConfig, layer: int = 0, shard: ShardingHints = NO_HINTS):
     """The MLP or the MoE layer after its norm -> (x, the MoE aux loss or
-    None).  The dropless MoE (granite) has no aux loss."""
+    None).  The dropless MoE (granite, DeepSeek-V2) has no aux loss."""
     xin = L.apply_norm(bp["ln2"], x, cfg.norm_eps)
+    if cfg.is_dense_layer(layer):
+        return _c(x + L.apply_mlp(bp["ffn"], xin, cfg.act_fn), shard.residual, shard), None
     if cfg.moe_dropless:
         h = moe_lib.apply_moe_dropless(bp["moe"], xin, cfg, layer=layer)
         return _c(x + _branch(cfg, h), shard.residual, shard), None
-    if cfg.is_moe:
-        if shard.moe_ep is not None:
-            ep_axis, baxes = shard.moe_ep
-            h, aux = moe_lib.apply_moe_ep(bp["moe"], xin, cfg, mesh=shard.mesh,
-                                          ep_axis=ep_axis, batch_axes=baxes)
-        else:
-            h, aux = moe_lib.apply_moe(bp["moe"], xin, cfg, layer=layer,
-                                       w_specs=(shard.moe_w_in, shard.moe_w_out),
-                                       mesh=shard.mesh)
-        return _c(x + h, shard.residual, shard), aux
-    return _c(x + L.apply_mlp(bp["ffn"], xin, cfg.act_fn), shard.residual, shard), None
+    if shard.moe_ep is not None:
+        ep_axis, baxes = shard.moe_ep
+        h, aux = moe_lib.apply_moe_ep(bp["moe"], xin, cfg, mesh=shard.mesh,
+                                      ep_axis=ep_axis, batch_axes=baxes)
+    else:
+        h, aux = moe_lib.apply_moe(bp["moe"], xin, cfg, layer=layer,
+                                   w_specs=(shard.moe_w_in, shard.moe_w_out),
+                                   mesh=shard.mesh)
+    return _c(x + h, shard.residual, shard), aux
 
 
 def _attn_block(bp, x, cfg: ArchConfig, attend, layer: int = 0, cross=None,
@@ -516,8 +535,9 @@ def prefill(params, cfg: ArchConfig, batch, cache, *, shard: ShardingHints = NO_
     # every attention block rotates at the prompt's positions: one table a pass
     table = None if cfg.attention_free else attn_lib.prompt_table(
         cfg, *tokens.shape, x.device, positions_thw)
+    attend = attn_lib.mla_prefill if cfg.mla else attn_lib.attention_prefill
     x = _run_blocks(params, cfg, x, cache,
-                    lambda p, xin, lc: attn_lib.attention_prefill(p, xin, cfg, lc, table=table),
+                    lambda p, xin, lc: attend(p, xin, cfg, lc, table=table),
                     ssm_lib.mamba2_prefill, _rwkv_prefill, cross, shard)
     cache.update(prefill_host_fields(cfg, batch))
     with span("model.head"):
@@ -541,6 +561,7 @@ def decode_step(params, cfg: ArchConfig, token, cache, *, shard: ShardingHints =
     if cfg.encoder_layers:
         cross = lambda p, xin, k, v: attn_lib.cross_attention_decode(p, xin, cfg, k, v)
     x = _run_blocks(params, cfg, x, cache,
+                    (lambda p, xin, lc: attn_lib.mla_decode(p, xin, cfg, lc)) if cfg.mla else
                     lambda p, xin, lc: attn_lib.attention_decode(
                         p, xin, cfg, lc, positions_thw=positions_thw),
                     ssm_lib.mamba2_decode, _rwkv_decode, cross)
@@ -585,8 +606,12 @@ def forward(params, cfg: ArchConfig, batch, *, remat: bool = False,
     for whisper, ``frames``; for qwen2-vl optionally ``patches``.  With
     ``remat`` each block (each zamba2 group, and each Mamba2 layer inside
     it) is recomputed in the backward instead of keeping its activations,
-    as the JAX package's ``jax.checkpoint`` sites do."""
+    as the JAX package's ``jax.checkpoint`` sites do.  MLA serves only: it
+    raises NotImplementedError."""
     check_supported(cfg)
+    if cfg.mla:
+        raise NotImplementedError(f"{cfg.name}: training does not run multi-head latent "
+                                  "attention (MLA); it serves through prefill and decode_step")
     x, positions_thw = _embed_inputs(params, cfg, batch, shard)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     every = cfg.shared_attn_every

@@ -42,11 +42,14 @@ def test_checks_every_benchmark_cell_and_no_other(chip_smoke):
 def test_kernel_shapes_follow_the_cells_configuration(chip_smoke):
     """granite's cell (24 prompts of 64 tokens, 18 of 72 experts held,
     top-10, Mamba2 of 128 heads of 64 at state 128) gives the scan and the
-    grouped products their served shapes; the other cells have neither."""
+    grouped products their served shapes, deepseek-v2-lite's (6 prompts of
+    64, all 64 experts, top-6) the grouped products'; the other cells have
+    neither."""
     shapes = {name: chip_smoke.kernel_shapes(*cc)
               for name, cc in chip_smoke.benchmark_cells().items()}
     assert shapes == {
         "qwen15-4b.w6-closed": {},
         "rwkv6-1.6b.w5-closed": {},
         "granite4-h-small.w6x4-closed": {"ssd_scan": (24, 64, 128, 64, 128),
-                                         "moe_experts": (1536, 4096, 768, 72, 18, 10)}}
+                                         "moe_experts": (1536, 4096, 768, 72, 18, 10)},
+        "deepseek-v2-lite.w6-closed": {"moe_experts": (384, 2048, 1408, 64, 64, 6)}}

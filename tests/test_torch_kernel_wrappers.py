@@ -48,7 +48,8 @@ def test_cpu_path_counts_no_launch():
                          torch.zeros(1, 8, dtype=torch.int32))
     ops.decode_attention_partial(x[:, :1], x, x, torch.zeros(1, dtype=torch.int32),
                                  torch.zeros(1, 8, dtype=torch.int32))
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_mla": 0,
+                                   "decode_attention": 0,
                                    "decode_attention_partial": 0,
                                    "rwkv6_scan": 0, "ssd_scan": 0, "moe_experts": 0,
                                    "gemm": 0, "alloc_all": 0, "tables": 0}

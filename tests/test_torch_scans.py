@@ -193,7 +193,8 @@ def test_scan_wrappers_refuse_bad_inputs_and_count_no_cpu_launch():
     y2, h = ops.ssd_scan(x, bc, bc, torch.zeros((1, 8, 2)))
     assert (y.shape, s.shape, y2.shape, h.shape) == (
         (1, 8, 2, 32), (1, 2, 32, 32), (1, 8, 2, 32), (1, 2, 32, 16))
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_mla": 0,
+                                   "decode_attention": 0,
                                    "decode_attention_partial": 0,
                                    "rwkv6_scan": 0, "ssd_scan": 0, "moe_experts": 0,
                                    "gemm": 0, "alloc_all": 0, "tables": 0}

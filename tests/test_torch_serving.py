@@ -27,8 +27,8 @@ pytestmark = pytest.mark.jax              # the JAX engine is the reference
 def test_configs_are_the_same():
     for name in JAX_REGISTRY:
         assert REGISTRY[name].__dict__ == JAX_REGISTRY[name].__dict__, name
-    # the port serves one architecture beyond the JAX package's
-    assert set(REGISTRY) - set(JAX_REGISTRY) == {"granite-4.0-h-small"}
+    # the port serves two architectures beyond the JAX package's
+    assert set(REGISTRY) - set(JAX_REGISTRY) == {"granite-4.0-h-small", "deepseek-v2-lite"}
     jcfg, _, _, cfg, _, _ = models("qwen3-4b")
     assert cfg.__dict__ == jcfg.__dict__
     assert (cfg.n_layers, cfg.d_model, cfg.hd, cfg.qk_norm) == (2, 256, 32, True)
