@@ -381,13 +381,16 @@ ASYNC_COPY = (r"\bLDGSTS\b|\bUBLKCP\b|\bUTMALDG\b", "asynchronous copies (LDGSTS
 SASS_CHECKS = {"flash_attn_kernel": (2 * 5, *TENSOR_CORE),
                # x hd 32, 64 x N 16, 32, 64, and N 128 at hd 64
                "ssd_scan_kernel": (2 * (2 * 3 + 1), *TENSOR_CORE),
-               "moe_gemm_kernel": (2, *TENSOR_CORE),     # gate and up, down
+               # gate and up, down
+               "moe_gemm_kernel": (2, r"\bHGMMA\.", "wgmma products (HGMMA)"),
                "dense_gemm_kernel": (1, *TENSOR_CORE),   # layers.mm's float32 products
                "rwkv6_scan_kernel": (2 * 2, *TENSOR_CORE),
                # x G = 1, <= 4, <= 16, x served / partial
                "decode_attn_kernel": (2 * 4 * 3 * 2, *ASYNC_COPY),
                # the planner's grant loop, N = 1 .. 32: float64 arithmetic
                "alloc_all_kernel": (6, r"\bD(ADD|MUL)\b", "float64 arithmetic (DADD / DMUL)")}
+# a second requirement of a kernel's every instantiation
+SASS_ALSO = {"moe_gemm_kernel": (r"\bUTMALDG\b", "TMA tile loads (UTMALDG)")}
 GONE_KERNELS = ("decode_attn_combine",)   # decode attention is one launch
 
 
@@ -407,7 +410,8 @@ def find_cuobjdump():
 
 def check_sass(lib_path):
     """Disassemble the built library (cuobjdump -sass) and require, in every
-    instantiation of each kernel of SASS_CHECKS, the instructions it names;
+    instantiation of each kernel of SASS_CHECKS, the instructions it names
+    (and those SASS_ALSO names);
     no kernel of GONE_KERNELS may be left.  Returns {kernel: [matching
     instructions per instantiation]}."""
     sass = subprocess.run([find_cuobjdump(), "-sass", str(lib_path)], capture_output=True,
@@ -424,6 +428,8 @@ def check_sass(lib_path):
         n = len(re.findall(SASS_CHECKS[kernel][1], body))
         if n == 0:
             raise AssertionError(f"{name.strip()}: no {SASS_CHECKS[kernel][2]} in its SASS")
+        if kernel in SASS_ALSO and not re.search(SASS_ALSO[kernel][0], body):
+            raise AssertionError(f"{name.strip()}: no {SASS_ALSO[kernel][1]} in its SASS")
         found[kernel].append(n)
     for kernel, (n, _, _) in SASS_CHECKS.items():
         if len(found[kernel]) != n:
@@ -879,28 +885,73 @@ def moe_inputs(rng, T, D, F, E, held, K, dev, one_expert=False):
     return x, tok, offsets, gates, pos, *w
 
 
+# Edges of the grouped products' token tile (moe_gemm.TILE_ROWS, 48 rows):
+# (T, K, E, held, the held experts' rows), the other assignments on experts
+# held .. E - 1.  Each case has an expert of a whole number of tiles, one of
+# a row more and an empty one; the second and fourth most assignments past
+# offsets[held], the fourth most held experts empty; the third and sixth
+# experts of several tiles; the fifth every assignment on a held expert.
+MOE_EDGES = ((64, 2, 8, 4, (48, 49, 0, 7)), (120, 2, 16, 8, (49, 0, 48, 1, 0, 0, 0, 0)),
+             (200, 2, 8, 4, (97, 0, 96, 40)), (100, 2, 24, 20, (48, 0, 49) + (0,) * 17),
+             (97, 1, 4, 3, (48, 49, 0)), (145, 3, 12, 6, (144, 145, 0, 48, 0, 1)))
+
+
+def moe_edge_inputs(rng, T, K, E, held, rows, D, F, dev):
+    """The grouped products' inputs with held expert e taking rows[e] tokens
+    (the tokens with the most free slots, the lower first) and each token's
+    other slots on distinct experts past the held ones, sorted as
+    route_sorted sorts; weights at fan-in scale."""
+    ids = np.full((T, K), -1)
+    for e, n in enumerate(rows):
+        free = (ids < 0).sum(1)
+        chosen = sorted(range(T), key=lambda t: (-free[t], t))[:n]
+        assert all(free[t] for t in chosen), (T, K, rows)
+        for t in chosen:
+            ids[t, np.argmax(ids[t] < 0)] = e
+    for t in range(T):
+        for k in np.flatnonzero(ids[t] < 0):
+            ids[t, k] = held + (t + k) % (E - held)
+    assert all((ids == e).sum() == n for e, n in enumerate(rows))
+    ids = torch.from_numpy(ids)
+    key, perm = torch.sort(torch.where(ids < held, ids, held).reshape(-1), stable=True)
+    offsets = torch.searchsorted(key, torch.arange(held + 1))
+    pos = torch.empty_like(perm).scatter_(0, perm, torch.arange(T * K)).view(T, K)
+    gates = torch.from_numpy(rng.uniform(0.1, 1.0, T * K).astype(np.float32))[perm]
+    w = [rand(rng, shape, torch.float32, dev) / shape[1] ** 0.5
+         for shape in ((held, D, F), (held, D, F), (held, F, D))]
+    return (rand(rng, (T, D), torch.float32, dev), (perm // K).to(dev), offsets.to(dev),
+            gates.to(dev), pos.to(dev), *w)
+
+
 def check_moe(dev, rng, shape):
     """The grouped expert products against their plain version: a cell's
     ``shape`` (T, D, F, E, held, K), there also with every token on one
     expert (its rows = T, none dropped), a ragged small case and one token;
-    one launch counted a call.  Returns the cell shape's max_abs_err."""
-    from repro_torch.kernels import ops, ref
-    cases = [(shape, False), (shape, True),
-             ((100, 256, 128, 8, 5, 3), False), ((1, 128, 64, 4, 4, 2), False)]
+    then the token tile's edges, MOE_EDGES.  Each case within TOL[float32] of ref.moe_experts_ref, one
+    launch counted a call, and a second call on the same inputs equal bit
+    for bit.  Returns the cell shape's max_abs_err."""
+    from repro_torch.kernels import moe_gemm, ops, ref
+    cases = [(f"{shape} one expert {one}", moe_inputs(rng, *shape, dev, one_expert=one))
+             for one in (False, True)]
+    cases += [(str(c), moe_inputs(rng, *c, dev)) for c in ((100, 256, 128, 8, 5, 3),
+                                                            (1, 128, 64, 4, 4, 2))]
+    cases += [(f"tile edges {edge}", moe_edge_inputs(rng, *edge, 256, 192, dev))
+              for edge in MOE_EDGES]
     errs = []
     with torch.inference_mode():
-        for case, one in cases:
-            args = moe_inputs(rng, *case, dev, one_expert=one)
+        for name, args in cases:
             before = ops.launch_counts()["moe_experts"]
             y = ops.moe_experts(*args)
-            assert ops.launch_counts()["moe_experts"] == before + 1, case
-            errs.append(check_close(f"moe_experts {case} one expert {one}", y,
-                                    ref.moe_experts_ref(*args), TOL[torch.float32]))
-            if one:
-                rows = (args[2][1:] - args[2][:-1]).tolist()
-                assert rows[1] == case[0], rows
-    log(f"kernels: moe_experts matches its plain version on {len(cases)} cases; "
-        f"max_abs_err {errs}")
+            again = ops.moe_experts(*args)
+            assert ops.launch_counts()["moe_experts"] == before + 2, name
+            assert torch.equal(y, again), f"moe_experts {name}: two calls differ"
+            errs.append(check_close(f"moe_experts {name}", y, ref.moe_experts_ref(*args),
+                                    TOL[torch.float32]))
+        rows = (cases[1][1][2][1:] - cases[1][1][2][:-1]).tolist()
+        assert rows[1] == shape[0], rows
+    log(f"kernels: moe_experts matches its plain version on {len(cases)} cases (the "
+        f"{moe_gemm.TILE_ROWS}-row tile at its edges), each call repeated bit for bit; "
+        f"max_abs_err {[f'{e:.3g}' for e in errs]}")
     return errs[0]
 
 
@@ -1284,9 +1335,11 @@ def check_cell_pass(dev, name, cell, cfg):
         assert len(counts) == want["moe_experts"] and all(
             c["dropped"] == 0 and c["assignments"] > 0 and c["calls"] == 2
             for c in counts.values()), counts
+        tiles, experts = (sum(c[k] for c in counts.values()) for k in ("tiles", "experts"))
         stats.update(experts_held=cfg.n_held, dropped=0,
                      held_assignments_a_pass=sum(c["assignments"] for c in counts.values()) // 2,
-                     largest_expert_rows=max(c["max_rows"] for c in counts.values()))
+                     largest_expert_rows=max(c["max_rows"] for c in counts.values()),
+                     tiles_a_pass=tiles // 2, weight_streams_an_expert=tiles / experts)
     with sync_errors(eng, eager=True) as eager:
         out_eager = eng._serve(tokens)
     assert np.array_equal(out, out_eager) and torch.equal(guard.logits[0], eager.logits[0]), \
@@ -1301,7 +1354,9 @@ def check_cell_pass(dev, name, cell, cfg):
         f"and to the eager pass; launches a pass "
         f"{stats['launches_a_pass']}, {declined} products left to cuBLAS; products "
         f"(T, K, N) x calls {stats['gemm_shapes']}"
-        + (f"; {stats['held_assignments_a_pass']} held assignments a pass, none dropped"
+        + (f"; {stats['held_assignments_a_pass']} held assignments a pass, none dropped, "
+           f"{stats['tiles_a_pass']} token tiles a pass, "
+           f"{stats['weight_streams_an_expert']:.4f} weight streams a held expert with rows"
            if cfg.moe_dropless else "") + f"; {stats['seconds']:.1f} s")
     del eng, guard
     gc.collect()

@@ -2,7 +2,8 @@
 
 The sources in ``csrc/`` (``attention.cu``, ``scan.cu``, ``moe.cu`` and
 ``gemm.cu``, sharing ``common.cuh``, ``planner.cu`` and ``physics.cu``) have
-a plain C interface and include no PyTorch header.
+a plain C interface and include no PyTorch header (``gemm.cu`` and
+``moe.cu`` share ``tma.cuh`` too).
 ``nvcc`` compiles each source to an object file, all of them at once in
 parallel processes, and links the objects into one shared library, which
 is loaded with ``ctypes`` and called with raw device pointers and
@@ -31,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "attention.cu", CSRC / "scan.cu", CSRC / "moe.cu", CSRC / "gemm.cu",
            CSRC / "planner.cu", CSRC / "physics.cu")
-HEADERS = (CSRC / "common.cuh",)
+HEADERS = (CSRC / "common.cuh", CSRC / "tma.cuh")
 ROOT = Path(__file__).resolve().parents[3]       # <root>/src/repro_torch/kernels
 BUILD_DIR = ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -99,7 +100,7 @@ def _bind(lib):
         i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i64p, vp]
     lib.repro_ssd_scan.restype = i32
     lib.repro_moe_experts.argtypes = [
-        i32, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+        i32, i32, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.repro_moe_experts.restype = i32
     lib.repro_gemm.argtypes = [vp, vp, vp, vp]
     lib.repro_gemm.restype = i32

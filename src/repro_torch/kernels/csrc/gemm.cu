@@ -58,6 +58,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -70,7 +71,6 @@ constexpr int GM_THREADS = 384;            // producer warpgroup + two consumer 
 constexpr int GM_CONSUMERS = 256;
 constexpr int GM_PRODUCER_REGS = 56;       // 56 x 128 + 224 x 256 = 168 x 384
 constexpr int GM_CONSUMER_REGS = 224;
-constexpr int GM_BOX = 32;                 // a TMA box: 32 floats (128 bytes) wide
 constexpr int GM_W_FLOATS = GM_BK * GM_BM;  // 16 KB: four 32 x 32 boxes
 constexpr int GM_X_FLOATS = GM_BT * GM_BK;  // 16 KB: one 128 x 32 box
 constexpr int GM_STAGE_BYTES = 4 * (GM_W_FLOATS + GM_X_FLOATS);
@@ -89,94 +89,6 @@ struct GemmArgs {
   int splits, kps;  // parts of K and stages a part (the last may be shorter)
   int units;        // tiles x splits; unit = tile * splits + part
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of the given parity has completed (a fresh
-// barrier counts the phase before its first as complete: parity 1 passes).
-// A wait of over about ten seconds is a broken pipeline, never a slow one:
-// it traps, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0)
-      start = clock64();
-    else if (clock64() - start > 20000000000LL)
-      __trap();
-  }
-}
-
-// One 2-D box of a tensor map into shared memory, completing on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-template <int ID, int COUNT>
-__device__ __forceinline__ void bar_sync() {
-  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
-}
-
-// d = A B (acc 0: the accumulators' old values are ignored) or d += A B,
-// one tf32 pass of wgmma.m64n128k8 (A from registers, B by descriptor).
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
-                                           uint32_t a3, uint64_t desc, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(acc));
-}
 
 __device__ __forceinline__ int k_begin(const GemmArgs& a, int unit) {
   return (unit % a.splits) * a.kps;
@@ -241,8 +153,8 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
       const int k0 = cur_k * GM_BK;
       float* W = raw + s * (GM_W_FLOATS + GM_X_FLOATS);
 #pragma unroll
-      for (int b = 0; b < GM_BM / GM_BOX; ++b)
-        tma_load(W + b * GM_BK * GM_BOX, &tm_w, full_r + s, n0 + b * GM_BOX, k0);
+      for (int b = 0; b < GM_BM / TMA_BOX; ++b)
+        tma_load(W + b * GM_BK * TMA_BOX, &tm_w, full_r + s, n0 + b * TMA_BOX, k0);
       tma_load(W + GM_W_FLOATS, &tm_x, full_r + s, k0, t0);
       if (++cur_k == k_end(a, cur_unit)) {
         cur_unit += gridDim.x;
@@ -298,9 +210,9 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
   // 2t + 1 of each k-step.  In the swizzled box (32 k x 32 n) of those
   // columns, row k's chunk cb sits at cb ^ (k % 8).
   const int box = 2 * c + (w >> 1), nb = 16 * (w & 1) + 2 * g, cb = nb >> 2;
-  const int off_a = box * GM_BK * GM_BOX + (2 * t) * GM_BOX + ((cb ^ (2 * t)) << 2) + (nb & 3);
+  const int off_a = box * GM_BK * TMA_BOX + (2 * t) * TMA_BOX + ((cb ^ (2 * t)) << 2) + (nb & 3);
   const int off_b =
-      box * GM_BK * GM_BOX + (2 * t + 1) * GM_BOX + ((cb ^ (2 * t + 1)) << 2) + (nb & 3);
+      box * GM_BK * TMA_BOX + (2 * t + 1) * TMA_BOX + ((cb ^ (2 * t + 1)) << 2) + (nb & 3);
 
   float acc[64], part[64];
 #pragma unroll
@@ -319,8 +231,8 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
       Split af[4][4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {  // k-step j: rows 8j + 2t and 8j + 2t + 1
-        const float2 ra = *reinterpret_cast<const float2*>(W + off_a + 8 * j * GM_BOX);
-        const float2 rb = *reinterpret_cast<const float2*>(W + off_b + 8 * j * GM_BOX);
+        const float2 ra = *reinterpret_cast<const float2*>(W + off_a + 8 * j * TMA_BOX);
+        const float2 rb = *reinterpret_cast<const float2*>(W + off_b + 8 * j * TMA_BOX);
         af[j][0] = split_tf32(ra.x);
         af[j][1] = split_tf32(ra.y);
         af[j][2] = split_tf32(rb.x);
@@ -332,9 +244,9 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
       for (int j = 0; j < 4; ++j) {
         const uint64_t bh = wgmma_desc(hi + 64 * j, 128, GM_BK * 32);
         const uint64_t bl = wgmma_desc(hi + GM_X_FLOATS + 64 * j, 128, GM_BK * 32);
-        wgmma_n128(part, af[j][0].lo, af[j][1].lo, af[j][2].lo, af[j][3].lo, bh, j > 0);
-        wgmma_n128(part, af[j][0].hi, af[j][1].hi, af[j][2].hi, af[j][3].hi, bl, 1);
-        wgmma_n128(part, af[j][0].hi, af[j][1].hi, af[j][2].hi, af[j][3].hi, bh, 1);
+        wgmma_tf32_d<128>(part, af[j][0].lo, af[j][1].lo, af[j][2].lo, af[j][3].lo, bh, j > 0);
+        wgmma_tf32_d<128>(part, af[j][0].hi, af[j][1].hi, af[j][2].hi, af[j][3].hi, bl, 1);
+        wgmma_tf32_d<128>(part, af[j][0].hi, af[j][1].hi, af[j][2].hi, af[j][3].hi, bh, 1);
       }
       wgmma_commit();
       wgmma_wait();
@@ -399,47 +311,6 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no link
-// to libcuda); nullptr where it is missing.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A row-major (rows, cols) float32 matrix read in boxes of (box_rows, 32)
-// with the 128-byte swizzle, zero past its edges.
-bool make_map(CUtensorMap* map, const float* ptr, int rows, int cols, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(float)};
-  const cuuint32_t box[2] = {GM_BOX, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -3,10 +3,10 @@
 
 Replaces no TPU kernel: the JAX package's MoE layer is capacity-dropping
 einsums, which the port keeps for mixtral and dbrx (``models/moe.py``
-``apply_moe``).  A dropless layer (granite-4.0-h) computes every
-assignment to a held expert, so each expert's rows are known only on the
-device; cuBLAS takes a product's rows from the host.  This computes, over
-assignments sorted by expert,
+``apply_moe``).  A dropless layer (granite-4.0-h, DeepSeek-V2) computes
+every assignment to a held expert, so each expert's rows are known only on
+the device; cuBLAS takes a product's rows from the host.  This computes,
+over assignments sorted by expert,
 
     h_r = silu(x_tok(r) W_gate[e]) * (x_tok(r) W_up[e]),   o_r = gate_r (h_r W_down[e]),
     y_t = sum over k of o_pos(t, k) where that row belongs to a held expert,
@@ -14,10 +14,15 @@ assignments sorted by expert,
 with the rows of held expert e at ``offsets[e] .. offsets[e + 1] - 1``.  On
 a CUDA tensor it launches ``csrc/moe.cu`` (three kernels a call: the gate
 and up products with the SwiGLU epilogue, the down product with the gate
-weight, and the combine, each over a grid sized for the worst case whose
-tiles past an expert's rows exit, so the host never reads a count); on a
-CPU tensor it runs the plain ``ref.moe_experts_ref``.  Float32 only on the
-card.  No backward: the dropless layer serves, it does not train.
+weight, each a persistent grid of 3xTF32 wgmma blocks that builds its list
+of (expert, column slice, token tile) units from the offsets on the device,
+so the host never reads a count; then the combine); on a CPU tensor it runs
+the plain ``ref.moe_experts_ref``.  Float32 only on the card.  No backward:
+the dropless layer serves, it does not train.
+
+A unit's token tile is ``TILE_ROWS`` of an expert's rows: each held
+expert's weights are streamed once a tile of its rows.  48 rows beat 64
+and 128 on an H100 at both MoE cells' shapes (PERF.md).
 
 The launch goes through the custom op ``torch.ops.repro.moe_experts`` (a
 fake implementation for ``FakeTensorMode`` and meta tensors).
@@ -26,11 +31,19 @@ fake implementation for ``FakeTensorMode`` and meta tensors).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build, ref
 
-BN, BK = 64, 32                # csrc/moe.cu's tile: columns, depth
+TILE_ROWS = 48                 # csrc/moe.cu's MG_BT: a unit's token tile (wgmma's n)
+COLS_UP, COLS_DOWN = 64, 128   # a unit's columns of h (so F's multiple) and of y (D's)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _validate(x, tok, offsets, gates, pos, w_gate, w_up, w_down):
@@ -78,8 +91,9 @@ def _moe_op(x: torch.Tensor, tok: torch.Tensor, offsets: torch.Tensor, gates: to
     T, D = x.shape
     E, _, F = w_gate.shape
     K = pos.shape[1]
-    if D % BN or D % BK or F % BN or F % BK:
-        raise ValueError(f"moe_experts: D = {D} and F = {F} must be multiples of {BN}")
+    if D % COLS_DOWN or F % COLS_UP:
+        raise ValueError(f"moe_experts: D = {D} must be a multiple of {COLS_DOWN} and "
+                         f"F = {F} of {COLS_UP}")
     lib = _build.load()
     i32 = lambda t: t.to(torch.int32).contiguous()
     x, gates = x.contiguous(), gates.contiguous()
@@ -91,9 +105,10 @@ def _moe_op(x: torch.Tensor, tok: torch.Tensor, offsets: torch.Tensor, gates: to
     y = torch.empty((T, D), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.repro_moe_experts(
-            T, D, F, K, E, x.data_ptr(), tok.data_ptr(), offsets.data_ptr(), gates.data_ptr(),
-            pos.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-            h.data_ptr(), o.data_ptr(), y.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            T, D, F, K, E, _sm_count(x.device.index), x.data_ptr(),
+            tok.data_ptr(), offsets.data_ptr(), gates.data_ptr(), pos.data_ptr(),
+            w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(), o.data_ptr(),
+            y.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "moe_experts")
     moe_experts.launches += 1
     return y

@@ -62,6 +62,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import P, constrain, is_dtensor, mesh_shape, placements
 from repro_torch.kernels import ops
+from repro_torch.kernels.moe_gemm import TILE_ROWS
 from repro_torch.models.layers import _dense_init, apply_mlp, init_mlp, mm, specs_mlp
 from repro_torch.profiling.spans import span
 
@@ -307,30 +308,34 @@ def reset_held_counts():
 
 
 def held_counts() -> dict:
-    """{layer: {"assignments", "max_rows", "dropped", "calls"}} over the
-    ``apply_moe_dropless`` calls since the last reset: the assignments to
-    held experts (all computed), the most rows one held expert took in a
-    call, and the assignments past the rows the expert products' grid
-    covers (0: an expert takes at most one assignment a token, and the grid
-    covers as many rows as tokens).  Reading it synchronises with the
-    device; read it after the window, as ``drop_counts``."""
+    """{layer: {"assignments", "max_rows", "dropped", "tiles", "experts",
+    "calls"}} over the ``apply_moe_dropless`` calls since the last reset: the
+    assignments to held experts (all computed), the most rows one held
+    expert took in a call, the assignments past T rows an expert (0: an
+    expert takes at most one assignment a token), the token tiles of the
+    grouped expert products, sum over held experts of ceil(rows /
+    ``moe_gemm.TILE_ROWS``) (each tile streams its expert's weights once;
+    the plain CPU version counts the same), and the held experts that had
+    rows.  Reading it synchronises with the device; read it after the
+    window, as ``drop_counts``."""
     out = {}
     for layer, t in sorted(_held.items()):
         if t.host:
-            n, rows, dropped = t.dev.tolist()
+            n, dropped, tiles, experts, rows = t.dev.tolist()
             out[layer] = {"assignments": n, "max_rows": rows, "dropped": dropped,
-                          "calls": t.host}
+                          "tiles": tiles, "experts": experts, "calls": t.host}
     return out
 
 
 def _count_held(layer: int, offsets, T: int):
     """Accumulate a call's counts on the device, in place (no host
-    synchronisation): a sum, a max and a sum."""
+    synchronisation): four sums and a max."""
     rows = offsets[1:] - offsets[:-1]
-    c = torch.stack([offsets[-1], rows.max(), (rows - T).clamp(min=0).sum()])
+    c = torch.stack([offsets[-1], (rows - T).clamp(min=0).sum(),
+                     ((rows + TILE_ROWS - 1) // TILE_ROWS).sum(), (rows > 0).sum(), rows.max()])
     t = _tally(_held, layer, c)
-    t.dev[0::2].add_(c[0::2])
-    torch.maximum(t.dev[1:2], c[1:2], out=t.dev[1:2])
+    t.dev[:4].add_(c[:4])
+    torch.maximum(t.dev[4:], c[4:], out=t.dev[4:])
     t.host += 1
 
 

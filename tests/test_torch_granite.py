@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from tests._torch_granite import reference, reference_logits, rel, sizes, small_model
+from repro_torch.kernels.moe_gemm import TILE_ROWS
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe
 from repro_torch.models import ssm
@@ -95,7 +96,8 @@ def test_dropless_layer_and_the_caches_reset():
         want = moe.moe_dropless_plain(p, x, cfg)
     T = x.shape[0] * x.shape[1]
     assert moe.held_counts() == {0: {"assignments": T * cfg.top_k, "max_rows": T,
-                                     "dropped": 0, "calls": 1}}
+                                     "dropped": 0, "tiles": 3 * -(-T // TILE_ROWS),
+                                     "experts": 3, "calls": 1}}
     assert rel(y, want) <= TOL
 
     tokens = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(11))

@@ -16,6 +16,7 @@ import torch
 
 from _torch_granite import small_model
 from repro_torch.configs import REGISTRY, reduced
+from repro_torch.kernels.moe_gemm import TILE_ROWS
 from repro_torch.models import graphs, moe
 from repro_torch.models import transformer as T
 from repro_torch.models.zoo import build_model
@@ -146,7 +147,7 @@ def test_moe_counts_accumulate_in_place():
     p = params["blocks"][0]["moe"]
     xs = [torch.rand(2, n, cfg.d_model, generator=torch.Generator().manual_seed(n)) - 0.5
           for n in (9, 5, 13)]
-    want = {"assignments": 0, "max_rows": 0, "dropped": 0, "calls": 0}
+    want = {"assignments": 0, "max_rows": 0, "dropped": 0, "tiles": 0, "experts": 0, "calls": 0}
     for x in xs:
         T_ = x.shape[0] * x.shape[1]
         _, _, offsets, _ = moe.route_sorted(p["router"], x.reshape(T_, -1), cfg.top_k, cfg.n_held)
@@ -154,6 +155,8 @@ def test_moe_counts_accumulate_in_place():
         want = {"assignments": want["assignments"] + int(offsets[-1]),
                 "max_rows": max(want["max_rows"], *rows),
                 "dropped": want["dropped"] + sum(max(r - T_, 0) for r in rows),
+                "tiles": want["tiles"] + sum(-(-r // TILE_ROWS) for r in rows),
+                "experts": want["experts"] + sum(r > 0 for r in rows),
                 "calls": want["calls"] + 1}
     moe.reset_held_counts()
     with torch.inference_mode():
